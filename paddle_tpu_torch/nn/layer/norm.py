@@ -1,0 +1,33 @@
+"""Normalization layers (``paddle_tpu/nn/layer/norm.py`` analog)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import functional as F
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with paddle's ``epsilon`` and parameter names
+    (``weight`` ones, ``bias`` zeros)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
+                 dtype=None):
+        super().__init__()
+        self.normalized_shape = ((normalized_shape,)
+                                 if isinstance(normalized_shape, int)
+                                 else tuple(normalized_shape))
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+                                              device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
+                                             device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            self.epsilon)
+
+    def extra_repr(self):
+        return (f"normalized_shape={list(self.normalized_shape)}, "
+                f"epsilon={self.epsilon}")

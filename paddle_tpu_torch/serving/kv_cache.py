@@ -1,0 +1,173 @@
+"""Block-paged KV cache: the serving engine's device-resident decode state
+(``paddle_tpu/serving/kv_cache.py`` analog, paged layout).
+
+The pools are preallocated at engine construction. Where the JAX package
+donates the pools to each compiled step and rebinds the returned arrays,
+the port writes into them in place on the device: ``paged_write_kv`` and
+the engine's prefill scatter update ``PagedKVCache.k``/``.v`` directly, and
+no second copy of a pool is ever live.
+
+The dense ``KVCache`` and ``extend_attend`` belong to a later slice
+(ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, resolve_dtype
+from ..kernels.paged_attention import decode_attend, paged_attention, paged_gather
+
+#: page-table entry marking an unallocated block. Device code never branches
+#: on it: lookups clamp sentinels to page 0, the reserved trash page the
+#: allocator never hands out, and the decode mask (``key_pos <= position``)
+#: keeps trash bytes out of the math.
+PAGE_SENTINEL = -1
+
+__all__ = ["PAGE_SENTINEL", "paged_write_kv", "paged_gather", "decode_attend",
+           "paged_decode_attend", "PagedKVCache"]
+
+
+def paged_write_kv(pool, new, page_table, positions):
+    """Scatter ``T`` tokens' K (or V) per slot into a ``[P, H_kv, ps, D]``
+    page pool, in place: token ``t`` of row ``b`` of ``new [B, H_kv, T, D]``
+    lands in page ``page_table[b, (positions[b]+t) // ps]`` at offset
+    ``(positions[b]+t) % ps``. Sentinel entries clamp to the trash page
+    (slots without a live request all write there, which is benign), and
+    writes past the table's capacity ``num_blocks * ps`` go to the trash
+    page too. Returns ``pool``."""
+    ps = pool.shape[2]
+    nb = page_table.shape[1]
+    pos = positions.long()
+    rows = torch.arange(new.shape[0], device=pool.device)
+    table = page_table.long()
+    for t in range(new.shape[2]):
+        p = pos + t
+        block = torch.clamp(p // ps, max=nb - 1)
+        pages = table[rows, block].clamp(min=0)
+        pages = torch.where(p < nb * ps, pages, torch.zeros_like(pages))
+        pool[pages, :, p % ps, :] = new[:, :, t, :].to(pool.dtype)
+    return pool
+
+
+def paged_decode_attend(q, k_pool, v_pool, page_table, positions):
+    """Single-position cached attention over block-paged pools through the
+    ragged paged-decode kernel (its wrapper runs the plain gather +
+    ``decode_attend`` version on CPU tensors)."""
+    return paged_attention(q, k_pool, v_pool, page_table, positions)
+
+
+class PagedKVCache:
+    """Block-paged K/V pools ``[L, num_pages, H_kv, page_size, D]`` on the
+    device, plus the per-slot page table (host numpy) and slot bookkeeping.
+
+    The page table is host state: the allocator mutates it between steps
+    and ``table_device()`` ships a snapshot into each decode step. Page 0
+    is the trash page; a default-sized pool holds
+    ``B_max * S_max/page_size + 1`` pages.
+    """
+
+    def __init__(self, num_layers: int, max_batch_size: int,
+                 num_kv_heads: int, max_seq_len: int, head_dim: int,
+                 dtype="float32", page_size: int = 16,
+                 num_pages: Optional[int] = None, device=None):
+        if max_seq_len % page_size:
+            raise ValueError(
+                f"max_seq_len {max_seq_len} not divisible by page_size "
+                f"{page_size}")
+        self.device = resolve_device(device)
+        self.num_layers = num_layers
+        self.max_batch_size = max_batch_size
+        self.num_kv_heads = num_kv_heads
+        self.max_seq_len = max_seq_len
+        self.head_dim = head_dim
+        self.page_size = page_size
+        self.num_blocks = max_seq_len // page_size
+        if num_pages is None:
+            num_pages = max_batch_size * self.num_blocks + 1
+        if num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (trash page + 1)")
+        self.num_pages = num_pages
+        shape = (num_layers, num_pages, num_kv_heads, page_size, head_dim)
+        dt = resolve_dtype(dtype)
+        self.k = torch.zeros(shape, dtype=dt, device=self.device)
+        self.v = torch.zeros(shape, dtype=dt, device=self.device)
+        self.page_table = np.full((max_batch_size, self.num_blocks),
+                                  PAGE_SENTINEL, np.int32)
+        self._free: List[int] = list(range(max_batch_size))[::-1]
+
+    @property
+    def nbytes(self) -> int:
+        return 2 * self.k.numel() * self.k.element_size()
+
+    def table_device(self) -> torch.Tensor:
+        """Snapshot of the host page table on the cache's device."""
+        return torch.from_numpy(self.page_table).to(self.device)
+
+    def assign_pages(self, slot: int, pages: List[int], start_block: int = 0):
+        for j, p in enumerate(pages):
+            self.page_table[slot, start_block + j] = p
+
+    def copy_page(self, src: int, dst: int):
+        """Copy-on-write: duplicate page ``src`` into page ``dst`` across
+        every layer of both pools, in place."""
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
+
+    def write_prefill(self, kvs, page_row, T: int):
+        """Install a ``T``-token prefill's per-layer K/V (each
+        ``[1, H_kv, T, D]``) into the pages of ``page_row`` (a slot's table
+        row), in place. Full pages go in one indexed copy per pool; a
+        partial last block writes only its ``T % ps`` tokens. Blocks whose
+        entry is the sentinel land on the trash page."""
+        ps = self.page_size
+        knew = torch.stack([k[0] for k, _ in kvs])    # [L, Hkv, T, D]
+        vnew = torch.stack([v[0] for _, v in kvs])
+        pages = torch.from_numpy(
+            np.maximum(page_row[:(T + ps - 1) // ps], 0).astype(np.int64)
+        ).to(self.device)
+        full = T // ps
+        L, Hkv, _, D = knew.shape
+        for pool, new in ((self.k, knew), (self.v, vnew)):
+            new = new.to(pool.dtype)
+            if full:
+                pool[:, pages[:full]] = new[:, :, :full * ps] \
+                    .reshape(L, Hkv, full, ps, D).transpose(1, 2)
+            if T % ps:
+                pool[:, pages[full], :, :T % ps] = new[:, :, full * ps:]
+
+    def slot_pages(self, slot: int) -> List[int]:
+        row = self.page_table[slot]
+        return [int(p) for p in row if p != PAGE_SENTINEL]
+
+    def clear_slot(self, slot: int) -> List[int]:
+        """Reset a slot's table row to sentinels; returns the page ids the
+        caller must hand back to the allocator."""
+        pages = self.slot_pages(slot)
+        self.page_table[slot, :] = PAGE_SENTINEL
+        return pages
+
+    def alloc_slot(self) -> Optional[int]:
+        """Lowest free slot index, or None when the batch is full."""
+        return self._free.pop() if self._free else None
+
+    def free_slot(self, slot: int):
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_slots(self) -> int:
+        return self.max_batch_size - len(self._free)
+
+    def layer_caches(self):
+        """Per-layer ``(k_pool, v_pool, page_table)`` triples — views into
+        the pools, so a decode step's writes land in them."""
+        table = self.table_device()
+        return [(self.k[l], self.v[l], table) for l in range(self.num_layers)]
