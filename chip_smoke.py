@@ -11,16 +11,25 @@ Phases, each of which exits non-zero on failure:
    compiled with ``nvcc`` for sm_90a (one process per source, in parallel),
    and the Triton LayerNorm is JIT-compiled;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving slice's shapes, in bf16 and fp32, with the stated
-   tolerance; then timed with CUDA events beside the plain version, a
-   library yardstick the port never calls, and the H100 bound;
-4. slice at full width: GPT-3 1.3B (24 layers, bf16, random weights from
-   the seed) behind ``Engine.generate``, 16 greedy requests through 8
-   slots, with each kernel's launch count over that run;
-5. slice vs plain: at full width and depth 2 in fp32, the same weights
+   the serving and training slices' shapes, in bf16 and fp32, with the
+   stated tolerance; then timed with CUDA events and the profiler beside
+   the plain version, a library yardstick the port never calls, and the
+   H100 bound;
+4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
+   weights from the seed) behind ``Engine.generate``, 16 greedy requests
+   through 8 slots, with each kernel's launch count over that run;
+5. serving vs plain: at full width and depth 2 in fp32, the same weights
    serve 3 greedy prompts on the card and on the CPU (plain versions);
    tokens must match and the last decode logits agree; on the card, flash
-   prefill over the generated text agrees with the paged decode step.
+   prefill over the generated text agrees with the paged decode step;
+6. training slice at full width: GPT-3 1.3B (bf16, full recompute, chunked
+   loss) through ``make_sharded_train_step(model, AdamW(...))`` with fp32
+   master weights and bf16 moments, batch 16 x 2048; one warm-up step,
+   five timed steps and one profiled step, with each kernel's launch
+   count over the timed steps; the loss must be finite and fall;
+7. training vs plain: at full width and depth 2 in fp32, the same weights
+   take 3 AdamW steps on the card and on the CPU; losses, the first
+   step's gradients and the parameters' updates after step 3 agree.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -57,7 +66,20 @@ TOL = {  # max |kernel - plain| accepted, by (kernel, dtype)
     ("flash_lse", "bfloat16"): 1e-3,
     ("paged", "float32"): 1e-4,
     ("paged", "bfloat16"): 2e-2,
+    ("flash_bwd", "float32"): 1e-4,
+    # dq/dk/dv of |d| < 8 round to bf16: one rounding step is 2^-5; ds and
+    # P are rounded to bf16 in both versions, so a rounding that flips on
+    # an fp32 ulp moves a sum by about that much as well
+    ("flash_bwd", "bfloat16"): 3.2e-2,
 }
+# the kernels and the path that launches them
+SERVING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
+                   "paged_attention")
+TRAINING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                    "fused_adamw_update")
+ADAMW_HP = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                beta1_pow=0.9 ** 3, beta2_pow=0.999 ** 3)
 
 
 def fail(msg: str):
@@ -124,10 +146,11 @@ def kernel_checks(K, gen):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # -- LayerNorm: decode rows (B_max = 8) and a prefill bucket, H = 2048
+    # -- LayerNorm: decode rows (B_max = 8), a prefill bucket and the
+    #    training slice's 16 x 2048 rows, H = 2048
     H = 2048
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((8, 1, H), (1, 1024, H), (3, 77, H)):
+        for shape in ((8, 1, H), (1, 1024, H), (3, 77, H), (16, 2048, H)):
             x = randn(*shape, dtype=dtype)
             w = (1 + 0.1 * randn(H, dtype=torch.float32)).to(dtype)
             b = (0.1 * randn(H, dtype=torch.float32)).to(dtype)
@@ -138,7 +161,7 @@ def kernel_checks(K, gen):
                   f"max_abs_err {err:.3e} (tol {tol:.1e})", flush=True)
             check(err <= tol, f"layer_norm {dtype} {shape}: {err} > {tol}")
     timings = {}
-    for R in (8, 1024):
+    for R in (8, 1024, 16 * 2048):
         x = randn(R, H, dtype=torch.bfloat16)
         w = randn(H, dtype=torch.bfloat16)
         b = randn(H, dtype=torch.bfloat16)
@@ -161,6 +184,12 @@ def kernel_checks(K, gen):
         shape="bf16 x[8, 2048] (decode rows)", max_abs_err=err, ms=ms,
         device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=lib)
+    ms, plain, lib, bms, by, err, dms = timings[16 * 2048]
+    rows["fused_layer_norm"].update(
+        train_shape="bf16 x[32768, 2048] (training rows, B16 x S2048)",
+        train_max_abs_err=err, train_ms=ms, train_device_ms=dms,
+        train_plain_ms=plain, train_bound_ms=bms, train_bound_by=by,
+        train_library_ms=lib)
 
     # -- flash forward: prefill B=1, H=16, D=128, causal; plus a ragged S
     #    and GQA for correctness
@@ -268,6 +297,208 @@ def kernel_checks(K, gen):
     return rows
 
 
+def train_kernel_checks(K, gen, rows):
+    """The training kernels (flash backward, fused AdamW) vs plain on the
+    card, then timed at the training slice's shapes; adds their rows to
+    ``rows`` and the flash forward's training-shape numbers to its row."""
+    from paddle_tpu_torch.kernels.flash_attention import _delta
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # -- flash backward: dq, dk, dv vs flash_attention_bwd_ref, from the
+    #    forward kernel's O and LSE; ragged S, GQA 16/4 (dk/dv summed over
+    #    each KV head's query heads) and D 64
+    cases = [(1, 1024, 16, 16, 128, True), (1, 200, 16, 16, 128, True),
+             (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        tol = TOL[("flash_bwd", dn)]
+        for B, S, Hq, Hkv, D, causal in cases:
+            q = randn(B, S, Hq, D, dtype=dtype)
+            k = randn(B, S, Hkv, D, dtype=dtype)
+            v = randn(B, S, Hkv, D, dtype=dtype)
+            do = randn(B, S, Hq, D, dtype=dtype)
+            o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+            got = K.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = K.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                             causal=causal)
+            errs = [max_err(a, b) for a, b in zip(got, want)]
+            mags = [b.float().abs().max().item() for b in want]
+            print(f"  flash_bwd {str(dtype):15s} B{B} S{S} H{Hq}/{Hkv} D{D} "
+                  f"causal={causal}: dq/dk/dv err "
+                  f"{' '.join(f'{e:.3e}' for e in errs)} (tol {tol:.1e}; "
+                  f"max |d| {' '.join(f'{m:.2f}' for m in mags)})",
+                  flush=True)
+            check(all(e <= tol for e in errs) and all(
+                g.shape == w.shape and g.dtype == w.dtype
+                for g, w in zip(got, want)),
+                f"flash_bwd {dtype} S{S} H{Hq}/{Hkv} D{D}: {errs}")
+
+    # the training slice's shape, bf16 B16 S2048 H16 D128 causal: forward
+    # (O and LSE), dq and dk/dv against their plain versions, which hold
+    # [B, H, S, S] fp32 scores, so they run one batch row at a time. The
+    # backward's plain version starts from the forward kernel's O and LSE,
+    # which are held to theirs first
+    B, S, Hq, D = 16, 2048, 16, 128
+    q, k, v, do = (randn(B, S, Hq, D, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    delta = _delta(o, do)
+    dq, (dk, dv) = (K.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+                    K.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+    err = dict(o=0.0, lse=0.0, dq=0.0, dkv=0.0)
+    for b in range(B):
+        r, rh = slice(b, b + 1), slice(b * Hq, (b + 1) * Hq)
+        o_ref, lse_ref = K.flash_attention_ref(q[r], k[r], v[r], causal=True)
+        ref = K.flash_attention_bwd_ref(q[r], k[r], v[r], o[r], lse[rh],
+                                        do[r], causal=True)
+        err["o"] = max(err["o"], max_err(o[r], o_ref))
+        err["lse"] = max(err["lse"], max_err(lse[rh], lse_ref))
+        err["dq"] = max(err["dq"], max_err(dq[r], ref[0]))
+        err["dkv"] = max(err["dkv"], max_err(dk[r], ref[1]),
+                         max_err(dv[r], ref[2]))
+    del o_ref, lse_ref, ref
+    tol_o, tol_l = TOL[("flash", "bfloat16")], TOL[("flash_lse", "bfloat16")]
+    tol_b = TOL[("flash_bwd", "bfloat16")]
+    print(f"  flash bf16 B{B} S{S} H{Hq} D{D} causal (training shape), plain "
+          f"one batch row at a time: O err {err['o']:.3e} (tol {tol_o:.1e}), "
+          f"LSE err {err['lse']:.3e} (tol {tol_l:.1e}), dq err "
+          f"{err['dq']:.3e}, dk/dv err {err['dkv']:.3e} (tol {tol_b:.1e})",
+          flush=True)
+    check(err["o"] <= tol_o and err["lse"] <= tol_l and err["dq"] <= tol_b
+          and err["dkv"] <= tol_b, f"flash at the training shape: {err}")
+    err_dq, err_dkv = err["dq"], err["dkv"]
+    fwd_ms = timed_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True), 3)
+    fwd_dms = device_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True),
+                        "flash_fwd_kernel", 3)
+    fwd_plain = timed_ms(lambda: K.flash_attention_ref(q, k, v, causal=True),
+                         3)
+    torch.cuda.empty_cache()
+    ms_dq = timed_ms(lambda: K.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                      True), 3)
+    ms_dkv = timed_ms(lambda: K.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                        delta, True), 3)
+    dms_dq = device_ms(lambda: K.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, True), "flash_bwd_dq_kernel", 3)
+    dms_dkv = device_ms(lambda: K.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, True), "flash_bwd_dkv_kernel", 3)
+    plain = timed_ms(lambda: K.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                       causal=True), 3)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_f = timed_ms(sdpa_fwd, 10)
+    lib_fb = timed_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt),
+                                                  dot), 10)
+    lib = lib_fb - lib_f
+    pairs = S * (S + 1) // 2
+    io = B * S * Hq * D * 2  # one bf16 [B, S, H, D] tensor
+    stats = 2 * B * Hq * S * 4  # lse and delta
+    b_dq, by_dq = bound(5 * io + stats, 6 * D * pairs * B * Hq, PEAK_BF16)
+    b_dkv, by_dkv = bound(6 * io + stats, 8 * D * pairs * B * Hq, PEAK_BF16)
+    b_fwd, by_fwd = bound(4 * io + stats // 2, 4 * D * pairs * B * Hq,
+                          PEAK_BF16)
+    print(f"  flash bf16 B{B} S{S} H{Hq} D{D} causal (training shape): fwd "
+          f"kernel {fwd_ms:.3f} ms (device {fwd_dms:.3f} ms, bound "
+          f"{b_fwd:.4f} ms {by_fwd}), plain fwd {fwd_plain:.3f} ms, F.sdpa "
+          f"fwd {lib_f:.3f} ms; dq kernel {ms_dq:.3f} ms (device "
+          f"{dms_dq:.3f} ms, bound {b_dq:.4f} ms {by_dq}), dk/dv kernel "
+          f"{ms_dkv:.3f} ms (device {dms_dkv:.3f} ms, bound {b_dkv:.4f} ms "
+          f"{by_dkv}); plain backward (dq+dk+dv) {plain:.3f} ms; F.sdpa "
+          f"backward {lib:.3f} ms (fwd+bwd {lib_fb:.3f} - fwd {lib_f:.3f})",
+          flush=True)
+    common = dict(route="cuda",
+                  source="paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+                  shape=f"bf16 B{B} S{S} H{Hq} D{D} causal (training)",
+                  plain_ms=plain, library_ms=lib)
+    rows["flash_attention_bwd_dq"] = dict(
+        name="flash_attention_bwd_dq",
+        replaces="paddle_tpu/kernels/flash_attention.py:145",
+        max_abs_err=err_dq, ms=ms_dq, device_ms=dms_dq, bound_ms=b_dq,
+        bound_by=by_dq, **common)
+    rows["flash_attention_bwd_dkv"] = dict(
+        name="flash_attention_bwd_dkv",
+        replaces="paddle_tpu/kernels/flash_attention.py:182",
+        max_abs_err=err_dkv, ms=ms_dkv, device_ms=dms_dkv, bound_ms=b_dkv,
+        bound_by=by_dkv, **common)
+    rows["flash_attention_fwd"].update(
+        train_shape=common["shape"], train_max_abs_err=err["o"],
+        train_lse_max_abs_err=err["lse"], train_ms=fwd_ms,
+        train_device_ms=fwd_dms, train_plain_ms=fwd_plain,
+        train_bound_ms=b_fwd, train_bound_by=by_fwd, train_library_ms=lib_f)
+    del q, k, v, do, o, lse, delta, dq, dk, dv, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    # -- fused AdamW: the optimizer's three dtype combinations (param,
+    #    grad, moments) at a tail-only size, an odd size past one vector
+    #    chunk, fc1's 2048 x 8192 and the word embedding's 50304 x 2048 (the
+    #    train step's largest tensor); the kernel repeats the plain
+    #    version's roundings op by op, so they agree to the bit
+    f32, bf16 = torch.float32, torch.bfloat16
+    combos = ((f32, f32, f32), (f32, bf16, bf16), (bf16, bf16, bf16))
+
+    def adamw_inputs(n, pd, gd, md):
+        return (randn(n, dtype=f32).to(pd), randn(n, dtype=f32).to(gd),
+                (0.1 * randn(n, dtype=f32)).to(md),
+                (0.1 * randn(n, dtype=f32)).abs().to(md))
+
+    for n in (33, 65553, 2048 * 8192, 50304 * 2048):
+        for pd, gd, md in combos:
+            p, g, m, v = adamw_inputs(n, pd, gd, md)
+            want = K.adamw_ref(p, g, m, v, **ADAMW_HP)
+            got = (p.clone(), m.clone(), v.clone())
+            K.fused_adamw_update(got[0], g, got[1], got[2], **ADAMW_HP)
+            errs = [max_err(a, b) for a, b in zip(got, want)]
+            print(f"  fused_adamw n={n} p {pd} g {gd} m/v {md}: p/m/v err "
+                  f"{' '.join(f'{e:.1e}' for e in errs)} (tol 0)", flush=True)
+            check(all(e == 0 for e in errs), f"adamw n={n} {pd}/{gd}/{md}: "
+                  f"{errs}")
+    n = 2048 * 8192
+    p, g, m, v = adamw_inputs(n, f32, bf16, bf16)
+
+    def ours():
+        K.fused_adamw_update(p, g, m, v, **ADAMW_HP)
+
+    ms = timed_ms(ours, 50)
+    dms = device_ms(ours, "fused_adamw_kernel", 20)
+    plain = timed_ms(lambda: K.adamw_ref(p, g, m, v, **ADAMW_HP), 20)
+    err = max(max_err(a, b) for a, b in zip(
+        K.adamw_ref(p, g, m, v, **ADAMW_HP),
+        K.fused_adamw_update(p.clone(), g, m.clone(), v.clone(), **ADAMW_HP)))
+    bms, by = bound(18 * n, 15 * n, PEAK_FP32)
+    # the library's fused AdamW takes one dtype for all four tensors: time
+    # both it and the kernel on fp32 p/g/m/v (32 B per element)
+    p32, g32, m32, v32 = adamw_inputs(n, f32, f32, f32)
+    step_t = torch.tensor(3.0, device=dev)
+    lib = timed_ms(lambda: torch._fused_adamw_(
+        [p32], [g32], [m32], [v32], [], [step_t], lr=ADAMW_HP["lr"],
+        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False), 50)
+    ms32 = timed_ms(lambda: K.fused_adamw_update(p32, g32, m32, v32,
+                                                 **ADAMW_HP), 50)
+    print(f"  fused_adamw fp32 master + bf16 g/m/v, n={n}: kernel {ms:.4f} ms "
+          f"(device {dms:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms "
+          f"({by}); all fp32: kernel {ms32:.4f} ms, torch._fused_adamw_ "
+          f"{lib:.4f} ms", flush=True)
+    rows["fused_adamw_update"] = dict(
+        name="fused_adamw_update", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/kernels/fused_optim.py:24",
+        shape=f"n {n} (fc1), p fp32 master, g/m/v bf16",
+        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib,
+        library_note=f"torch._fused_adamw_ on fp32 p/g/m/v; the kernel on "
+                     f"the same fp32 tensors took {ms32:.4f} ms")
+
+
 # --------------------------------------------------------------- phase 4b
 def profile_kernels(fn):
     """Run ``fn`` under ``torch.profiler``; returns [(kernel name, device
@@ -366,6 +597,175 @@ def decode_logits(model, prompt, gen_tokens, device):
     return logits[0]
 
 
+# ---------------------------------------------------------------- phase 6
+def train_slice(K, seed: int, rows):
+    """GPT-3 1.3B train steps at full width (bench_gpt_dp's configuration
+    at its batch of 16); fills the training kernels' launch counts into
+    ``rows``."""
+    import math
+
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**GPT3_1p3B, dropout=0.0, use_recompute=True,
+                    recompute_interval=1, loss_chunk=128)
+    B, S, timed = 16, 2048, 5
+    t_phase = t0 = time.perf_counter()
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                multi_precision=True, moment_dtype="bfloat16")
+    step = make_sharded_train_step(model, opt)
+    n = sum(p.numel() for p in model.parameters())
+    n_tensors = sum(1 for _ in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+    y = torch.roll(x, -1, dims=1)
+    torch.cuda.synchronize()
+    print(f"[6] GPT-3 1.3B train step ({n / 1e9:.3f} B params in {n_tensors} "
+          f"tensors, bf16, fp32 master weights, bf16 moments, recompute every "
+          f"block, loss_chunk {cfg.loss_chunk}), batch {B} x {S}; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(x, y)]
+    torch.cuda.synchronize()
+    print(f"    warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    busy, top = device_busy(lambda: losses.append(step(x, y)), top=10)
+    losses = [float(v) for v in losses]
+    tokens = B * S
+    # bench.py's FLOP count (bench_gpt_dp): 6N + 12*L*H*S per token; it
+    # leaves out the recomputed forward
+    flops = (6 * n + 12 * cfg.num_layers * cfg.hidden_size * S) * tokens
+    print(f"    losses {' '.join(f'{v:.4f}' for v in losses)} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f})", flush=True)
+    print(f"    step {step_s * 1e3:.1f} ms host clock over {timed} steps = "
+          f"{tokens / step_s:.1f} tokens/s; MFU {flops / step_s / PEAK_BF16:.4f}"
+          f" ({flops:.4e} FLOP/step, recompute not counted, vs 989 TFLOP/s); "
+          f"max memory allocated {peak / 2**30:.2f} GiB", flush=True)
+    print(f"    profiled step: device busy {busy * 1e3:.1f} ms, idle share "
+          f"{1 - busy / step_s:.4f} (against the timed steps' mean)",
+          flush=True)
+    for name, t in top:
+        print(f"     {t * 1e3:9.3f} ms  {name[:90]}", flush=True)
+    print(f"    kernel launches over the {timed} timed steps: {counts}",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"first loss {losses[0]} is not within 0.5 of ln V")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+          f"a kernel of the training path was never launched: {counts}")
+    L = cfg.num_layers
+    check(counts["flash_attention_fwd"] == 2 * L * timed
+          and counts["flash_attention_bwd_dq"] == L * timed
+          and counts["flash_attention_bwd_dkv"] == L * timed
+          and counts["fused_adamw_update"] == n_tensors * timed,
+          f"launches per step differ from 2L flash forwards (recompute), L "
+          f"dq and dk/dv, one AdamW per parameter tensor: {counts}")
+    for name in TRAINING_KERNELS:  # LayerNorm and flash fwd serve as well
+        key = "launches_train" if "launches" in rows[name] else "launches"
+        rows[name][key] = counts[name]
+    print(f"    phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
+def train_vs_plain(K, seed: int):
+    """Full width, depth 2, fp32: 3 AdamW steps on the card (kernels) and
+    on the CPU (plain versions) from the same weights and batches."""
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig(**{**GPT3_1p3B, "num_layers": 2}, dropout=0.0,
+                    use_recompute=True, loss_chunk=64)
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(seed))
+    gpu = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    p0 = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+    lr = 1e-3
+    steps = {}
+    for side, dev, m in (("card", "cuda", gpu), ("cpu", "cpu", cpu)):
+        m.train()
+        steps[side] = make_sharded_train_step(
+            m, AdamW(learning_rate=lr, parameters=m.named_parameters()),
+            device=dev)
+    rng = torch.Generator().manual_seed(seed + 2)
+    K.reset_launch_counts()
+    for i in range(3):
+        x = torch.randint(0, cfg.vocab_size, (2, 128), generator=rng)
+        y = torch.roll(x, -1, dims=1)
+        lg = float(steps["card"](x, y))
+        lc = float(steps["cpu"](x, y))
+        # fp32 CE near ln V: GEMM summation orders differ (cuBLAS / CPU)
+        print(f"[7] step {i + 1}: loss card {lg:.6f} CPU {lc:.6f} (|diff| "
+              f"{abs(lg - lc):.2e}, tol 1e-4)", flush=True)
+        check(abs(lg - lc) <= 1e-4, f"step {i + 1} losses differ: {lg} {lc}")
+        if i == 0:
+            # the autograd repair: every parameter has a gradient on the
+            # card, and it agrees with the CPU's to 1e-3 of its largest
+            # entry (fp32 summation order through two blocks and the head)
+            missing = [k for k, p in gpu.named_parameters() if p.grad is None]
+            check(not missing, f"parameters without a gradient on the card: "
+                  f"{missing}")
+            worst = max((max_err(p.grad.cpu(), q.grad)
+                         / max(q.grad.abs().max().item(), 1e-30), k)
+                        for (k, p), q in zip(gpu.named_parameters(),
+                                             cpu.parameters()))
+            print(f"    step 1 gradients: every parameter has one on the "
+                  f"card; worst max|diff| / max|grad| {worst[0]:.2e} "
+                  f"({worst[1]}, tol 1e-3)", flush=True)
+            check(worst[0] <= 1e-3, f"gradients differ: {worst}")
+    counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+          f"kernels not used on the card: {counts}")
+    # the updates after step 3, in L2 over the model and per tensor, to
+    # 1e-2 (a tensor the card did not update would be off by 1). The K
+    # third of each qkv bias is set apart: its true gradient is zero
+    # (softmax is shift-invariant along a row), so both sides step rounding
+    # noise, and Adam moves such an entry by up to lr per step in whichever
+    # direction the noise points; it is held to that bound, 2 * 3 * lr
+    k_part = slice(cfg.num_heads * cfg.head_dim,
+                   (cfg.num_heads + cfg.num_kv_heads) * cfg.head_dim)
+    num = den = 0.0
+    worst, worst_max, k_bias = (0.0, ""), 0.0, 0.0
+    for (k, p), q in zip(gpu.named_parameters(), cpu.parameters()):
+        dg, dc = p.detach().cpu() - p0[k], q.detach() - p0[k]
+        if k.endswith("attn.qkv.bias"):
+            k_bias = max(k_bias, max_err(dg[k_part], dc[k_part]))
+            dg[k_part] = dc[k_part] = 0
+        d2, c2 = (dg - dc).square().sum().item(), dc.square().sum().item()
+        num, den = num + d2, den + c2
+        worst = max(worst, ((d2 / max(c2, 1e-30)) ** 0.5, k))
+        worst_max = max(worst_max, max_err(dg, dc))
+    total = (num / den) ** 0.5
+    print(f"    after step 3, the K third of the qkv biases set apart: "
+          f"||update card - update CPU|| / ||update CPU|| {total:.2e} over "
+          f"the model, worst tensor {worst[0]:.2e} ({worst[1]}) (tol 1e-2 "
+          f"each); largest element difference {worst_max:.2e} (3 steps of "
+          f"lr {lr} move a parameter up to ~{3 * lr:.0e}); the K third of "
+          f"the qkv biases {k_bias:.2e} (tol {6 * lr:.0e}); launches "
+          f"{counts}", flush=True)
+    check(total <= 1e-2 and worst[0] <= 1e-2 and k_bias <= 6 * lr,
+          f"parameter updates differ: {total}, {worst}, K bias {k_bias}")
+    print(f"    phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -412,6 +812,7 @@ def main() -> int:
     print("[3] kernels vs plain on the card", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = kernel_checks(K, gen)
+    train_kernel_checks(K, gen, rows)
 
     # ---- 4. slice at full width
     from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
@@ -466,10 +867,10 @@ def main() -> int:
           "tokens")
     check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
           "token id out of range")
-    check(all(c > 0 for c in counts.values()),
+    check(all(counts[k] > 0 for k in SERVING_KERNELS),
           f"a kernel of the path was never launched: {counts}")
-    for name, row in rows.items():
-        row["launches"] = counts[name]
+    for name in SERVING_KERNELS:
+        rows[name]["launches"] = counts[name]
     where_time_goes(model, eng, prompts, SamplingParams)
     del model, eng
     torch.cuda.empty_cache()
@@ -496,7 +897,8 @@ def main() -> int:
     print(f"    plain on the CPU            {out_cpu}", flush=True)
     check(out_gpu == out_cpu, "greedy tokens differ between the kernels on "
           "the card and the plain versions on the CPU")
-    check(all(c > 0 for c in counts.values()), f"kernels not used: {counts}")
+    check(all(counts[k] > 0 for k in SERVING_KERNELS),
+          f"kernels not used: {counts}")
     with torch.no_grad():
         lg = decode_logits(gpu_model, prompts[1], out_gpu[1], "cuda")
         lc = decode_logits(cpu_model, prompts[1], out_cpu[1], "cpu")
@@ -519,13 +921,21 @@ def main() -> int:
         check(err <= 1e-3 and int(lp[0].argmax()) == out_gpu[1][-1],
               f"prefill/decode disagree: {err}")
     print(f"    phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
 
-    # ---- 6/7. results
+    # ---- 6. training slice at full width; 7. training vs plain
+    train_slice(K, args.seed, rows)
+    train_vs_plain(K, args.seed)
+
+    # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": [rows[k] for k in
                                   ("fused_layer_norm", "flash_attention_fwd",
-                                   "paged_attention")]}), flush=True)
+                                   "paged_attention", "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv",
+                                   "fused_adamw_update")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

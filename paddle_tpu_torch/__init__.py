@@ -13,6 +13,8 @@ it launches the kernel or raises.
 This package imports nothing of JAX and nothing of ``paddle_tpu``.
 """
 
+from . import distributed, kernels, models, nn, optimizer
 from .device import resolve_device, resolve_dtype
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["distributed", "kernels", "models", "nn", "optimizer",
+           "resolve_device", "resolve_dtype"]

@@ -1,0 +1,3 @@
+from . import fleet
+
+__all__ = ["fleet"]

@@ -11,6 +11,11 @@ operations per byte where the tensor cores, not memory, become the limit.
 The design keeps the whole row in registers (one program per row, the row
 padded to a power of two and masked), so x is read from device memory once
 and the statistics never leave the chip; w and b stay in L2 across rows.
+
+The backward is ``_ln_bwd_rule``'s arithmetic in plain PyTorch, as the JAX
+package computes it outside Pallas: ``LayerNormFunction`` joins the two,
+and ``fused_layer_norm`` goes through it only when autograd needs a
+backward, so serving calls reach the kernel with no autograd overhead.
 """
 
 from __future__ import annotations
@@ -61,10 +66,50 @@ def _get_kernel():
     return _kernel
 
 
+def layer_norm_bwd_ref(x, weight, g, eps: float = 1e-5):
+    """``_ln_bwd_rule`` in plain PyTorch: mean and rstd recomputed from x in
+    fp32; returns ``(dx, dw, db)`` with dx in x's dtype and dw, db (fp32
+    sums over rows) in the weight's dtype."""
+    H = x.shape[-1]
+    xf = x.reshape(-1, H).float()
+    g2 = g.reshape(-1, H).float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    wg = g2 * weight.float()
+    dx = (wg - wg.mean(dim=-1, keepdim=True)
+          - xhat * (wg * xhat).mean(dim=-1, keepdim=True)) * rstd
+    dw = (g2 * xhat).sum(dim=0)
+    db = g2.sum(dim=0)
+    return (dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype),
+            db.to(weight.dtype))
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """The LayerNorm kernel (or ``layer_norm_ref`` on the CPU) forward,
+    ``layer_norm_bwd_ref`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return fused_layer_norm(x, weight, bias, eps)  # grad is off here
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd_ref(x, weight, g, ctx.eps)
+        return dx, dw, db, None
+
+
 def fused_layer_norm(x, weight, bias, eps: float = 1e-5):
     """LayerNorm over the last axis of ``x`` (any leading shape) with
     ``weight``/``bias`` of shape ``[H]``. CPU tensors run ``layer_norm_ref``;
-    CUDA tensors launch the Triton kernel or raise."""
+    CUDA tensors launch the Triton kernel or raise. When autograd will need
+    a backward, the call goes through ``LayerNormFunction``."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return LayerNormFunction.apply(x, weight, bias, eps)
     if x.device.type == "cpu":
         return layer_norm_ref(x, weight, bias, eps)
     if x.device.type != "cuda":

@@ -8,10 +8,11 @@ Module and parameter names match the JAX package's, and weights keep its
 LayerNorm through the fused LayerNorm kernel; the serving decode step
 attends through the paged-decode kernel (``serving/kv_cache.py``).
 
-Ported: the training-shaped ``forward`` and the serving protocol
-(``prefill_with_cache`` and ``decode_step`` over the paged KV layout).
-MoE, recompute, sharding, ``extend_step``, ``forward_with_loss`` and the
-dense-cache ``generate`` belong to later slices.
+Ported: the training path (``forward`` with per-block recompute,
+``loss`` and the chunked ``forward_with_loss``) and the serving protocol
+(``prefill_with_cache`` and ``decode_step`` over the paged KV layout). MoE,
+sharding, ``extend_step`` and the dense-cache ``generate`` belong to later
+slices.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..distributed.fleet.meta_parallel import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..distributed.fleet.recompute import recompute
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn import functional as F
 
@@ -43,6 +45,12 @@ class GPTConfig:
     dropout: float = 0.0
     layer_norm_eps: float = 1e-5
     tie_word_embeddings: bool = True
+    use_recompute: bool = False
+    recompute_policy: str = None  # None/'full' (the save-some policies are
+    #                               ROADMAP queue A item 3c)
+    recompute_interval: int = 1   # recompute every k-th block
+    loss_chunk: int = 0           # CE in sequence chunks of this size (0 =
+    #                               off): no [B, S, V] fp32 logits
     initializer_range: float = 0.02
 
     def __post_init__(self):
@@ -224,8 +232,12 @@ class GPTModel(nn.Module):
                               return_kv=return_kv)
                 kvs.append(kv)
             return self.final_ln(h), kvs
-        for block in self.layers:
-            h = block(h)
+        interval = max(self.cfg.recompute_interval, 1)
+        for i, block in enumerate(self.layers):
+            if self.cfg.use_recompute and self.training and i % interval == 0:
+                h = recompute(block, h, policy=self.cfg.recompute_policy)
+            else:
+                h = block(h)
         return self.final_ln(h)
 
 
@@ -270,6 +282,36 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         return self._logits(self.gpt(input_ids, position_ids))
+
+    def loss(self, logits, labels):
+        """Next-token CE, labels already shifted by the data pipeline."""
+        V = logits.shape[-1]
+        return F.cross_entropy(logits.reshape(-1, V),
+                               labels.reshape(-1)).mean()
+
+    def forward_with_loss(self, input_ids, labels):
+        """Trunk and loss in one call. With ``cfg.loss_chunk`` dividing S,
+        the LM head and the fp32 cross-entropy run per sequence chunk under
+        ``recompute``, so the ``[B, S, V]`` fp32 logits never
+        exist; the loss is the sum over chunks over ``B*S``. Otherwise it
+        is ``loss(forward(input_ids), labels)``."""
+        chunk = self.cfg.loss_chunk
+        B, S = input_ids.shape
+        if not chunk or S % chunk:
+            return self.loss(self.forward(input_ids), labels)
+        h = self.gpt(input_ids)
+        W = (self.gpt.embeddings.word_embeddings.weight
+             if self.cfg.tie_word_embeddings else self.lm_head.weight)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(0, S, chunk):
+            total = total + recompute(self._chunk_ce, h[:, c:c + chunk],
+                                      labels[:, c:c + chunk], W)
+        return total / (B * S)
+
+    def _chunk_ce(self, h_c, y_c, W):
+        logits = (h_c @ (W.t() if self.cfg.tie_word_embeddings else W)).float()
+        gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
     # ---- serving decode protocol (paddle_tpu_torch/serving engine) ----
     def prefill_with_cache(self, input_ids, lengths=None, position_ids=None):

@@ -1,4 +1,6 @@
 from . import functional
+from .clip import ClipGradByGlobalNorm
 from .layer import Dropout, Embedding, LayerNorm
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "Embedding",
+           "LayerNorm"]

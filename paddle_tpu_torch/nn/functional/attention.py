@@ -1,11 +1,12 @@
 """Attention functionals (``paddle_tpu/nn/functional/attention.py`` analog).
 
 Inputs are ``[batch, seq, heads, head_dim]`` as in the JAX package. With no
-mask and no dropout, attention goes through the flash-attention kernel
-(``kernels/flash_attention.py``; on the CPU its wrapper runs the plain
-version) — the same gate as the JAX package's Pallas path. Otherwise it
-runs ``_sdpa_ref``. K/V may carry fewer heads than q (GQA): query head
-``h`` reads K/V head ``h // (H // H_kv)``.
+mask and no dropout, attention goes through the flash-attention kernels
+(``kernels/flash_attention.py``: forward, and dq/dk/dv when autograd needs
+a backward; on the CPU the wrappers run the plain versions) — the same gate
+as the JAX package's Pallas path. Otherwise it runs ``_sdpa_ref``. K/V may
+carry fewer heads than q (GQA): query head ``h`` reads K/V head
+``h // (H // H_kv)``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-from ...kernels.flash_attention import flash_attention_fwd
+from ...kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -56,7 +57,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
     if attn_mask is None and dropout_p == 0.0:
-        return flash_attention_fwd(query, key, value, causal=is_causal)[0]
+        return flash_attention(query, key, value, causal=is_causal)
     return _sdpa_ref(query, key, value, mask=attn_mask,
                      dropout_p=dropout_p if training else 0.0,
                      causal=is_causal, generator=generator)

@@ -79,6 +79,20 @@ def test_entry_points_refuse_to_run_on_cpu_without_being_asked(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_train_step_refuses_to_run_on_cpu_without_being_asked(monkeypatch):
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPT_TINY, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = GPTForCausalLM(GPTConfig(**GPT_TINY), device="cpu")
+    opt = AdamW(parameters=model.named_parameters())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_sharded_train_step(model, opt)
+    step = make_sharded_train_step(model, opt, device="cpu")
+    assert step.device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
     """No result without a card, and none from a copy of the script with
     nothing else of the repo beside it."""

@@ -15,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from paddle_tpu.kernels import flash_attention as jfa
+from paddle_tpu.kernels.fused_optim import fused_adamw_update as j_adamw
 from paddle_tpu.kernels.norms import fused_layer_norm as j_layer_norm
 from paddle_tpu.kernels.paged_attention import paged_attention as j_paged
 from paddle_tpu_torch import kernels as K
@@ -169,3 +172,169 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K.fused_layer_norm(x, x[0], x[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.fused_adamw_update(x, x, x, x, lr=1e-3, beta1=0.9, beta2=0.999,
+                             eps=1e-8, weight_decay=0.0, beta1_pow=0.9,
+                             beta2_pow=0.999)
+
+
+# ---------------- flash attention backward ---------------------------------
+def _torch_grads(q, k, v, g, causal):
+    """Grads of ``sum(o * g)`` through the port's ``FlashAttention``
+    (on the CPU: the plain forward, then ``flash_attention_bwd_ref``)."""
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = K.flash_attention(*xs, causal=causal)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    o.backward(g)
+    return [t.grad for t in xs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_matches_pallas_bwd(dtype, causal):
+    """dq/dk/dv of ``flash_attention_bwd_ref`` (fed the Pallas forward's O
+    and LSE) and of the ``FlashAttention`` Function's CPU backward, against
+    the Pallas ``_bwd`` (interpret mode) run through ``_fwd``. S 64 with
+    blocks of 16 and 32 rows, so both kernels walk several tiles. fp32:
+    summation order only. bf16: the plain version repeats the kernels'
+    roundings of p and ds (it agrees to ~1e-3); the Function also runs its
+    own forward, whose bf16 O differs from Pallas's by a rounding step,
+    and delta = rowsum(dO*O) carries that into ds."""
+    rng = np.random.default_rng(4)
+    B, S, H, D = 2, 64, 2, 16
+    q, k, v, g = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+                  for _ in range(4))
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_pair(a, dtype)
+                                              for a in (q, k, v, g))
+    scale = 1.0 / math.sqrt(D)
+    o, lse, res = jfa._fwd(jq, jk, jv, causal, scale, 16, 32)
+    want = jfa._bwd(causal, scale, 32, 16, (*res, o, lse), jg)
+    o_t = torch.from_numpy(_np(jnp.swapaxes(o.reshape(B, H, S, D), 1, 2))) \
+        .to(tq.dtype)
+    ref = K.flash_attention_bwd_ref(tq, tk, tv, o_t,
+                                    torch.from_numpy(np.asarray(lse)), tg,
+                                    causal)
+    for w, r, t in zip(want, ref, (tq, tk, tv)):
+        assert r.dtype == t.dtype and r.shape == t.shape
+        assert _max_err(w, r) <= (2e-5 if dtype == "float32" else 2e-3)
+    for w, got in zip(want, _torch_grads(tq, tk, tv, tg, causal)):
+        assert _max_err(w, got) <= TOL[dtype]
+
+
+def test_flash_bwd_gqa_sums_over_the_group():
+    """GQA dk/dv (K/V heads read natively) against the JAX grads of the
+    expanded K/V through the Pallas flash custom_vjp, summed over each KV
+    head's query heads (fp32, summation order only)."""
+    rng = np.random.default_rng(5)
+    B, S, H, Hkv, D = 1, 32, 4, 2, 8
+    rep = H // Hkv
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal((B, S, H, D)).astype(np.float32)
+
+    def loss(q, kx, vx):
+        return (jfa.flash_attention_fwd(q, kx, vx, causal=True)
+                * jnp.asarray(g)).sum()
+
+    dq, dkx, dvx = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=2)),
+        jnp.asarray(np.repeat(v, rep, axis=2)))
+    group_sum = lambda a: np.asarray(a).reshape(B, S, Hkv, rep, D).sum(3)  # noqa: E731
+    got = _torch_grads(*map(torch.from_numpy, (q, k, v, g)), causal=True)
+    assert got[1].shape == (B, S, Hkv, D)
+    for want, t in zip((np.asarray(dq), group_sum(dkx), group_sum(dvx)), got):
+        assert float(np.abs(want - t.numpy()).max()) <= 2e-5
+
+
+# ---------------- LayerNorm backward ---------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_bwd_matches_jax_grad(dtype):
+    """dx, dw, db of ``LayerNormFunction`` against ``jax.grad`` through the
+    Pallas ``fused_layer_norm`` (whose backward is ``_ln_bwd_rule``). The
+    port repeats that rule's arithmetic: fp32 differs by summation order;
+    bf16 outputs (|dx| < 4, |dw|, |db| < 16) by at most one rounding step
+    of their magnitude (2^-6 relative)."""
+    rng = np.random.default_rng(6)
+    R, H = 12, 48
+    x = (rng.standard_normal((3, R // 3, H)) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(H)).astype(np.float32)
+    g = rng.standard_normal((3, R // 3, H)).astype(np.float32)
+    (jx, tx), (jw, tw), (jb, tb), (jg, tg) = (_pair(a, dtype)
+                                              for a in (x, w, b, g))
+    want = jax.grad(
+        lambda x, w, b: (j_layer_norm(x, w, b, 1e-5).astype(jnp.float32)
+                         * jg.astype(jnp.float32)).sum(),
+        argnums=(0, 1, 2))(jx, jw, jb)
+    xs = [t.clone().requires_grad_() for t in (tx, tw, tb)]
+    y = K.fused_layer_norm(*xs, 1e-5)
+    assert type(y.grad_fn).__name__ == "LayerNormFunctionBackward"
+    assert torch.equal(y.detach(), K.layer_norm_ref(tx, tw, tb, 1e-5))
+    y.backward(tg)
+    for wnt, t in zip(want, xs):
+        assert t.grad.dtype == t.dtype
+        mag = float(np.abs(_np(wnt)).max())
+        tol = 1e-5 * max(mag, 1) if dtype == "float32" else 2 ** -6 * mag
+        assert _max_err(wnt, t.grad) <= tol
+
+
+def test_serving_calls_stay_outside_autograd():
+    """Without grad (serving, ``no_grad``) the wrappers are called directly:
+    no autograd node, the same values."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 8, 2, 8))
+                                .astype(np.float32)) for _ in range(3))
+    x = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    w, b = torch.ones(8, requires_grad=True), torch.zeros(8)
+    with torch.no_grad():
+        assert K.fused_layer_norm(x, w, b).grad_fn is None
+        qg = q.clone().requires_grad_()
+        assert K.flash_attention(qg, k, v, causal=True).grad_fn is None
+    assert K.flash_attention(q, k, v, causal=True).grad_fn is None
+    assert torch.equal(K.flash_attention(q, k, v, causal=True),
+                       K.flash_attention_fwd(q, k, v, causal=True)[0])
+
+
+# ---------------- fused AdamW ----------------------------------------------
+ADAMW_HP = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                beta1_pow=0.9 ** 3, beta2_pow=0.999 ** 3)
+
+
+@pytest.mark.parametrize("n", [33, 65536 + 17])
+@pytest.mark.parametrize("mixed", [False, True], ids=["fp32", "master+bf16"])
+def test_adamw_ref_matches_pallas(n, mixed):
+    """``adamw_ref`` and ``fused_adamw_update`` on CPU tensors (in place)
+    against the Pallas ``fused_adamw_update`` (interpret mode), with fp32
+    params, and with an fp32 master beside bf16 grad and moments. fp32
+    outputs agree to a few ulps of |p| < 8 (XLA may contract a multiply-add
+    the plain version rounds twice); bf16 moments to one rounding step
+    (2^-8 relative) when such an ulp lands on a rounding boundary."""
+    rng = np.random.default_rng(n)
+    p = rng.standard_normal(n).astype(np.float32) * 2
+    g = rng.standard_normal(n).astype(np.float32)
+    m = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    v = (0.1 * np.abs(rng.standard_normal(n))).astype(np.float32)
+    low = "bfloat16" if mixed else "float32"
+    (jp, tp), = (_pair(p, "float32"),)
+    (jg, tg), (jm, tm), (jv, tv) = (_pair(a, low) for a in (g, m, v))
+    want = j_adamw(jp, jg, jm, jv, beta1=ADAMW_HP["beta1"],
+                   **{k: x for k, x in ADAMW_HP.items() if k != "beta1"})
+    ref = K.adamw_ref(tp, tg, tm, tv, **ADAMW_HP)
+    upd = [t.clone() for t in (tp, tm, tv)]
+    before = K.fused_adamw_update.launches
+    out = K.fused_adamw_update(upd[0], tg, upd[1], upd[2], **ADAMW_HP)
+    assert K.fused_adamw_update.launches == before  # CPU: no kernel
+    assert all(o is u for o, u in zip(out, upd))    # in place
+    for w, r, u in zip(want, ref, upd):
+        assert torch.equal(r, u) and r.dtype == u.dtype
+        tol = 2e-6 if r.dtype == torch.float32 else \
+            2 ** -8 * float(np.abs(_np(w)).max())
+        assert _max_err(w, r) <= tol
+
+
+def test_adamw_rejects_dtype_combinations_it_was_not_built_for():
+    p = torch.zeros(4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported dtypes"):
+        K.fused_adamw_update(p, torch.zeros(4), p.clone(), p.clone(),
+                             **ADAMW_HP)
