@@ -1,28 +1,37 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Each wrapper (``fused_layer_norm``, ``flash_attention_fwd``,
-``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
-``paged_attention``, ``fused_adamw_update``) runs its plain version on CPU
-tensors and launches its kernel on CUDA tensors, counting each launch in
-its ``launches`` attribute. ``flash_attention`` and ``fused_layer_norm``
-are differentiable through ``torch.autograd.Function``s whose forward and
-backward are those wrappers. Triton and the CUDA libraries are imported
-and built only inside a launch.
+Each wrapper (``fused_layer_norm``, ``fused_rms_norm``,
+``flash_attention_fwd``, ``flash_attention_bwd_dq``,
+``flash_attention_bwd_dkv``, ``paged_attention``, ``fused_adamw_update``,
+and the callables made by ``primitive.elementwise_kernel`` and
+``primitive.row_reduce_kernel``) runs its plain version on CPU tensors and
+launches its kernel on CUDA tensors, counting each launch in a
+``launches`` attribute (the two factories count the launches of every
+callable they made). ``flash_attention``, ``fused_layer_norm`` and
+``fused_rms_norm`` are differentiable: the first through the dispatcher op
+``paddle_tpu_torch::flash_fwd``, the norms through
+``torch.autograd.Function``s, whose forward and backward are those
+wrappers. Triton and the CUDA libraries are imported and built only inside
+a launch.
 """
 
-from .flash_attention import (FlashAttention, flash_attention,
-                              flash_attention_bwd, flash_attention_bwd_dkv,
-                              flash_attention_bwd_dq, flash_attention_bwd_ref,
-                              flash_attention_fwd, flash_attention_ref)
+from . import primitive
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_bwd_ref, flash_attention_fwd,
+                              flash_attention_ref, flash_fwd_op)
 from .fused_optim import adamw_ref, fused_adamw_update
-from .norms import (LayerNormFunction, fused_layer_norm, layer_norm_bwd_ref,
-                    layer_norm_ref)
+from .norms import (LayerNormFunction, RMSNormFunction, fused_layer_norm,
+                    fused_rms_norm, layer_norm_bwd_ref, layer_norm_ref,
+                    rms_norm_bwd_ref, rms_norm_ref)
 from .paged_attention import paged_attention, paged_attention_ref
+from .primitive import elementwise_kernel, row_reduce_kernel
 
 #: every kernel wrapper of the package, for resetting and reading the counts
 WRAPPERS = (fused_layer_norm, flash_attention_fwd, paged_attention,
             flash_attention_bwd_dq, flash_attention_bwd_dkv,
-            fused_adamw_update)
+            fused_adamw_update, fused_rms_norm, elementwise_kernel,
+            row_reduce_kernel)
 
 
 def reset_launch_counts():
@@ -35,9 +44,11 @@ def launch_counts():
 
 
 __all__ = ["fused_layer_norm", "layer_norm_ref", "layer_norm_bwd_ref",
-           "LayerNormFunction", "flash_attention", "flash_attention_fwd",
-           "flash_attention_ref", "flash_attention_bwd",
+           "LayerNormFunction", "fused_rms_norm", "rms_norm_ref",
+           "rms_norm_bwd_ref", "RMSNormFunction", "flash_attention",
+           "flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_ref", "FlashAttention", "paged_attention",
+           "flash_attention_bwd_ref", "flash_fwd_op", "paged_attention",
            "paged_attention_ref", "fused_adamw_update", "adamw_ref",
+           "primitive", "elementwise_kernel", "row_reduce_kernel",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

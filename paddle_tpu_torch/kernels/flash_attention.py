@@ -6,8 +6,9 @@ Replaces ``paddle_tpu/kernels/flash_attention.py`` ``_fwd_kernel``
 ``_bwd``), entered there through the ``custom_vjp`` of
 ``flash_attention_fwd``. The kernel sources say what bounds them and how
 they are laid out; this module holds the plain PyTorch versions of the same
-functions, the ``ctypes`` bindings, the wrappers and the
-``torch.autograd.Function`` that joins forward and backward.
+functions, the ``ctypes`` bindings, the wrappers and the dispatcher op
+``paddle_tpu_torch::flash_fwd`` whose autograd formula joins forward and
+backward.
 
 Unlike the TPU wrappers there is no block-divisibility requirement: the
 kernels mask the ragged sequence edge themselves, so every ``S`` is
@@ -260,32 +261,49 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Flash attention with the kernels on both sides of autograd: the
-    forward kernel saves O and the LSE, and the backward kernels recompute
-    P from them. On CPU tensors the plain versions run in the same places,
-    so the CPU exercises this wiring and the backward's arithmetic."""
+# The forward is a dispatcher op, ``paddle_tpu_torch::flash_fwd`` returning
+# O and the LSE, so that a selective-recompute policy can see it and keep
+# both (``distributed/fleet/recompute.py`` ``save_flash``); its autograd
+# formula runs the dq and dk/dv kernels from them. On CPU tensors the plain
+# versions run in the same places, so the CPU exercises this wiring and
+# the backward's arithmetic.
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    B, S, H, D = _check_heads(q, k, v)
+    return (q.new_empty((B, S, H, D)),
+            q.new_empty((B * H, S), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                     ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float = None):
     """``[B, S, H, D]`` attention output through the kernels. Goes through
-    ``FlashAttention`` only when autograd will need a backward; otherwise
-    (serving, ``no_grad``) it calls the forward wrapper directly."""
+    the ``paddle_tpu_torch::flash_fwd`` op only when autograd will need a
+    backward; otherwise (serving, ``no_grad``) it calls the forward wrapper
+    directly."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, scale)
+        scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+        return flash_fwd_op(q, k, v, causal, float(scale))[0]
     return flash_attention_fwd(q, k, v, causal, scale)[0]

@@ -46,8 +46,9 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     tie_word_embeddings: bool = True
     use_recompute: bool = False
-    recompute_policy: str = None  # None/'full' (the save-some policies are
-    #                               ROADMAP queue A item 3c)
+    recompute_policy: str = None  # None/'full', 'dots_saveable',
+    #                               'dots_with_no_batch_dims_saveable',
+    #                               'save_flash' (fleet/recompute.py)
     recompute_interval: int = 1   # recompute every k-th block
     loss_chunk: int = 0           # CE in sequence chunks of this size (0 =
     #                               off): no [B, S, V] fp32 logits

@@ -1,4 +1,4 @@
 from .common import Dropout, Embedding
-from .norm import LayerNorm
+from .norm import LayerNorm, RMSNorm
 
-__all__ = ["Dropout", "Embedding", "LayerNorm"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "RMSNorm"]

@@ -31,3 +31,23 @@ class LayerNorm(nn.Module):
     def extra_repr(self):
         return (f"normalized_shape={list(self.normalized_shape)}, "
                 f"epsilon={self.epsilon}")
+
+
+class RMSNorm(nn.Module):
+    """RMS normalization over the last axis with a ``weight`` of ones,
+    through the fused RMSNorm kernel."""
+
+    def __init__(self, normalized_shape, epsilon=1e-6, device=None,
+                 dtype=None):
+        super().__init__()
+        shape = ((normalized_shape,) if isinstance(normalized_shape, int)
+                 else tuple(normalized_shape))
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(shape, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
+
+    def extra_repr(self):
+        return f"{list(self.weight.shape)}, epsilon={self.epsilon}"

@@ -1,5 +1,5 @@
 """Optimizer base and Adam/AdamW (``paddle_tpu/optimizer/optimizer.py``
-analog).
+analog), with a float learning rate or an ``LRScheduler`` (``lr.py``).
 
 The JAX package keeps each optimizer's arithmetic in a pure per-tensor
 ``_update`` and returns new arrays. Here updates happen **in place**: the
@@ -26,26 +26,45 @@ import torch
 
 from ..device import resolve_dtype
 from ..kernels.fused_optim import fused_adamw_update
+from .lr import LRScheduler
 
 _F32 = np.float32
 _LOW = (torch.bfloat16, torch.float16)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _named(parameters) -> dict:
+    """``{name: tensor}`` from ``named_parameters()`` pairs, a dict, or bare
+    tensors (named by position)."""
+    if parameters is None:
+        return {}
+    if isinstance(parameters, dict):
+        return dict(parameters)
+    items = list(parameters)
+    if all(isinstance(p, tuple) for p in items):
+        return dict(items)
+    return {str(i): p for i, p in enumerate(items)}
+
+
 class Optimizer:
-    """Holds per-parameter state by name; the train step calls
+    """Holds per-parameter state by name. The train step calls
     ``apply_gradients`` with the model's named parameters (clipping is the
-    train step's). ``parameters`` is taken for paddle's signature: the state
-    is built for whatever ``apply_gradients`` is given."""
+    train step's); ``step()`` updates the ``parameters`` given here
+    (``named_parameters()``, a dict, or tensors) from their ``.grad``,
+    clipping first, as the JAX package's eager step does.
+
+    ``learning_rate`` is a float or an ``LRScheduler``, whose ``last_lr``
+    each step reads; the caller advances the scheduler."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False):
-        if isinstance(learning_rate, bool) \
-                or not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported yet (ROADMAP queue "
-                "A item 3a); pass a float learning_rate")
-        self._lr = float(learning_rate)
+        if isinstance(learning_rate, bool) or not isinstance(
+                learning_rate, (int, float, LRScheduler)):
+            raise TypeError(f"learning_rate must be a float or an "
+                            f"LRScheduler, got {type(learning_rate).__name__}")
+        self._lr = (learning_rate if isinstance(learning_rate, LRScheduler)
+                    else float(learning_rate))
+        self._params = _named(parameters)
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
@@ -53,7 +72,33 @@ class Optimizer:
         self.state = {}
 
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr.last_lr)
         return self._lr
+
+    def set_lr(self, value: float):
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("Cannot set_lr when a LRScheduler is attached")
+        self._lr = float(value)
+
+    # ---- eager step over the parameters given at construction ----
+    @torch.no_grad()
+    def step(self):
+        """Clip the ``.grad`` of the parameters given at construction with
+        ``grad_clip``, then update them in place."""
+        if not self._params:
+            raise ValueError("Optimizer constructed without parameters; pass "
+                             "parameters=model.named_parameters()")
+        if self._grad_clip is not None:
+            self._grad_clip.clip_([p.grad for p in self._params.values()])
+        self.apply_gradients(self._params)
+
+    def clear_grad(self, set_to_zero: bool = False):
+        for p in self._params.values():
+            if p.grad is not None and set_to_zero:
+                p.grad.zero_()
+            else:
+                p.grad = None
 
     # ---- state ----
     def _init_state(self, value) -> dict:
@@ -193,24 +238,29 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Decoupled weight decay; ``apply_decay_param_fun(name)`` False skips
-    the decay for that parameter (names come from ``named_parameters()``
-    or the train step)."""
+    the decay for that parameter, and ``lr_ratio(name)`` multiplies its
+    learning rate, as in paddle's AdamW (names come from
+    ``named_parameters()`` or the train step). The JAX package stores
+    ``lr_ratio`` without applying it; with ``lr_ratio`` None the two agree."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  multi_precision=False, amsgrad=False, moment_dtype=None):
-        if lr_ratio is not None:
-            raise NotImplementedError("AdamW lr_ratio is not ported yet "
-                                      "(ROADMAP queue A item 3a)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, multi_precision, amsgrad=amsgrad,
                          moment_dtype=moment_dtype)
         self._wd_coeff = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
 
     def _coupled_wd(self):
         return 0.0
+
+    def _update(self, value, grad, state, lr, name):
+        if self._lr_ratio is not None:
+            lr = lr * float(self._lr_ratio(name))
+        super()._update(value, grad, state, lr, name)
 
     def _decay(self, name):
         if self._apply_decay_param_fun is not None \

@@ -253,3 +253,115 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert (dg - dc).norm() <= 1e-2 * dc.norm(), k
         num, den = num + (dg - dc).square().sum(), den + dc.square().sum()
     assert num <= 1e-4 * den
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 77, 2048), (5, 100)])
+def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
+    """Forward: one launch, within one bf16 rounding step (|y| < 8: 2^-5)
+    of ``rms_norm_ref``. Backward through ``nn.RMSNorm``: the plain
+    ``rms_norm_bwd_ref`` from the same x, so dx and dw agree exactly."""
+    from paddle_tpu_torch.nn import RMSNorm
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    H = shape[-1]
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(H, generator=g, device=cuda)).to(dtype)
+    before = K.fused_rms_norm.launches
+    got = K.fused_rms_norm(x, w)
+    assert K.fused_rms_norm.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 3.2e-2
+    assert got.dtype == dtype and _err(got, K.rms_norm_ref(x, w)) <= tol
+    layer = RMSNorm(H, device=cuda, dtype=dtype)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+    xg = x.clone().requires_grad_()
+    dy = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    layer(xg).backward(dy)
+    dx, dw = K.rms_norm_bwd_ref(x, w, dy)
+    assert torch.equal(xg.grad, dx) and torch.equal(layer.weight.grad, dw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(130,), (3, 5, 7), (64, 1000)], ids=str)
+def test_elementwise_primitive_matches_plain(cuda, dtype, shape):
+    """``x + a * tanh(y)``: one launch, to one rounding step of the output
+    dtype (the kernel's tanh and contractions differ from PyTorch's by an
+    ulp of fp32)."""
+    from paddle_tpu_torch.kernels import primitive as P
+
+    op = P.elementwise_kernel(lambda x, y, a: x + a * torch.tanh(y))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(*shape, generator=g, device=cuda).to(dtype)
+          for _ in range(3)]
+    before = P.elementwise_kernel.launches
+    got = op(*xs)
+    assert P.elementwise_kernel.launches == before + 1
+    want = P.elementwise_ref(lambda x, y, a: x + a * torch.tanh(y), *xs)
+    step = 2 ** -7 if dtype == torch.bfloat16 else 1e-6
+    assert got.dtype == dtype and got.shape == xs[0].shape
+    assert _err(got, want) <= step * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1280), (5, 33), (3, 4, 2048)], ids=str)
+def test_row_reduce_primitive_matches_plain(cuda, dtype, shape):
+    """Row sums to fp32 summation order (then one rounding step of the
+    output dtype) and row maxima exactly, against ``row_reduce_ref``, which
+    walks the same column blocks."""
+    from paddle_tpu_torch.kernels import primitive as P
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    fns = {"sum": (lambda acc, b: acc + b.sum(-1), 0.0),
+           "max": (lambda acc, b: torch.maximum(acc, b.amax(-1)),
+                   float("-inf"))}
+    for name, (fn, init) in fns.items():
+        before = P.row_reduce_kernel.launches
+        got = P.row_reduce_kernel(fn, init)(x)
+        assert P.row_reduce_kernel.launches == before + 1
+        want = P.row_reduce_ref(fn, init, x)
+        assert got.dtype == dtype and got.shape == want.shape
+        if name == "max":
+            assert torch.equal(got, want)
+        else:
+            step = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+            assert _err(got, want) <= step * max(
+                1.0, want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_scaled_step_skips_on_card(cuda):
+    """A train step whose scaled gradients are non-finite (an infinite
+    scale) skips its update on the card: parameters and AdamW's state stay
+    bitwise as they were, the kernels of the backward still ran, and the
+    next step, at a finite scale, trains."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = _small_gpt(cuda)
+    scaler = GradScaler(init_loss_scaling=float("inf"))
+    step = make_sharded_train_step(model, AdamW(
+        learning_rate=1e-3, parameters=model.named_parameters()),
+        scaler=scaler, device=cuda)
+    p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    m0 = {k: s["moment1"].clone() for k, s in step.optimizer.state.items()}
+    rng = torch.Generator().manual_seed(8)
+    x = torch.randint(0, 128, (2, 64), generator=rng)
+    y = torch.roll(x, -1, dims=1)
+    K.reset_launch_counts()
+    loss = step(x, y)
+    assert not torch.isfinite(loss)
+    assert K.launch_counts()["flash_attention_bwd_dq"] > 0
+    assert K.launch_counts()["fused_adamw_update"] == 0
+    for k, p in model.named_parameters():
+        assert torch.equal(p, p0[k]), k
+        assert torch.equal(step.optimizer.state[k]["moment1"], m0[k]), k
+    assert scaler._bad_steps == 0 and scaler._good_steps == 0
+    scaler.set_init_loss_scaling(2.0 ** 10)
+    assert torch.isfinite(step(x, y))
+    assert not all(torch.equal(p, p0[k]) for k, p in model.named_parameters())

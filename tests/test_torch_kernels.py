@@ -179,12 +179,16 @@ def test_wrappers_reject_other_devices():
 
 
 # ---------------- flash attention backward ---------------------------------
+# the autograd node of the ``paddle_tpu_torch::flash_fwd`` op
+FLASH_NODE = "GeneratedBackwardFor_paddle_tpu_torch_flash_fwd_defaultBackward"
+
+
 def _torch_grads(q, k, v, g, causal):
-    """Grads of ``sum(o * g)`` through the port's ``FlashAttention``
-    (on the CPU: the plain forward, then ``flash_attention_bwd_ref``)."""
+    """Grads of ``sum(o * g)`` through the port's ``flash_fwd`` op (on the
+    CPU: the plain forward, then ``flash_attention_bwd_ref``)."""
     xs = [t.clone().requires_grad_() for t in (q, k, v)]
     o = K.flash_attention(*xs, causal=causal)
-    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    assert type(o.grad_fn).__name__ == FLASH_NODE
     o.backward(g)
     return [t.grad for t in xs]
 
@@ -193,7 +197,7 @@ def _torch_grads(q, k, v, g, causal):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_matches_pallas_bwd(dtype, causal):
     """dq/dk/dv of ``flash_attention_bwd_ref`` (fed the Pallas forward's O
-    and LSE) and of the ``FlashAttention`` Function's CPU backward, against
+    and LSE) and of the ``flash_fwd`` op's CPU backward, against
     the Pallas ``_bwd`` (interpret mode) run through ``_fwd``. S 64 with
     blocks of 16 and 32 rows, so both kernels walk several tiles. fp32:
     summation order only. bf16: the plain version repeats the kernels'
@@ -338,3 +342,175 @@ def test_adamw_rejects_dtype_combinations_it_was_not_built_for():
     with pytest.raises(ValueError, match="unsupported dtypes"):
         K.fused_adamw_update(p, torch.zeros(4), p.clone(), p.clone(),
                              **ADAMW_HP)
+
+
+# ---------------- RMSNorm --------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 5, 48), (7, 64), (3, 1, 100)])
+def test_rms_norm_ref_matches_pallas(dtype, shape):
+    """``rms_norm_ref`` (and the wrapper on CPU tensors) against the Pallas
+    ``fused_rms_norm`` in interpret mode. fp32: summation order; bf16: the
+    outputs (|y| < 8) may differ by one rounding step (2^-5)."""
+    from paddle_tpu.kernels.norms import fused_rms_norm as j_rms_norm
+
+    rng = np.random.default_rng(8)
+    H = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32) * 2 + 0.5
+    w = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    (jx, tx), (jw, tw) = (_pair(a, dtype) for a in (x, w))
+    want = j_rms_norm(jx, jw, 1e-6)
+    before = K.fused_rms_norm.launches
+    got = K.fused_rms_norm(tx, tw, 1e-6)  # CPU tensor: plain version
+    assert K.fused_rms_norm.launches == before
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    assert torch.equal(got, K.rms_norm_ref(tx, tw, 1e-6))
+    assert _max_err(want, got) <= (1e-5 if dtype == "float32" else 3.2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_bwd_matches_jax_grad(dtype):
+    """dx, dw of ``RMSNormFunction`` (``rms_norm_bwd_ref``) against
+    ``jax.grad`` through the Pallas ``fused_rms_norm``, whose backward is
+    ``_rms_bwd_rule``: fp32 to 1e-5 of the larger of 1 and the gradient's
+    magnitude (summation order); bf16 outputs to one rounding step of their
+    magnitude (2^-6 relative)."""
+    from paddle_tpu.kernels.norms import fused_rms_norm as j_rms_norm
+
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((3, 4, 48)) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+    g = rng.standard_normal((3, 4, 48)).astype(np.float32)
+    (jx, tx), (jw, tw), (jg, tg) = (_pair(a, dtype) for a in (x, w, g))
+    want = jax.grad(
+        lambda x, w: (j_rms_norm(x, w, 1e-6).astype(jnp.float32)
+                      * jg.astype(jnp.float32)).sum(), argnums=(0, 1))(jx, jw)
+    xs = [t.clone().requires_grad_() for t in (tx, tw)]
+    y = K.fused_rms_norm(*xs, 1e-6)
+    assert type(y.grad_fn).__name__ == "RMSNormFunctionBackward"
+    assert torch.equal(y.detach(), K.rms_norm_ref(tx, tw, 1e-6))
+    y.backward(tg)
+    for wnt, t in zip(want, xs):
+        assert t.grad.dtype == t.dtype
+        mag = float(np.abs(_np(wnt)).max())
+        tol = 1e-5 * max(mag, 1) if dtype == "float32" else 2 ** -6 * mag
+        assert _max_err(wnt, t.grad) <= tol
+
+
+# ---------------- kernel primitives ----------------------------------------
+# the functions and shapes of tests/test_kernels.py's TestKernelPrimitives
+PRIMITIVE_SHAPES = [(130,), (8, 128), (3, 5, 7)]
+
+
+@pytest.mark.parametrize("shape", PRIMITIVE_SHAPES, ids=str)
+def test_elementwise_ref_matches_pallas_factory(shape):
+    """``x + a * tanh(y)`` through the port's factory (the plain version on
+    CPU tensors) against the JAX factory's Pallas kernel in interpret mode;
+    fp32, tanh implementations differ by an ulp."""
+    from paddle_tpu.kernels import primitive as jkp
+    from paddle_tpu_torch.kernels import primitive as P
+
+    rng = np.random.default_rng(10)
+    x, y, a = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    want = jkp.elementwise_kernel(lambda x, y, a: x + a * jnp.tanh(y))(x, y, a)
+    op = P.elementwise_kernel(lambda x, y, a: x + a * torch.tanh(y))
+    before = P.elementwise_kernel.launches
+    got = op(*map(torch.from_numpy, (x, y, a)))
+    assert P.elementwise_kernel.launches == before
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_elementwise_dtype_preserved_and_shapes_checked():
+    """bf16 in, bf16 out (``x * 2.0``), as the JAX factory; operands of two
+    shapes raise ``ValueError`` on both sides."""
+    import ml_dtypes
+
+    from paddle_tpu.kernels import primitive as jkp
+    from paddle_tpu_torch.kernels import primitive as P
+
+    x = np.ones((16, 128), np.float32)
+    want = np.asarray(jkp.elementwise_kernel(lambda x: x * 2.0)(
+        x.astype(ml_dtypes.bfloat16)))
+    got = P.elementwise_kernel(lambda x: x * 2.0)(
+        torch.from_numpy(x).to(torch.bfloat16))
+    assert want.dtype == ml_dtypes.bfloat16 and got.dtype == torch.bfloat16
+    assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+    add = P.elementwise_kernel(lambda x, y: x + y)
+    with pytest.raises(ValueError, match="share a shape"):
+        add(torch.ones(4), torch.ones(5))
+    with pytest.raises(ValueError):
+        jkp.elementwise_kernel(lambda x, y: x + y)(np.ones(4, np.float32),
+                                                   np.ones(5, np.float32))
+
+
+@pytest.mark.parametrize("shape", [(16, 256), (8, 1280), (5, 33), (2, 3, 64)],
+                         ids=str)
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_row_reduce_ref_matches_pallas_factory(shape, op):
+    """Row sums and row maxima through the port's factory against the JAX
+    factory (Pallas interpret for aligned shapes, its jnp route for (5, 33));
+    the port walks the same column blocks in order. Sums: fp32 summation
+    order; maxima: exact."""
+    from paddle_tpu.kernels import primitive as jkp
+    from paddle_tpu_torch.kernels import primitive as P
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if op == "sum":
+        jfn, tfn, init = (lambda acc, b: acc + b.sum(-1),
+                          lambda acc, b: acc + b.sum(-1), 0.0)
+    else:
+        jfn, tfn, init = (lambda acc, b: jnp.maximum(acc, b.max(-1)),
+                          lambda acc, b: torch.maximum(acc, b.amax(-1)),
+                          float("-inf"))
+    want = np.asarray(jkp.row_reduce_kernel(jfn, init)(x))
+    got = P.row_reduce_kernel(tfn, init)(torch.from_numpy(x))
+    assert got.shape == shape[:-1] and got.dtype == torch.float32
+    if op == "sum":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6)
+    else:
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_primitive_factories_reject_what_the_kernel_cannot_express():
+    """An op outside the table raises when the factory is called, naming
+    the op; so do a reduction inside an elementwise kernel, a reduction
+    that keeps its axis, and a tensor closed over."""
+    from paddle_tpu_torch.kernels import primitive as P
+
+    with pytest.raises(ValueError, match="'sin'"):
+        P.elementwise_kernel(lambda x: torch.sin(x))
+    with pytest.raises(ValueError, match="'cumsum'"):
+        P.row_reduce_kernel(lambda acc, b: acc + b.cumsum(-1)[:, -1], 0.0)
+    with pytest.raises(ValueError, match="last axis"):
+        P.elementwise_kernel(lambda x: x.sum(-1))
+    with pytest.raises(ValueError, match="last axis"):
+        P.row_reduce_kernel(lambda acc, b: acc + b.sum(-1, keepdim=True), 0.0)
+    with pytest.raises(ValueError, match="one value per row"):
+        P.row_reduce_kernel(lambda acc, b: b * 2.0, 0.0)
+    t = torch.ones(3)
+    with pytest.raises(ValueError, match="pass tensors as operands"):
+        P.elementwise_kernel(lambda x: x + t)
+
+
+@pytest.mark.parametrize("fn", [
+    lambda x, y, a: x + a * y,
+    lambda x, y, a: x + a * torch.tanh(y),
+    lambda x: torch.where(x > 0, x, 0.5 * x) / 2.0 + x ** 2,
+    lambda x, y: torch.maximum(torch.sigmoid(x), torch.exp(-abs(y)))
+    - torch.rsqrt(1.0 + torch.abs(y)) * torch.log(torch.sqrt(1 + x * x)),
+], ids=["axpy", "tanh", "where_pow", "math"])
+def test_elementwise_source_is_python_and_plain_matches_torch(fn):
+    """The generated Triton source parses as Python (the card compiles it),
+    and the plain version is ``fn`` in fp32 cast to the first operand's
+    dtype."""
+    from paddle_tpu_torch.kernels import primitive as P
+
+    op = P.elementwise_kernel(fn)
+    compile(op.source, "<primitive>", "exec")
+    rng = np.random.default_rng(12)
+    n = fn.__code__.co_argcount
+    xs = [torch.from_numpy(rng.standard_normal((4, 9)).astype(np.float32))
+          .to(torch.bfloat16) for _ in range(n)]
+    assert torch.equal(op(*xs), fn(*(x.float() for x in xs)).to(torch.bfloat16))
