@@ -8,16 +8,22 @@ Phases, each of which exits non-zero on failure:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 is turned
    off for float32 products and convolutions so fp32 checks are fp32;
 2. build: every CUDA source under ``paddle_tpu_torch/kernels/csrc`` is
-   compiled with ``nvcc`` for sm_90a (one process per source, in parallel),
-   and the Triton LayerNorm, the Triton RMSNorm and the primitives that
-   ``kernels.primitive`` generates for this script's functions are
-   JIT-compiled;
+   compiled with ``nvcc`` for sm_90a (one process per source, in parallel;
+   ptxas's registers and spills printed per kernel), the HGMMA instructions
+   of the bf16 flash backward's kernels are counted in their SASS
+   (``cuobjdump -sass``; none fails), and the Triton LayerNorm, the Triton
+   RMSNorm and the primitives that ``kernels.primitive`` generates for this
+   script's functions are JIT-compiled;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training slices' shapes (RMSNorm and the primitives at
    the 1.3B's hidden-state shapes and at ragged ones), in bf16 and fp32,
-   with the stated tolerance; then timed with CUDA events and the profiler
+   with the stated tolerance (the flash backward also at the edges of its
+   64-row tiles, with GQA 16/1, and on the fused qkv projection's column
+   slices, each call on its dtype's route; two bf16 calls at the training
+   shape bitwise equal); then timed with CUDA events and the profiler
    beside the plain version, a library yardstick the port never calls, and
-   the H100 bound;
+   the H100 bound (a kernel the profiler does not see fails the backward's
+   rows and prints "not seen" elsewhere);
 4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
    weights from the seed) behind ``Engine.generate``, 16 greedy requests
    through 8 slots, with each kernel's launch count over that run;
@@ -29,7 +35,9 @@ Phases, each of which exits non-zero on failure:
    loss) through ``make_sharded_train_step(model, AdamW(...))`` with fp32
    master weights and bf16 moments, batch 16 x 2048; one warm-up step,
    five timed steps and one profiled step, with each kernel's launch
-   count over the timed steps; the loss must be finite and fall;
+   count over the timed steps (the backward's on the tensor-core route)
+   and the bf16 backward kernels' device time in the profiled step; the
+   loss must be finite and fall;
 7. training vs plain: at full width and depth 2 in fp32, the same weights
    take 3 AdamW steps on the card and on the CPU; losses, the first
    step's gradients and the parameters' updates after step 3 agree;
@@ -60,6 +68,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -106,6 +116,9 @@ TRAINING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
                     "fused_adamw_update")
 USER_API_KERNELS = ("fused_rms_norm", "elementwise_kernel",
                     "row_reduce_kernel")
+# the bf16 flash backward's kernels (csrc/flash_bwd_sm90.cu), by symbol
+BWD_SYMBOLS = {"dq": "flash_bwd_dq_sm90_kernel",
+               "dkv": "flash_bwd_dkv_sm90_kernel"}
 ALL_KERNELS = ("fused_layer_norm", "flash_attention_fwd", "paged_attention",
                "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                "fused_adamw_update") + USER_API_KERNELS
@@ -147,13 +160,26 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int) -> float:
+def device_ms(fn, kernel: str, iters: int):
     """Device time of one launch of ``kernel`` (a substring of its name),
     read by ``torch.profiler`` over ``iters`` calls of ``fn``: unlike
-    ``timed_ms`` it excludes the host's launch cost."""
+    ``timed_ms`` it excludes the host's launch cost. None when the profile
+    holds no kernel of that name (a renamed kernel, or one the profiler
+    missed), never 0."""
     fn()
-    kernels = profile_kernels(lambda: [fn() for _ in range(iters)])
-    return sum(t for name, t in kernels if kernel in name) / iters * 1e3
+    return kernel_ms(profile_kernels(lambda: [fn() for _ in range(iters)]),
+                     kernel, iters)
+
+
+def kernel_ms(kernels, kernel: str, per: int = 1):
+    """Device ms of the kernels named ``*kernel*`` in ``kernels`` (as
+    ``profile_kernels`` returns them) over ``per``; None if none is there."""
+    seen = [t for name, t in kernels if kernel in name]
+    return sum(seen) / per * 1e3 if seen else None
+
+
+def fmt(ms, spec: str) -> str:
+    return "not seen" if ms is None else format(ms, spec)
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -164,6 +190,24 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def sass_counts(lib, opcode: str):
+    """{kernel symbol: number of SASS instructions with ``opcode``} of a
+    built library, read with ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib} failed: {out.stderr}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -215,8 +259,8 @@ def kernel_checks(K, gen):
                         50)
         timings[R] = (ms, plain, lib, bms, by, err, dms)
         print(f"  layer_norm bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
-              f"{dms:.4f} ms), plain {plain:.4f} ms, F.layer_norm {lib:.4f} "
-              f"ms, bound {bms:.5f} ms ({by})", flush=True)
+              f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, F.layer_norm "
+              f"{lib:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
     ms, plain, lib, bms, by, err, dms = timings[8]
     rows["fused_layer_norm"] = dict(
         name="fused_layer_norm", route="triton",
@@ -265,9 +309,9 @@ def kernel_checks(K, gen):
                   K.flash_attention_ref(q, k, v, causal=True)[0])
     dms = device_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True),
                     "flash_fwd_kernel", 10)
-    print(f"  flash_fwd bf16 S{S}: kernel {ms:.4f} ms (device {dms:.4f} ms), "
-          f"plain {plain:.4f} ms, F.sdpa {lib:.4f} ms, bound {bms:.5f} ms "
-          f"({by})", flush=True)
+    print(f"  flash_fwd bf16 S{S}: kernel {ms:.4f} ms (device "
+          f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, F.sdpa {lib:.4f} "
+          f"ms, bound {bms:.5f} ms ({by})", flush=True)
     rows["flash_attention_fwd"] = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -326,8 +370,8 @@ def kernel_checks(K, gen):
     dms = device_ms(lambda: K.paged_attention(*args), "paged_decode_kernel",
                     50)
     print(f"  paged_decode bf16 B{B} live pages {live_pages}: kernel "
-          f"{ms:.4f} ms (device {dms:.4f} ms), plain {plain:.4f} ms, bound "
-          f"{bms:.5f} ms ({by})", flush=True)
+          f"{ms:.4f} ms (device {fmt(dms, '.4f')} ms), plain {plain:.4f} "
+          f"ms, bound {bms:.5f} ms ({by})", flush=True)
     rows["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
@@ -342,8 +386,13 @@ def train_kernel_checks(K, gen, rows):
     """The training kernels (flash backward, fused AdamW) vs plain on the
     card, then timed at the training slice's shapes; adds their rows to
     ``rows`` and the flash forward's training-shape numbers to its row."""
-    from paddle_tpu_torch.kernels.flash_attention import _delta
+    import importlib
 
+    # the module, not the package attribute of the same name (a function)
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    _delta = FA._delta
+
+    BWD_WRAPPERS = (K.flash_attention_bwd_dq, K.flash_attention_bwd_dkv)
     dev = torch.device("cuda")
     F = torch.nn.functional
 
@@ -352,32 +401,54 @@ def train_kernel_checks(K, gen, rows):
 
     # -- flash backward: dq, dk, dv vs flash_attention_bwd_ref, from the
     #    forward kernel's O and LSE; ragged S, GQA 16/4 (dk/dv summed over
-    #    each KV head's query heads) and D 64
+    #    each KV head's query heads) and D 64 in both dtypes (bf16 on the
+    #    tensor cores, fp32 on the CUDA cores); then, in bf16, the edges of
+    #    the 64-row tiles (S 1, 63, 65, 200), GQA 16/1, D 64, and q/k/v as
+    #    the column slices of a fused qkv projection, read in place by TMA
     cases = [(1, 1024, 16, 16, 128, True), (1, 200, 16, 16, 128, True),
              (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True)]
-    for dtype in (torch.float32, torch.bfloat16):
+    edges = [(1, 1, 16, 16, 128, True), (1, 63, 16, 16, 128, True),
+             (2, 65, 16, 4, 128, False), (1, 200, 16, 1, 128, True),
+             (2, 65, 16, 16, 64, True), (2, 63, 16, 1, 64, False)]
+    fused = [(2, 200, 16, 16, 128, True), (2, 130, 16, 4, 128, False),
+             (1, 65, 16, 1, 64, True)]
+    bf16 = torch.bfloat16
+    runs = ([(dt, c, False) for dt in (torch.float32, bf16) for c in cases]
+            + [(bf16, c, False) for c in edges]
+            + [(bf16, c, True) for c in fused])
+    for dtype, (B, S, Hq, Hkv, D, causal), sliced in runs:
         dn = str(dtype).split(".")[1]
         tol = TOL[("flash_bwd", dn)]
-        for B, S, Hq, Hkv, D, causal in cases:
+        if sliced:  # [B, S, (Hq + 2 Hkv) D], as models/gpt.py's qkv
+            qkv = randn(B, S, (Hq + 2 * Hkv) * D, dtype=dtype)
+            q, k, v = (t.unflatten(-1, (-1, D)) for t in qkv.split(
+                [Hq * D, Hkv * D, Hkv * D], dim=-1))
+            check(all(FA._for_tma(t) is t for t in (q, k, v)),
+                  "a fused-qkv slice would be copied before the TMA reads it")
+        else:
             q = randn(B, S, Hq, D, dtype=dtype)
             k = randn(B, S, Hkv, D, dtype=dtype)
             v = randn(B, S, Hkv, D, dtype=dtype)
-            do = randn(B, S, Hq, D, dtype=dtype)
-            o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
-            got = K.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-            want = K.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                             causal=causal)
-            errs = [max_err(a, b) for a, b in zip(got, want)]
-            mags = [b.float().abs().max().item() for b in want]
-            print(f"  flash_bwd {str(dtype):15s} B{B} S{S} H{Hq}/{Hkv} D{D} "
-                  f"causal={causal}: dq/dk/dv err "
-                  f"{' '.join(f'{e:.3e}' for e in errs)} (tol {tol:.1e}; "
-                  f"max |d| {' '.join(f'{m:.2f}' for m in mags)})",
-                  flush=True)
-            check(all(e <= tol for e in errs) and all(
-                g.shape == w.shape and g.dtype == w.dtype
-                for g, w in zip(got, want)),
-                f"flash_bwd {dtype} S{S} H{Hq}/{Hkv} D{D}: {errs}")
+        do = randn(B, S, Hq, D, dtype=dtype)
+        o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+        route = FA.BWD_ROUTES[dtype]
+        before = [w.route_launches[route] for w in BWD_WRAPPERS]
+        got = K.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = K.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        mags = [b.float().abs().max().item() for b in want]
+        print(f"  flash_bwd {str(dtype):15s} B{B} S{S} H{Hq}/{Hkv} D{D} "
+              f"causal={causal}{' fused-qkv views' if sliced else ''} "
+              f"({route}): dq/dk/dv err "
+              f"{' '.join(f'{e:.3e}' for e in errs)} (tol {tol:.1e}; "
+              f"max |d| {' '.join(f'{m:.2f}' for m in mags)})", flush=True)
+        check([w.route_launches[route] for w in BWD_WRAPPERS]
+              == [n + 1 for n in before],
+              f"flash_bwd {dtype} did not take its {route} route once")
+        check(all(e <= tol for e in errs) and all(
+            g.shape == w.shape and g.dtype == w.dtype
+            for g, w in zip(got, want)),
+            f"flash_bwd {dtype} S{S} H{Hq}/{Hkv} D{D}: {errs}")
 
     # the training slice's shape, bf16 B16 S2048 H16 D128 causal: forward
     # (O and LSE), dq and dk/dv against their plain versions, which hold
@@ -385,11 +456,19 @@ def train_kernel_checks(K, gen, rows):
     # backward's plain version starts from the forward kernel's O and LSE,
     # which are held to theirs first
     B, S, Hq, D = 16, 2048, 16, 128
-    q, k, v, do = (randn(B, S, Hq, D, dtype=torch.bfloat16) for _ in range(4))
+    q, k, v, do = (randn(B, S, Hq, D, dtype=bf16) for _ in range(4))
     o, lse = K.flash_attention_fwd(q, k, v, causal=True)
     delta = _delta(o, do)
-    dq, (dk, dv) = (K.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
-                    K.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+
+    def bwd():
+        return (K.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+                *K.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+
+    dq, dk, dv = bwd()
+    same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), bwd()))
+    print(f"  flash_bwd bf16 B{B} S{S} H{Hq} D{D} causal: two calls bitwise "
+          f"equal {same}", flush=True)
+    check(same, "the bf16 flash backward is not deterministic")
     err = dict(o=0.0, lse=0.0, dq=0.0, dkv=0.0)
     for b in range(B):
         r, rh = slice(b, b + 1), slice(b * Hq, (b + 1) * Hq)
@@ -419,15 +498,25 @@ def train_kernel_checks(K, gen, rows):
                          3)
     torch.cuda.empty_cache()
     ms_dq = timed_ms(lambda: K.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                      True), 3)
+                                                      True), 20)
     ms_dkv = timed_ms(lambda: K.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                        delta, True), 3)
+                                                        delta, True), 20)
     dms_dq = device_ms(lambda: K.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, True), "flash_bwd_dq_kernel", 3)
+        q, k, v, do, lse, delta, True), BWD_SYMBOLS["dq"], 10)
     dms_dkv = device_ms(lambda: K.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, True), "flash_bwd_dkv_kernel", 3)
+        q, k, v, do, lse, delta, True), BWD_SYMBOLS["dkv"], 10)
+    check(dms_dq is not None and dms_dkv is not None,
+          f"the profiler did not see {BWD_SYMBOLS['dq']} / "
+          f"{BWD_SYMBOLS['dkv']}: {dms_dq} / {dms_dkv}")
     plain = timed_ms(lambda: K.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                        causal=True), 3)
+    # the fp32 route (CUDA cores) on the same values, for the route table
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    f32_dq = device_ms(lambda: K.flash_attention_bwd_dq(
+        q32, k32, v32, do32, lse, delta, True), "flash_bwd_dq_kernel", 2)
+    f32_dkv = device_ms(lambda: K.flash_attention_bwd_dkv(
+        q32, k32, v32, do32, lse, delta, True), "flash_bwd_dkv_kernel", 2)
+    del q32, k32, v32, do32
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
@@ -443,33 +532,43 @@ def train_kernel_checks(K, gen, rows):
     pairs = S * (S + 1) // 2
     io = B * S * Hq * D * 2  # one bf16 [B, S, H, D] tensor
     stats = 2 * B * Hq * S * 4  # lse and delta
-    b_dq, by_dq = bound(5 * io + stats, 6 * D * pairs * B * Hq, PEAK_BF16)
-    b_dkv, by_dkv = bound(6 * io + stats, 8 * D * pairs * B * Hq, PEAK_BF16)
+    ops_dq, ops_dkv = 6 * D * pairs * B * Hq, 8 * D * pairs * B * Hq
+    b_dq, by_dq = bound(5 * io + stats, ops_dq, PEAK_BF16)
+    b_dkv, by_dkv = bound(6 * io + stats, ops_dkv, PEAK_BF16)
     b_fwd, by_fwd = bound(4 * io + stats // 2, 4 * D * pairs * B * Hq,
                           PEAK_BF16)
+    tf_dq, tf_dkv = ops_dq / dms_dq * 1e-9, ops_dkv / dms_dkv * 1e-9
     print(f"  flash bf16 B{B} S{S} H{Hq} D{D} causal (training shape): fwd "
-          f"kernel {fwd_ms:.3f} ms (device {fwd_dms:.3f} ms, bound "
+          f"kernel {fwd_ms:.3f} ms (device {fmt(fwd_dms, '.3f')} ms, bound "
           f"{b_fwd:.4f} ms {by_fwd}), plain fwd {fwd_plain:.3f} ms, F.sdpa "
-          f"fwd {lib_f:.3f} ms; dq kernel {ms_dq:.3f} ms (device "
-          f"{dms_dq:.3f} ms, bound {b_dq:.4f} ms {by_dq}), dk/dv kernel "
-          f"{ms_dkv:.3f} ms (device {dms_dkv:.3f} ms, bound {b_dkv:.4f} ms "
-          f"{by_dkv}); plain backward (dq+dk+dv) {plain:.3f} ms; F.sdpa "
-          f"backward {lib:.3f} ms (fwd+bwd {lib_fb:.3f} - fwd {lib_f:.3f})",
+          f"fwd {lib_f:.3f} ms", flush=True)
+    print(f"  flash backward, bf16 route (wgmma): dq kernel {ms_dq:.3f} ms "
+          f"(device {dms_dq:.3f} ms = {tf_dq:.1f} TFLOP/s, bound {b_dq:.4f} "
+          f"ms {by_dq}), dk/dv kernel {ms_dkv:.3f} ms (device {dms_dkv:.3f} "
+          f"ms = {tf_dkv:.1f} TFLOP/s, bound {b_dkv:.4f} ms {by_dkv}); fp32 "
+          f"route (CUDA cores) on the same values: dq device "
+          f"{fmt(f32_dq, '.3f')} ms, dk/dv device {fmt(f32_dkv, '.3f')} ms; "
+          f"plain backward (dq+dk+dv) {plain:.3f} ms; F.sdpa backward "
+          f"{lib:.3f} ms (fwd+bwd {lib_fb:.3f} - fwd {lib_f:.3f})",
           flush=True)
     common = dict(route="cuda",
-                  source="paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+                  routes={"bfloat16": "cuda wgmma",
+                          "float32": "cuda fp32 CUDA cores"},
+                  source="paddle_tpu_torch/kernels/csrc/flash_bwd_sm90.cu",
+                  float32_source="paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
                   shape=f"bf16 B{B} S{S} H{Hq} D{D} causal (training)",
                   plain_ms=plain, library_ms=lib)
     rows["flash_attention_bwd_dq"] = dict(
         name="flash_attention_bwd_dq",
         replaces="paddle_tpu/kernels/flash_attention.py:145",
-        max_abs_err=err_dq, ms=ms_dq, device_ms=dms_dq, bound_ms=b_dq,
-        bound_by=by_dq, **common)
+        max_abs_err=err_dq, ms=ms_dq, device_ms=dms_dq, tflops=tf_dq,
+        float32_device_ms=f32_dq, bound_ms=b_dq, bound_by=by_dq, **common)
     rows["flash_attention_bwd_dkv"] = dict(
         name="flash_attention_bwd_dkv",
         replaces="paddle_tpu/kernels/flash_attention.py:182",
-        max_abs_err=err_dkv, ms=ms_dkv, device_ms=dms_dkv, bound_ms=b_dkv,
-        bound_by=by_dkv, **common)
+        max_abs_err=err_dkv, ms=ms_dkv, device_ms=dms_dkv, tflops=tf_dkv,
+        float32_device_ms=f32_dkv, bound_ms=b_dkv, bound_by=by_dkv,
+        **common)
     rows["flash_attention_fwd"].update(
         train_shape=common["shape"], train_max_abs_err=err["o"],
         train_lse_max_abs_err=err["lse"], train_ms=fwd_ms,
@@ -526,9 +625,9 @@ def train_kernel_checks(K, gen, rows):
     ms32 = timed_ms(lambda: K.fused_adamw_update(p32, g32, m32, v32,
                                                  **ADAMW_HP), 50)
     print(f"  fused_adamw fp32 master + bf16 g/m/v, n={n}: kernel {ms:.4f} ms "
-          f"(device {dms:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms "
-          f"({by}); all fp32: kernel {ms32:.4f} ms, torch._fused_adamw_ "
-          f"{lib:.4f} ms", flush=True)
+          f"(device {fmt(dms, '.4f')} ms), plain {plain:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}); all fp32: kernel {ms32:.4f} ms, "
+          f"torch._fused_adamw_ {lib:.4f} ms", flush=True)
     rows["fused_adamw_update"] = dict(
         name="fused_adamw_update", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/fused_adamw.cu",
@@ -602,8 +701,8 @@ def norm_primitive_checks(K, P, ops, gen, rows):
         dms = device_ms(lambda: K.fused_rms_norm(x, w), "_rms_fwd_kernel", 50)
         timings[R] = (ms, plain, lib, bms, by, err, dms)
         print(f"  rms_norm bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
-              f"{dms:.4f} ms), plain {plain:.4f} ms, F.rms_norm {lib:.4f} "
-              f"ms, bound {bms:.5f} ms ({by})", flush=True)
+              f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, F.rms_norm "
+              f"{lib:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
     ms, plain, lib, bms, by, err, dms = timings[16 * 2048]
     rows["fused_rms_norm"] = dict(
         name="fused_rms_norm", route="triton",
@@ -642,9 +741,9 @@ def norm_primitive_checks(K, P, ops, gen, rows):
     bms, by = bound(4 * n * 2, 2 * n, PEAK_FP32)
     err, _ = primitive_err(axpy(x, y, a), P.elementwise_ref(fn, x, y, a))
     print(f"  elementwise x + a*y bf16 [16, 2048, {H}]: kernel {ms:.4f} ms "
-          f"(device {dms:.4f} ms), plain {plain:.4f} ms, torch.addcmul "
-          f"{lib:.4f} ms, bound {bms:.4f} ms ({by}); x + a*tanh(y) kernel "
-          f"{tanh_ms:.4f} ms", flush=True)
+          f"(device {fmt(dms, '.4f')} ms), plain {plain:.4f} ms, "
+          f"torch.addcmul {lib:.4f} ms, bound {bms:.4f} ms ({by}); "
+          f"x + a*tanh(y) kernel {tanh_ms:.4f} ms", flush=True)
     rows["elementwise_kernel"] = dict(
         name="elementwise_kernel", route="triton",
         source="paddle_tpu_torch/kernels/primitive.py",
@@ -681,9 +780,9 @@ def norm_primitive_checks(K, P, ops, gen, rows):
     bms, by = bound(R * H * 2 + R * 2, R * H, PEAK_FP32)
     err, _ = primitive_err(row_sum(x), P.row_reduce_ref(fn, init, x))
     print(f"  row_reduce row sum bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
-          f"{dms:.4f} ms), plain {plain:.4f} ms, torch.sum {lib:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}); row max kernel {max_ms:.4f} ms, "
-          f"torch.amax {max_lib:.4f} ms", flush=True)
+          f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, torch.sum "
+          f"{lib:.4f} ms, bound {bms:.4f} ms ({by}); row max kernel "
+          f"{max_ms:.4f} ms, torch.amax {max_lib:.4f} ms", flush=True)
     rows["row_reduce_kernel"] = dict(
         name="row_reduce_kernel", route="triton",
         source="paddle_tpu_torch/kernels/primitive.py",
@@ -837,8 +936,12 @@ def train_slice(K, seed: int, rows):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / timed
     counts = K.launch_counts()
+    routes = {w: dict(getattr(K, w).route_launches)
+              for w in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
     peak = torch.cuda.max_memory_allocated()
-    busy, top = device_busy(lambda: losses.append(step(x, y)), top=10)
+    kernels = profile_kernels(lambda: losses.append(step(x, y)))
+    busy, top = sum(t for _, t in kernels), kernels[:10]
+    bwd_ms = {k: kernel_ms(kernels, sym) for k, sym in BWD_SYMBOLS.items()}
     losses = [float(v) for v in losses]
     tokens = B * S
     # bench.py's FLOP count (bench_gpt_dp): 6N + 12*L*H*S per token; it
@@ -855,8 +958,13 @@ def train_slice(K, seed: int, rows):
           flush=True)
     for name, t in top:
         print(f"     {t * 1e3:9.3f} ms  {name[:90]}", flush=True)
-    print(f"    kernel launches over the {timed} timed steps: {counts}",
-          flush=True)
+    print(f"    kernel launches over the {timed} timed steps: {counts}; "
+          f"flash backward by route: {routes}", flush=True)
+    print(f"    profiled step: {BWD_SYMBOLS['dq']} "
+          f"{fmt(bwd_ms['dq'], '.3f')} ms, {BWD_SYMBOLS['dkv']} "
+          f"{fmt(bwd_ms['dkv'], '.3f')} ms of device time", flush=True)
+    check(None not in bwd_ms.values(), f"the profiled step shows no "
+          f"{' or '.join(BWD_SYMBOLS.values())}: {bwd_ms}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
           f"first loss {losses[0]} is not within 0.5 of ln V")
@@ -870,6 +978,9 @@ def train_slice(K, seed: int, rows):
           and counts["fused_adamw_update"] == n_tensors * timed,
           f"launches per step differ from 2L flash forwards (recompute), L "
           f"dq and dk/dv, one AdamW per parameter tensor: {counts}")
+    check(all(r == {"wgmma": L * timed, "cuda_cores": 0}
+              for r in routes.values()),
+          f"the bf16 backward did not run on the tensor cores: {routes}")
     for name in TRAINING_KERNELS:  # LayerNorm and flash fwd serve as well
         key = "launches_train" if "launches" in rows[name] else "launches"
         rows[name][key] = counts[name]
@@ -1245,8 +1356,18 @@ def main() -> int:
           f"into {_build.BUILD}", flush=True)
     for name, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}", flush=True)
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                print(f"    {name}: {m.group(1)}", flush=True)
+            elif "registers" in line or "spill" in line:
+                print(f"    {name}:   {line.strip()}", flush=True)
+    # the bf16 backward's products run on the tensor cores: HGMMA in SASS
+    hgmma = sass_counts(_build.BUILD / "libflash_bwd_sm90.so", "HGMMA")
+    for sym in BWD_SYMBOLS.values():
+        found = {fn: n for fn, n in hgmma.items() if sym in fn}
+        print(f"    HGMMA instructions in {sym}: {found}", flush=True)
+        check(found and all(n > 0 for n in found.values()),
+              f"no HGMMA in {sym}: {found}")
     t0 = time.perf_counter()
     x = torch.randn(4, 2048, device="cuda")
     K.fused_layer_norm(x, torch.ones(2048, device="cuda"),

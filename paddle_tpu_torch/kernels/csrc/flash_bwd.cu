@@ -1,16 +1,16 @@
-// Flash attention backward for Hopper (sm_90a), CUDA C++ with a plain C
-// interface (bound with ctypes from kernels/flash_attention.py).
+// Flash attention backward for Hopper (sm_90a), fp32: CUDA C++ with a plain
+// C interface (bound with ctypes from kernels/flash_attention.py). bf16
+// takes the tensor-core kernels of flash_bwd_sm90.cu; these CUDA-core
+// kernels serve fp32, where wgmma would read the operands as TF32.
 //
 // Replaces paddle_tpu/kernels/flash_attention.py `_dq_kernel` and
 // `_dkv_kernel` (both launched by `_bwd`). P is recomputed from the saved
 // log2-domain LSE that flash_fwd.cu emits ([B*H, S] fp32), with exactly the
-// TPU kernels' arithmetic: s = (q.k) * scale*LOG2E in fp32 from the
-// native-dtype operands, causal/ragged entries give p = 0,
-// p = exp2(s - lse), dp = dO.v in fp32, ds = p * (dp - delta) * scale
-// rounded to the operand dtype, dV += round(p)^T.dO, dK += ds^T.q,
-// dQ += ds.k, fp32 accumulators, outputs in the input dtype. delta =
-// rowsum(dO*O) in fp32 is computed by the wrapper, as `_bwd` computes it
-// outside its kernels.
+// TPU kernels' arithmetic: s = (q.k) * scale*LOG2E in fp32, causal/ragged
+// entries give p = 0, p = exp2(s - lse), dp = dO.v in fp32, ds = p * (dp -
+// delta) * scale, dV += p^T.dO, dK += ds^T.q, dQ += ds.k, fp32 accumulators.
+// delta = rowsum(dO*O) in fp32 is computed by the wrapper, as `_bwd`
+// computes it outside its kernels.
 //
 // Layout: q/k/v [B, S, H(kv), D] with arbitrary batch and sequence strides
 // (column slices of the fused qkv projection) and packed heads; dO, dq, dk
@@ -18,13 +18,12 @@
 //
 // What bounds it on the H100: operations. Per (b, h) the backward does
 // ~7*S*S*D/2 multiply-adds against ~8*S*D*2 bytes (causal), far above the
-// ~295 operations per byte where memory would be the limit. This first
-// version is deliberately simple, like flash_fwd.cu: both products run on
-// the CUDA cores in fp32, one block of 128 threads, each thread owning a
-// 4x4 score tile and 4 rows x D/8 columns of its accumulator in registers,
-// tiles staged in shared memory once per block, and causal tiles past the
-// diagonal skipped by the loop bounds. wgmma, TMA and warp specialisation
-// are later work.
+// ~295 operations per byte where memory would be the limit; in fp32 the
+// CUDA cores' 67 TFLOP/s is the ceiling. This version is deliberately
+// simple: both products run on the CUDA cores, one block of 128 threads,
+// each thread owning a 4x4 score tile and 4 rows x D/8 columns of its
+// accumulator in registers, tiles staged in shared memory once per block,
+// and causal tiles past the diagonal skipped by the loop bounds.
 //
 //  * dq: one block per (b*h, 64-row query tile); it loops over 32-key tiles
 //    up to the causal diagonal (the TPU grid's sequential key axis becomes
@@ -36,7 +35,6 @@
 // Neither kernel uses atomics, so both are deterministic run to run.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -47,31 +45,18 @@ constexpr int CG = 8;    // column groups: thread col c = cg + CG*j
 constexpr int DQ_BQ = 64, DQ_BK = 32;  // dq: query rows per block, key tile
 constexpr int KV_BK = 64, KV_BQ = 32;  // dkv: key rows per block, query tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to T and back: the TPU kernels' `.astype(k.dtype)` on p and ds
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 struct Strides {
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;
 };
 
 // rows [r0, r0+R) of a [S, D] slice with sequence stride ss into a padded
 // fp32 tile [R][D+1]; rows at or past S read as zero
-template <typename T, int R, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
-                                      int r0, int S) {
+template <int R, int D>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long ss, int r0, int S) {
   for (int i = threadIdx.x; i < R * D; i += NT) {
     const int r = i / D, d = i % D, s = r0 + r;
-    dst[r * (D + 1) + d] = s < S ? to_f(src[s * ss + d]) : 0.f;
+    dst[r * (D + 1) + d] = s < S ? src[s * ss + d] : 0.f;
   }
 }
 
@@ -87,12 +72,13 @@ constexpr size_t dkv_smem_bytes() {
                           KV_BK * (KV_BQ + 1) + 2 * KV_BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
-    int Hkv, Strides st, float scale, float scale_log2, int causal) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int S, int H, int Hkv, Strides st, float scale,
+    float scale_log2, int causal) {
   static_assert(D % CG == 0, "head_dim must be a multiple of 8");
   constexpr int RPT = DQ_BQ / RG, CPT = DQ_BK / CG, DPT = D / CG;
   extern __shared__ float smem[];
@@ -111,11 +97,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
   const long long o_ss = (long long)H * D, o_sb = S * o_ss;
-  const T* kb = k + b * st.k_sb + (long long)hk * D;
-  const T* vb = v + b * st.v_sb + (long long)hk * D;
+  const float* kb = k + b * st.k_sb + (long long)hk * D;
+  const float* vb = v + b * st.v_sb + (long long)hk * D;
 
-  stage<T, DQ_BQ, D>(Qs, q + b * st.q_sb + (long long)h * D, st.q_ss, q0, S);
-  stage<T, DQ_BQ, D>(dOs, dout + b * o_sb + (long long)h * D, o_ss, q0, S);
+  stage<DQ_BQ, D>(Qs, q + b * st.q_sb + (long long)h * D, st.q_ss, q0, S);
+  stage<DQ_BQ, D>(dOs, dout + b * o_sb + (long long)h * D, o_ss, q0, S);
   for (int i = tid; i < DQ_BQ; i += NT) {
     const int s = q0 + i;
     lse_s[i] = s < S ? lse[(long long)bh * S + s] : 0.f;
@@ -133,8 +119,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   for (int t = 0; t < nkb; ++t) {
     const int k0 = t * DQ_BK;
     __syncthreads();  // the previous tile's readers are done
-    stage<T, DQ_BK, D>(Ks, kb, st.k_ss, k0, S);
-    stage<T, DQ_BK, D>(Vs, vb, st.v_ss, k0, S);
+    stage<DQ_BK, D>(Ks, kb, st.k_ss, k0, S);
+    stage<DQ_BK, D>(Vs, vb, st.v_ss, k0, S);
     __syncthreads();
 
     float sc[RPT][CPT], dp[RPT][CPT];
@@ -173,7 +159,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
         const bool valid = qpos < S && kpos < S && (!causal || qpos >= kpos);
         const float p = valid ? exp2f(sc[i][j] * scale_log2 - lse_s[r]) : 0.f;
         dSs[r * (DQ_BK + 1) + c] =
-            round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
+            p * (dp[i][j] - delta_s[r]) * scale;
       }
     }
     __syncthreads();
@@ -196,19 +182,19 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + rg + RG * i;
     if (row >= S) continue;
-    T* out = dq + b * o_sb + row * o_ss + (long long)h * D;
+    float* out = dq + b * o_sb + row * o_ss + (long long)h * D;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) out[cg + CG * e] = from_f<T>(acc[i][e]);
+    for (int e = 0; e < DPT; ++e) out[cg + CG * e] = acc[i][e];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int H, int Hkv, Strides st, float scale, float scale_log2,
-    int causal) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv,
+    Strides st, float scale, float scale_log2, int causal) {
   static_assert(D % CG == 0, "head_dim must be a multiple of 8");
   constexpr int RPT = KV_BK / RG, CPT = KV_BQ / CG, DPT = D / CG;
   extern __shared__ float smem[];
@@ -228,8 +214,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const int rg = tid / CG, cg = tid % CG;
   const long long o_ss = (long long)H * D, o_sb = S * o_ss;
 
-  stage<T, KV_BK, D>(Ks, k + b * st.k_sb + (long long)hk * D, st.k_ss, k0, S);
-  stage<T, KV_BK, D>(Vs, v + b * st.v_sb + (long long)hk * D, st.v_ss, k0, S);
+  stage<KV_BK, D>(Ks, k + b * st.k_sb + (long long)hk * D, st.k_ss, k0, S);
+  stage<KV_BK, D>(Vs, v + b * st.v_sb + (long long)hk * D, st.v_ss, k0, S);
 
   float dka[RPT][DPT], dva[RPT][DPT];
 #pragma unroll
@@ -243,13 +229,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   for (int hh = 0; hh < rep; ++hh) {
     const int h = hk * rep + hh;
     const long long bh = (long long)b * H + h;
-    const T* qb = q + b * st.q_sb + (long long)h * D;
-    const T* ob = dout + b * o_sb + (long long)h * D;
+    const float* qb = q + b * st.q_sb + (long long)h * D;
+    const float* ob = dout + b * o_sb + (long long)h * D;
     for (int qt = qb_lo; qt < nqb; ++qt) {
       const int q0 = qt * KV_BQ;
       __syncthreads();  // the previous tile's readers are done
-      stage<T, KV_BQ, D>(Qs, qb, st.q_ss, q0, S);
-      stage<T, KV_BQ, D>(dOs, ob, o_ss, q0, S);
+      stage<KV_BQ, D>(Qs, qb, st.q_ss, q0, S);
+      stage<KV_BQ, D>(dOs, ob, o_ss, q0, S);
       for (int i = tid; i < KV_BQ; i += NT) {
         const int s = q0 + i;
         lse_s[i] = s < S ? lse[bh * S + s] : 0.f;
@@ -285,7 +271,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
           }
       }
 
-      // P^T to shared memory (rounded to dO's dtype); dS^T stays in dp
+      // P^T to shared memory; dS^T stays in dp
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = rg + RG * i, kpos = k0 + r;
@@ -294,8 +280,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
           const int c = cg + CG * j, qpos = q0 + c;
           const bool valid = qpos < S && kpos < S && (!causal || qpos >= kpos);
           const float p = valid ? exp2f(sc[i][j] * scale_log2 - lse_s[c]) : 0.f;
-          dp[i][j] = round_to<T>(p * (dp[i][j] - delta_s[c]) * scale);
-          Ps[r * (KV_BQ + 1) + c] = round_to<T>(p);
+          dp[i][j] = p * (dp[i][j] - delta_s[c]) * scale;
+          Ps[r * (KV_BQ + 1) + c] = p;
         }
       }
       __syncthreads();
@@ -341,13 +327,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const long long off = b * kv_sb + row * kv_ss + (long long)hk * D;
 #pragma unroll
     for (int e = 0; e < DPT; ++e) {
-      dk[off + cg + CG * e] = from_f<T>(dka[i][e]);
-      dv[off + cg + CG * e] = from_f<T>(dva[i][e]);
+      dk[off + cg + CG * e] = dka[i][e];
+      dv[off + cg + CG * e] = dva[i][e];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int S, int H, int Hkv, Strides st,
@@ -355,18 +341,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + DQ_BQ - 1) / DQ_BQ, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, S, H, Hkv, st, scale,
-      scale_log2, causal);
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, S, H, Hkv, st,
+      scale, scale_log2, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int S, int H, int Hkv,
@@ -374,40 +360,38 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + KV_BK - 1) / KV_BK, B * Hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, S, H, Hkv, st,
-      scale, scale_log2, causal);
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, S, H,
+      Hkv, st, scale, scale_log2, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v: [B, S, H(kv), D] with the given batch/seq strides (elements),
-// packed heads and unit feature stride; dout: [B, S, H, D] contiguous;
-// lse/delta: [B*H, S] fp32 (lse in the log2 domain). dq: [B, S, H, D]
-// contiguous. dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code.
+// q/k/v: [B, S, H(kv), D] fp32 with the given batch/seq strides
+// (elements), packed heads and unit feature stride; dout: [B, S, H, D]
+// contiguous; lse/delta: [B*H, S] (lse in the log2 domain). dq: [B, S, H,
+// D] contiguous. Returns the CUDA error code.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int S, int H,
                             int Hkv, int D, long long q_sb, long long q_ss,
                             long long k_sb, long long k_ss, long long v_sb,
                             long long v_ss, float scale, float scale_log2,
-                            int causal, int dtype, void* stream) {
+                            int causal, void* stream) {
   const Strides st{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss};
   cudaStream_t s = (cudaStream_t)stream;
-#define DQ_CASE(T, DD)                                                     \
-  return (int)launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, \
-                               st, scale, scale_log2, causal, s)
-  if (dtype == 0 && D == 64) DQ_CASE(float, 64);
-  if (dtype == 0 && D == 128) DQ_CASE(float, 128);
-  if (dtype == 1 && D == 64) DQ_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) DQ_CASE(__nv_bfloat16, 128);
-#undef DQ_CASE
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
+                              st, scale, scale_log2, causal, s);
+  if (D == 128)
+    return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
+                               st, scale, scale_log2, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -419,17 +403,14 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int S, int H, int Hkv, int D, long long q_sb,
                              long long q_ss, long long k_sb, long long k_ss,
                              long long v_sb, long long v_ss, float scale,
-                             float scale_log2, int causal, int dtype,
-                             void* stream) {
+                             float scale_log2, int causal, void* stream) {
   const Strides st{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss};
   cudaStream_t s = (cudaStream_t)stream;
-#define DKV_CASE(T, DD)                                                      \
-  return (int)launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, B, S, H,  \
-                                Hkv, st, scale, scale_log2, causal, s)
-  if (dtype == 0 && D == 64) DKV_CASE(float, 64);
-  if (dtype == 0 && D == 128) DKV_CASE(float, 128);
-  if (dtype == 1 && D == 64) DKV_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) DKV_CASE(__nv_bfloat16, 128);
-#undef DKV_CASE
+  if (D == 64)
+    return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                               Hkv, st, scale, scale_log2, causal, s);
+  if (D == 128)
+    return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                Hkv, st, scale, scale_log2, causal, s);
   return (int)cudaErrorInvalidValue;
 }

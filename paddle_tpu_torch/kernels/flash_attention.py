@@ -1,5 +1,8 @@
 """Flash attention, CUDA C++ for Hopper: the forward
-(``csrc/flash_fwd.cu``) and the two backward kernels (``csrc/flash_bwd.cu``).
+(``csrc/flash_fwd.cu``) and the two backward kernels, routed by dtype: bf16
+on the tensor cores (``csrc/flash_bwd_sm90.cu``: wgmma fed by TMA), fp32 on
+the CUDA cores (``csrc/flash_bwd.cu``), where wgmma would round the
+operands to TF32.
 
 Replaces ``paddle_tpu/kernels/flash_attention.py`` ``_fwd_kernel``
 (launched by ``_fwd``) and ``_dq_kernel`` / ``_dkv_kernel`` (launched by
@@ -31,11 +34,15 @@ LOG2E = 1.4426950408889634  # the softmax runs in the exp2 domain
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {"flash_fwd": [_P] * 5 + [_I] * 5 + [_LL] * 6
                + [_F, _I, _I, _P]}
-_BWD_SIGNATURES = {
-    "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _I, _P],
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _I, _P],
-}
+# the backward's two libraries share one C signature per entry
+_BWD_ARGS = {"dq": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _P],
+             "dkv": [_P] * 8 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _P]}
+_BWD_SIGNATURES = {f"flash_bwd_{k}": v for k, v in _BWD_ARGS.items()}
+_BWD_SM90_SIGNATURES = {f"flash_bwd_{k}_sm90": v for k, v in _BWD_ARGS.items()}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the backward kernels' route for each dtype, the keys of their wrappers'
+#: ``route_launches``
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_cores"}
 HEAD_DIMS = (64, 128)
 
 
@@ -177,6 +184,17 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
     return _bwd_core_ref(q, k, v, do, lse, _delta(o, do), causal, scale)
 
 
+def _for_tma(t):
+    """``t`` itself if TMA can read it in place (16-byte aligned base,
+    batch and sequence strides that are 16-byte multiples, as the fused qkv
+    projection's column slices have), else a contiguous copy."""
+    nbytes = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(t.stride(i) * nbytes % 16 == 0
+                                      for i in (0, 1)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _bwd_launch_inputs(name, q, k, v, do, lse, delta):
     shape, q, k, v = _launch_inputs(name, q, k, v)
     B, S, H, _ = shape
@@ -189,7 +207,24 @@ def _bwd_launch_inputs(name, q, k, v, do, lse, delta):
                 or t.device != q.device:
             raise ValueError(f"{name}: {what} must be [{B * H}, {S}] float32 "
                              f"on {q.device}, got {tuple(t.shape)} {t.dtype}")
-    return shape, q, k, v, do.contiguous(), lse.contiguous(), delta.contiguous()
+    do = do.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = map(_for_tma, (q, k, v, do))
+    return shape, q, k, v, do, lse.contiguous(), delta.contiguous()
+
+
+def _bwd_entry(entry, dtype):
+    """``(C entry, route)`` of ``dtype``'s route."""
+    route = BWD_ROUTES[dtype]
+    if route == "wgmma":
+        lib = _build.load("flash_bwd_sm90", _BWD_SM90_SIGNATURES)
+        return getattr(lib, entry + "_sm90"), route
+    return getattr(_build.load("flash_bwd", _BWD_SIGNATURES), entry), route
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -197,7 +232,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     """dQ ``[B, S, H, D]`` (``_dq_kernel``) from the forward's inputs, the
     upstream gradient ``do``, the log2-domain LSE and ``delta`` (both
     ``[B*H, S]`` fp32). CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel of their dtype's route (``BWD_ROUTES``) or raise."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         return _bwd_core_ref(q, k, v, do, lse, delta, causal, scale)[0]
@@ -205,15 +240,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
         "flash_attention_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if B * S:
-        lib = _build.load("flash_bwd", _BWD_SIGNATURES)
-        err = lib.flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H,
-            k.shape[2], D, *_strides(q, k, v), scale, scale * LOG2E,
-            int(causal), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(err, "flash_bwd_dq")
-        flash_attention_bwd_dq.launches += 1
+        fn, route = _bwd_entry("flash_bwd_dq", q.dtype)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H,
+                 k.shape[2], D, *_strides(q, k, v), scale, scale * LOG2E,
+                 int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, fn.__name__)
+        _count(flash_attention_bwd_dq, route)
     return dq
 
 
@@ -231,20 +264,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     dk = torch.empty((B, S, Hkv, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=v.dtype, device=q.device)
     if B * S:
-        lib = _build.load("flash_bwd", _BWD_SIGNATURES)
-        err = lib.flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, Hkv, D, *_strides(q, k, v), scale, scale * LOG2E,
-            int(causal), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(err, "flash_bwd_dkv")
-        flash_attention_bwd_dkv.launches += 1
+        fn, route = _bwd_entry("flash_bwd_dkv", q.dtype)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B, S, H, Hkv, D, *_strides(q, k, v), scale,
+                 scale * LOG2E, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, fn.__name__)
+        _count(flash_attention_bwd_dkv, route)
     return dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+for _w in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _w.launches = 0
+    _w.route_launches = dict.fromkeys(BWD_ROUTES.values(), 0)
+del _w
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,

@@ -120,33 +120,88 @@ def test_engine_on_card_matches_cpu(cuda):
     assert got == want
 
 
+def _bwd_inputs(cuda, dtype, B, S, Hkv, D, fused=False, seed=1):
+    """q, k, v, do with 16 query heads; ``fused``: q/k/v are the column
+    slices of one [B, S, (16 + 2 Hkv) D] projection, as models/gpt.py
+    makes them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if fused:
+        qkv = torch.randn(B, S, (16 + 2 * Hkv) * D, generator=g,
+                          device=cuda).to(dtype)
+        q, k, v = (t.unflatten(-1, (-1, D)) for t in qkv.split(
+            [16 * D, Hkv * D, Hkv * D], dim=-1))
+    else:
+        q = torch.randn(B, S, 16, D, generator=g, device=cuda).to(dtype)
+        k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+    do = torch.randn(B, S, 16, D, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Hkv,D,causal", [(200, 16, 128, True),
                                             (130, 4, 128, False),
-                                            (64, 8, 64, True)])
+                                            (64, 8, 64, True),
+                                            (1, 16, 128, True),
+                                            (63, 16, 128, True),
+                                            (65, 4, 128, False),
+                                            (200, 1, 128, True),
+                                            (65, 16, 64, True)])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, S, Hkv, D, causal):
     """dq (one launch) and dk/dv (one launch, GQA summed over the group)
     against ``flash_attention_bwd_ref`` from the forward kernel's O and
-    LSE. bf16: outputs of |d| < 8 differ by at most one rounding step
-    (2^-5)."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q, do = (torch.randn(2, S, 16, D, generator=g, device=cuda).to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(2, S, Hkv, D, generator=g, device=cuda).to(dtype)
-            for _ in range(2))
+    LSE, at the edges of the kernels' 64-row tiles; bf16 takes the
+    tensor-core route, fp32 the CUDA-core route. bf16: outputs of |d| < 8
+    differ by at most one rounding step (2^-5)."""
+    from paddle_tpu_torch.kernels.flash_attention import BWD_ROUTES
+
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, S, Hkv, D)
     o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
-    before = (K.flash_attention_bwd_dq.launches,
-              K.flash_attention_bwd_dkv.launches)
+    wrappers = (K.flash_attention_bwd_dq, K.flash_attention_bwd_dkv)
+    before = [(w.launches, dict(w.route_launches)) for w in wrappers]
     got = K.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    assert (K.flash_attention_bwd_dq.launches,
-            K.flash_attention_bwd_dkv.launches) == (before[0] + 1,
-                                                    before[1] + 1)
+    for w, (n, routes) in zip(wrappers, before):
+        routes[BWD_ROUTES[dtype]] += 1
+        assert (w.launches, w.route_launches) == (n + 1, routes)
     want = K.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     tol = 1e-4 if dtype == torch.float32 else 3.2e-2
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert _err(a, b) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Hkv,D,causal", [(200, 16, 128, True),
+                                            (130, 4, 128, False),
+                                            (65, 1, 64, True)])
+def test_flash_bwd_reads_fused_qkv_views(cuda, dtype, S, Hkv, D, causal):
+    """q/k/v as strided column slices of the fused qkv projection: the bf16
+    route's tensor maps read them in place (no copy), and both routes match
+    the plain version on them (tolerances as above)."""
+    from paddle_tpu_torch.kernels.flash_attention import _for_tma
+
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, S, Hkv, D, fused=True)
+    assert not q.is_contiguous() and all(_for_tma(t) is t for t in (q, k, v))
+    o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+    got = K.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = K.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 3.2e-2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _err(a, b) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hkv", [16, 4])
+def test_flash_bwd_bf16_is_deterministic(cuda, Hkv):
+    """No atomics and GQA summed in registers: two bf16 calls give the same
+    dq, dk and dv to the bit."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 1024, Hkv, 128)
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    first = K.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = K.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

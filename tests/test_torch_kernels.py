@@ -225,6 +225,66 @@ def test_flash_bwd_matches_pallas_bwd(dtype, causal):
         assert _max_err(w, got) <= TOL[dtype]
 
 
+def _pallas_bwd_vs_ref(dtype, causal, H, Hkv, seed):
+    """``[(max error, max |Pallas|)]`` for dq, dk, dv of
+    ``flash_attention_bwd_ref`` against the Pallas ``_bwd`` (interpret
+    mode) at the Hopper kernels' tiling: D 128, blocks of 64 query and 64
+    key rows, S 128 (two tiles each way). Pallas runs on K/V expanded to H
+    heads; its dk/dv are summed over each KV head's group."""
+    rng = np.random.default_rng(seed)
+    B, S, D = 1, 128, 128
+    rep = H // Hkv
+    q, g = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_pair(a, dtype)
+                                              for a in (q, k, v, g))
+    jkx, jvx = (jnp.repeat(a, rep, axis=2) for a in (jk, jv))
+    scale = 1.0 / math.sqrt(D)
+    o, lse, res = jfa._fwd(jq, jkx, jvx, causal, scale, 64, 64)
+    want = jfa._bwd(causal, scale, 64, 64, (*res, o, lse), jg)
+    o_t = torch.from_numpy(_np(jnp.swapaxes(o.reshape(B, H, S, D), 1, 2))) \
+        .to(tq.dtype)
+    got = K.flash_attention_bwd_ref(tq, tk, tv, o_t,
+                                    torch.from_numpy(np.asarray(lse)), tg,
+                                    causal)
+    group_sum = lambda a: _np(a).reshape(B, S, Hkv, rep, D).sum(3)  # noqa: E731
+    want = (_np(want[0]), group_sum(want[1]), group_sum(want[2]))
+    out = []
+    for w, r, t in zip(want, got, (tq, tk, tv)):
+        assert r.dtype == t.dtype and r.shape == t.shape
+        out.append((float(np.abs(w - r.float().numpy()).max()),
+                    float(np.abs(w).max())))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_matches_pallas_bwd_at_hopper_tiles(dtype, causal):
+    """As ``test_flash_bwd_matches_pallas_bwd``, at the tiling of the
+    tensor-core kernels (D 128, 64 x 64 tiles, S 128). fp32: summation
+    order only (|d| < 8). bf16: the plain version repeats the kernels'
+    roundings of p and ds, so the two differ where a rounding flips on an
+    fp32 ulp of a score, by far less than one rounding step of the bf16
+    outputs (2^-7 of the largest; ~2e-3 seen against ~0.03)."""
+    for err, mag in _pallas_bwd_vs_ref(dtype, causal, H=2, Hkv=2, seed=7):
+        assert err <= (2e-5 if dtype == "float32" else 2 ** -7 * mag)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_gqa_4_to_1_matches_pallas_at_hopper_tiles(dtype):
+    """GQA 4/1 at the same tiling: the plain version's dk/dv (K/V read
+    natively, summed over the group) against the Pallas grads of expanded
+    K/V summed over each group. fp32 as above. bf16: Pallas rounds each
+    of the four heads' dk/dv to bf16 before they are summed, the plain
+    version rounds the fp32 sum once, so they may differ by up to four
+    rounding steps of a head's output (4 x 2^-7 of the largest sum bounds
+    that; ~0.02 seen against ~0.16)."""
+    for err, mag in _pallas_bwd_vs_ref(dtype, True, H=4, Hkv=1, seed=8):
+        assert err <= (2e-5 if dtype == "float32" else 4 * 2 ** -7 * mag)
+
+
 def test_flash_bwd_gqa_sums_over_the_group():
     """GQA dk/dv (K/V heads read natively) against the JAX grads of the
     expanded K/V through the Pallas flash custom_vjp, summed over each KV
