@@ -10,44 +10,49 @@ Phases, each of which exits non-zero on failure:
 2. build: every CUDA source under ``paddle_tpu_torch/kernels/csrc`` is
    compiled with ``nvcc`` for sm_90a (one process per source, in parallel;
    ptxas's registers and spills printed per kernel), the HGMMA instructions
-   of the bf16 flash backward's kernels are counted in their SASS
-   (``cuobjdump -sass``; none fails), and the Triton LayerNorm, the Triton
+   of the bf16 flash forward's and backward's kernels are counted in their
+   SASS (``cuobjdump -sass``; none fails), and the Triton LayerNorm, the Triton
    RMSNorm and the primitives that ``kernels.primitive`` generates for this
    script's functions are JIT-compiled;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training slices' shapes (RMSNorm and the primitives at
    the 1.3B's hidden-state shapes and at ragged ones), in bf16 and fp32,
-   with the stated tolerance (the flash backward also at the edges of its
-   64-row tiles, with GQA 16/1, and on the fused qkv projection's column
-   slices, each call on its dtype's route; two bf16 calls at the training
-   shape bitwise equal); then timed with CUDA events and the profiler
-   beside the plain version, a library yardstick the port never calls, and
-   the H100 bound (a kernel the profiler does not see fails the backward's
-   rows and prints "not seen" elsewhere);
+   with the stated tolerance (the flash forward and backward also at the
+   edges of their 64-row tiles, with GQA 16/1, and on the fused qkv
+   projection's column slices, each call on its dtype's route; the forward
+   also on a view TMA cannot read, which is copied first; two bf16 calls
+   at the training shape bitwise equal); then timed with CUDA events and
+   the profiler beside the plain version, a library yardstick the port
+   never calls, and the H100 bound (a flash kernel the profiler does not
+   see fails the run; others print "not seen");
 4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
    weights from the seed) behind ``Engine.generate``, 16 greedy requests
-   through 8 slots, with each kernel's launch count over that run;
+   through 8 slots, with each kernel's launch count over that run (every
+   flash forward on the bf16 route, wgmma);
 5. serving vs plain: at full width and depth 2 in fp32, the same weights
-   serve 3 greedy prompts on the card and on the CPU (plain versions);
+   serve 3 greedy prompts on the card (every flash forward on the fp32
+   route, the CUDA cores) and on the CPU (plain versions);
    tokens must match and the last decode logits agree; on the card, flash
    prefill over the generated text agrees with the paged decode step;
 6. training slice at full width: GPT-3 1.3B (bf16, full recompute, chunked
    loss) through ``make_sharded_train_step(model, AdamW(...))`` with fp32
    master weights and bf16 moments, batch 16 x 2048; one warm-up step,
    five timed steps and one profiled step, with each kernel's launch
-   count over the timed steps (the backward's on the tensor-core route)
-   and the bf16 backward kernels' device time in the profiled step; the
-   loss must be finite and fall;
+   count over the timed steps (the flash kernels' on the tensor-core
+   route) and the bf16 flash kernels' device time in the profiled step;
+   the loss must be finite and fall;
 7. training vs plain: at full width and depth 2 in fp32, the same weights
-   take 3 AdamW steps on the card and on the CPU; losses, the first
-   step's gradients and the parameters' updates after step 3 agree;
+   take 3 AdamW steps on the card (every flash launch on the CUDA-core
+   route) and on the CPU; losses, the first step's gradients and the
+   parameters' updates after step 3 agree;
 8. training surface at full width: GPT-3 1.3B (bf16) at batch 16 x 2048
    with a LinearWarmup over a CosineAnnealingDecay, a GradScaler and each
    recompute policy (None, save_flash, dots_saveable): one warm-up step,
    then ``run_steps`` over 3 stacked batches, the scheduler stepped between
    calls; step time, tokens/s, MFU, peak memory and flash forwards per
    step for each policy; the loss must be finite and fall, save_flash must
-   launch half the flash forwards, and the rates used follow the schedule;
+   launch half the flash forwards, every flash launch takes the wgmma
+   route, and the rates used follow the schedule;
 9. surface vs plain: at full width and depth 2 in fp32, with the
    scheduler, the scaler, save_flash and ``run_steps``: gradients under
    None and save_flash are bitwise equal on the card; a first step with an
@@ -116,9 +121,17 @@ TRAINING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
                     "fused_adamw_update")
 USER_API_KERNELS = ("fused_rms_norm", "elementwise_kernel",
                     "row_reduce_kernel")
-# the bf16 flash backward's kernels (csrc/flash_bwd_sm90.cu), by symbol
+# the bf16 flash kernels, by symbol: the forward (csrc/flash_fwd_sm90.cu)
+# and the backward's two (csrc/flash_bwd_sm90.cu); the fp32 route's
+# CUDA-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+FWD_SYMBOL = "flash_fwd_sm90_kernel"
 BWD_SYMBOLS = {"dq": "flash_bwd_dq_sm90_kernel",
                "dkv": "flash_bwd_dkv_sm90_kernel"}
+SM90_LIBS = {"flash_fwd_sm90": (FWD_SYMBOL,),
+             "flash_bwd_sm90": tuple(BWD_SYMBOLS.values())}
+FP32_FWD_SYMBOL = "flash_fwd_kernel"
+FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
 ALL_KERNELS = ("fused_layer_norm", "flash_attention_fwd", "paged_attention",
                "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                "fused_adamw_update") + USER_API_KERNELS
@@ -218,6 +231,41 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def check_flash_routes(K, route: str, what: str):
+    """Every launch of the three flash wrappers since the counts were last
+    reset took ``route`` (``wgmma`` on a bf16 path, ``cuda_cores`` on an
+    fp32 one); returns their ``route_launches``."""
+    counts = K.launch_counts()
+    routes = {w: dict(getattr(K, w).route_launches) for w in FLASH_WRAPPERS}
+    check(all(r[route] == sum(r.values()) == counts[w]
+              for w, r in routes.items()),
+          f"{what}: a flash launch left the {route} route: {routes}")
+    return routes
+
+
+def flash_inputs(randn, B, S, Hq, Hkv, D, dtype, view=None):
+    """q [B, S, Hq, D], k and v [B, S, Hkv, D]. ``view``: None for three
+    tensors; "fused" for the column slices of one [B, S, (Hq + 2 Hkv) D]
+    projection, as models/gpt.py makes them (TMA reads them in place);
+    "copied" for slices of a projection 4 elements wider, whose sequence
+    stride is not a 16-byte multiple (the bf16 route copies them first)."""
+    import importlib
+
+    if view is None:
+        return (randn(B, S, Hq, D, dtype=dtype),
+                randn(B, S, Hkv, D, dtype=dtype),
+                randn(B, S, Hkv, D, dtype=dtype))
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    pad = 4 if view == "copied" else 0
+    qkv = randn(B, S, (Hq + 2 * Hkv) * D + pad, dtype=dtype)
+    q, k, v = (t.unflatten(-1, (-1, D)) for t in qkv.split(
+        [Hq * D, Hkv * D, Hkv * D, pad], dim=-1)[:3])
+    kept = [FA._for_tma(t) is t for t in (q, k, v)]
+    check(all(kept) if view == "fused" else not any(kept),
+          f"{view} views: kept in place for TMA: {kept}")
+    return q, k, v
+
+
 # ---------------------------------------------------------------- phase 3
 def kernel_checks(K, gen):
     """Kernel vs plain on the card; returns the JSON rows (launch counts are
@@ -276,48 +324,82 @@ def kernel_checks(K, gen):
         train_plain_ms=plain, train_bound_ms=bms, train_bound_by=by,
         train_library_ms=lib)
 
-    # -- flash forward: prefill B=1, H=16, D=128, causal; plus a ragged S
-    #    and GQA for correctness
+    # -- flash forward: the serving shapes (prefill B=1, H=16, D=128,
+    #    causal; a ragged S, GQA 16/4, D 64) on both routes (bf16 on the
+    #    tensor cores, fp32 on the CUDA cores); then, in bf16, the edges of
+    #    the 64-row tiles (S 1, 63, 64, 65, 200), GQA 16/1 and D 64, q/k/v
+    #    as the fused qkv projection's column slices read in place by TMA,
+    #    and slices TMA cannot read, which are copied first. Each call must
+    #    add one launch to its dtype's route
+    import importlib
+
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    FWD = K.flash_attention_fwd
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [(1, 1024, 16, 16, 128, True), (1, 200, 16, 16, 128, True),
              (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True)]
-    for dtype in (torch.float32, torch.bfloat16):
+    edges = [(1, 1, 16, 16, 128, True), (1, 63, 16, 16, 128, True),
+             (1, 64, 16, 16, 128, False), (2, 65, 16, 16, 128, True),
+             (1, 200, 16, 1, 128, True), (2, 65, 16, 4, 64, True),
+             (2, 63, 16, 1, 64, False)]
+    fused = [(2, 200, 16, 16, 128, True), (2, 130, 16, 4, 128, False),
+             (1, 65, 16, 1, 64, True)]
+    runs = ([(dt, c, None) for dt in (f32, bf16) for c in cases]
+            + [(bf16, c, None) for c in edges]
+            + [(bf16, c, "fused") for c in fused]
+            + [(bf16, (2, 77, 16, 4, 128, True), "copied")])
+    for dtype, (B, S, Hq, Hkv, D, causal), view in runs:
         dn = str(dtype).split(".")[1]
-        for B, S, Hq, Hkv, D, causal in cases:
-            q = randn(B, S, Hq, D, dtype=dtype)
-            k = randn(B, S, Hkv, D, dtype=dtype)
-            v = randn(B, S, Hkv, D, dtype=dtype)
-            o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
-            o_ref, lse_ref = K.flash_attention_ref(q, k, v, causal=causal)
-            eo, el = max_err(o, o_ref), max_err(lse, lse_ref)
-            to, tl = TOL[("flash", dn)], TOL[("flash_lse", dn)]
-            print(f"  flash_fwd {str(dtype):15s} B{B} S{S} H{Hq}/{Hkv} D{D} "
-                  f"causal={causal}: O err {eo:.3e} (tol {to:.1e}), LSE err "
-                  f"{el:.3e} (tol {tl:.1e})", flush=True)
-            check(eo <= to and el <= tl, f"flash {dtype} S{S}: O {eo}, "
-                  f"LSE {el}")
+        q, k, v = flash_inputs(randn, B, S, Hq, Hkv, D, dtype, view)
+        route = FA.FWD_ROUTES[dtype]
+        want_routes = dict(FWD.route_launches)
+        want_routes[route] += 1
+        o, lse = FWD(q, k, v, causal=causal)
+        o_ref, lse_ref = K.flash_attention_ref(q, k, v, causal=causal)
+        eo, el = max_err(o, o_ref), max_err(lse, lse_ref)
+        to, tl = TOL[("flash", dn)], TOL[("flash_lse", dn)]
+        print(f"  flash_fwd {str(dtype):15s} B{B} S{S} H{Hq}/{Hkv} D{D} "
+              f"causal={causal}{f' {view} views' if view else ''} ({route}): "
+              f"O err {eo:.3e} (tol {to:.1e}), LSE err {el:.3e} (tol "
+              f"{tl:.1e})", flush=True)
+        check(FWD.route_launches == want_routes,
+              f"flash_fwd {dtype} did not take its {route} route once: "
+              f"{FWD.route_launches}")
+        check(eo <= to and el <= tl and o.shape == o_ref.shape
+              and o.dtype == o_ref.dtype, f"flash {dtype} S{S} H{Hq}/{Hkv} "
+              f"D{D}{f' {view}' if view else ''}: O {eo}, LSE {el}")
     B, S, Hq, D = 1, 1024, 16, 128
-    q, k, v = (randn(B, S, Hq, D, dtype=torch.bfloat16) for _ in range(3))
-    ms = timed_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True), 20)
+    q, k, v = (randn(B, S, Hq, D, dtype=bf16) for _ in range(3))
+    ms = timed_ms(lambda: FWD(q, k, v, causal=True), 20)
     plain = timed_ms(lambda: K.flash_attention_ref(q, k, v, causal=True), 20)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = timed_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
     pairs = S * (S + 1) // 2
-    bms, by = bound(4 * B * S * Hq * D * 2 + B * Hq * S * 4,
-                    4 * D * pairs * B * Hq, PEAK_BF16)
-    err = max_err(K.flash_attention_fwd(q, k, v, causal=True)[0],
+    ops = 4 * D * pairs * B * Hq
+    bms, by = bound(4 * B * S * Hq * D * 2 + B * Hq * S * 4, ops, PEAK_BF16)
+    err = max_err(FWD(q, k, v, causal=True)[0],
                   K.flash_attention_ref(q, k, v, causal=True)[0])
-    dms = device_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True),
-                    "flash_fwd_kernel", 10)
-    print(f"  flash_fwd bf16 S{S}: kernel {ms:.4f} ms (device "
+    dms = device_ms(lambda: FWD(q, k, v, causal=True), FWD_SYMBOL, 10)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_dms = device_ms(lambda: FWD(q32, k32, v32, causal=True),
+                        FP32_FWD_SYMBOL, 10)
+    print(f"  flash_fwd bf16 S{S} (wgmma): kernel {ms:.4f} ms (device "
           f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, F.sdpa {lib:.4f} "
-          f"ms, bound {bms:.5f} ms ({by})", flush=True)
+          f"ms, bound {bms:.5f} ms ({by}); fp32 route (CUDA cores) on the "
+          f"same values: device {fmt(f32_dms, '.4f')} ms", flush=True)
+    check(dms is not None and f32_dms is not None,
+          f"the profiler did not see {FWD_SYMBOL} / {FP32_FWD_SYMBOL}: "
+          f"{dms} / {f32_dms}")
     rows["flash_attention_fwd"] = dict(
         name="flash_attention_fwd", route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+        routes={"bfloat16": "cuda wgmma", "float32": "cuda fp32 CUDA cores"},
+        source="paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu",
+        float32_source="paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:44",
         shape="bf16 B1 S1024 H16 D128 causal (prefill bucket)",
-        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+        max_abs_err=err, ms=ms, device_ms=dms, tflops=ops / dms * 1e-9,
+        float32_device_ms=f32_dms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=lib)
 
     # -- paged decode: the slice's shapes (B 8, H 16/16, D 128, ps 16,
@@ -419,16 +501,8 @@ def train_kernel_checks(K, gen, rows):
     for dtype, (B, S, Hq, Hkv, D, causal), sliced in runs:
         dn = str(dtype).split(".")[1]
         tol = TOL[("flash_bwd", dn)]
-        if sliced:  # [B, S, (Hq + 2 Hkv) D], as models/gpt.py's qkv
-            qkv = randn(B, S, (Hq + 2 * Hkv) * D, dtype=dtype)
-            q, k, v = (t.unflatten(-1, (-1, D)) for t in qkv.split(
-                [Hq * D, Hkv * D, Hkv * D], dim=-1))
-            check(all(FA._for_tma(t) is t for t in (q, k, v)),
-                  "a fused-qkv slice would be copied before the TMA reads it")
-        else:
-            q = randn(B, S, Hq, D, dtype=dtype)
-            k = randn(B, S, Hkv, D, dtype=dtype)
-            v = randn(B, S, Hkv, D, dtype=dtype)
+        q, k, v = flash_inputs(randn, B, S, Hq, Hkv, D, dtype,
+                               "fused" if sliced else None)
         do = randn(B, S, Hq, D, dtype=dtype)
         o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
         route = FA.BWD_ROUTES[dtype]
@@ -458,6 +532,12 @@ def train_kernel_checks(K, gen, rows):
     B, S, Hq, D = 16, 2048, 16, 128
     q, k, v, do = (randn(B, S, Hq, D, dtype=bf16) for _ in range(4))
     o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    o2, lse2 = K.flash_attention_fwd(q, k, v, causal=True)
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    print(f"  flash_fwd bf16 B{B} S{S} H{Hq} D{D} causal: two calls bitwise "
+          f"equal {same}", flush=True)
+    check(same, "the bf16 flash forward is not deterministic")
+    del o2, lse2
     delta = _delta(o, do)
 
     def bwd():
@@ -491,9 +571,9 @@ def train_kernel_checks(K, gen, rows):
     check(err["o"] <= tol_o and err["lse"] <= tol_l and err["dq"] <= tol_b
           and err["dkv"] <= tol_b, f"flash at the training shape: {err}")
     err_dq, err_dkv = err["dq"], err["dkv"]
-    fwd_ms = timed_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True), 3)
+    fwd_ms = timed_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True), 20)
     fwd_dms = device_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True),
-                        "flash_fwd_kernel", 3)
+                        FWD_SYMBOL, 10)
     fwd_plain = timed_ms(lambda: K.flash_attention_ref(q, k, v, causal=True),
                          3)
     torch.cuda.empty_cache()
@@ -505,13 +585,15 @@ def train_kernel_checks(K, gen, rows):
         q, k, v, do, lse, delta, True), BWD_SYMBOLS["dq"], 10)
     dms_dkv = device_ms(lambda: K.flash_attention_bwd_dkv(
         q, k, v, do, lse, delta, True), BWD_SYMBOLS["dkv"], 10)
-    check(dms_dq is not None and dms_dkv is not None,
-          f"the profiler did not see {BWD_SYMBOLS['dq']} / "
-          f"{BWD_SYMBOLS['dkv']}: {dms_dq} / {dms_dkv}")
+    check(None not in (fwd_dms, dms_dq, dms_dkv),
+          f"the profiler did not see {FWD_SYMBOL} / {BWD_SYMBOLS['dq']} / "
+          f"{BWD_SYMBOLS['dkv']}: {fwd_dms} / {dms_dq} / {dms_dkv}")
     plain = timed_ms(lambda: K.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                        causal=True), 3)
     # the fp32 route (CUDA cores) on the same values, for the route table
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    f32_fwd = device_ms(lambda: K.flash_attention_fwd(
+        q32, k32, v32, causal=True), FP32_FWD_SYMBOL, 2)
     f32_dq = device_ms(lambda: K.flash_attention_bwd_dq(
         q32, k32, v32, do32, lse, delta, True), "flash_bwd_dq_kernel", 2)
     f32_dkv = device_ms(lambda: K.flash_attention_bwd_dkv(
@@ -535,13 +617,16 @@ def train_kernel_checks(K, gen, rows):
     ops_dq, ops_dkv = 6 * D * pairs * B * Hq, 8 * D * pairs * B * Hq
     b_dq, by_dq = bound(5 * io + stats, ops_dq, PEAK_BF16)
     b_dkv, by_dkv = bound(6 * io + stats, ops_dkv, PEAK_BF16)
-    b_fwd, by_fwd = bound(4 * io + stats // 2, 4 * D * pairs * B * Hq,
-                          PEAK_BF16)
+    ops_fwd = 4 * D * pairs * B * Hq
+    b_fwd, by_fwd = bound(4 * io + stats // 2, ops_fwd, PEAK_BF16)
+    tf_fwd = ops_fwd / fwd_dms * 1e-9
     tf_dq, tf_dkv = ops_dq / dms_dq * 1e-9, ops_dkv / dms_dkv * 1e-9
     print(f"  flash bf16 B{B} S{S} H{Hq} D{D} causal (training shape): fwd "
-          f"kernel {fwd_ms:.3f} ms (device {fmt(fwd_dms, '.3f')} ms, bound "
-          f"{b_fwd:.4f} ms {by_fwd}), plain fwd {fwd_plain:.3f} ms, F.sdpa "
-          f"fwd {lib_f:.3f} ms", flush=True)
+          f"kernel (wgmma) {fwd_ms:.3f} ms (device {fwd_dms:.3f} ms = "
+          f"{tf_fwd:.1f} TFLOP/s, bound {b_fwd:.4f} ms {by_fwd}), plain fwd "
+          f"{fwd_plain:.3f} ms, F.sdpa fwd {lib_f:.3f} ms; fp32 route (CUDA "
+          f"cores) on the same values: fwd device {fmt(f32_fwd, '.3f')} ms",
+          flush=True)
     print(f"  flash backward, bf16 route (wgmma): dq kernel {ms_dq:.3f} ms "
           f"(device {dms_dq:.3f} ms = {tf_dq:.1f} TFLOP/s, bound {b_dq:.4f} "
           f"ms {by_dq}), dk/dv kernel {ms_dkv:.3f} ms (device {dms_dkv:.3f} "
@@ -572,7 +657,8 @@ def train_kernel_checks(K, gen, rows):
     rows["flash_attention_fwd"].update(
         train_shape=common["shape"], train_max_abs_err=err["o"],
         train_lse_max_abs_err=err["lse"], train_ms=fwd_ms,
-        train_device_ms=fwd_dms, train_plain_ms=fwd_plain,
+        train_device_ms=fwd_dms, train_tflops=tf_fwd,
+        train_float32_device_ms=f32_fwd, train_plain_ms=fwd_plain,
         train_bound_ms=b_fwd, train_bound_by=by_fwd, train_library_ms=lib_f)
     del q, k, v, do, o, lse, delta, dq, dk, dv, qt, kt, vt, dot
     torch.cuda.empty_cache()
@@ -936,12 +1022,12 @@ def train_slice(K, seed: int, rows):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / timed
     counts = K.launch_counts()
-    routes = {w: dict(getattr(K, w).route_launches)
-              for w in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    routes = check_flash_routes(K, "wgmma", "[6]")
     peak = torch.cuda.max_memory_allocated()
     kernels = profile_kernels(lambda: losses.append(step(x, y)))
     busy, top = sum(t for _, t in kernels), kernels[:10]
-    bwd_ms = {k: kernel_ms(kernels, sym) for k, sym in BWD_SYMBOLS.items()}
+    flash_ms = {k: kernel_ms(kernels, sym) for k, sym in
+                (("fwd", FWD_SYMBOL), *BWD_SYMBOLS.items())}
     losses = [float(v) for v in losses]
     tokens = B * S
     # bench.py's FLOP count (bench_gpt_dp): 6N + 12*L*H*S per token; it
@@ -959,12 +1045,13 @@ def train_slice(K, seed: int, rows):
     for name, t in top:
         print(f"     {t * 1e3:9.3f} ms  {name[:90]}", flush=True)
     print(f"    kernel launches over the {timed} timed steps: {counts}; "
-          f"flash backward by route: {routes}", flush=True)
-    print(f"    profiled step: {BWD_SYMBOLS['dq']} "
-          f"{fmt(bwd_ms['dq'], '.3f')} ms, {BWD_SYMBOLS['dkv']} "
-          f"{fmt(bwd_ms['dkv'], '.3f')} ms of device time", flush=True)
-    check(None not in bwd_ms.values(), f"the profiled step shows no "
-          f"{' or '.join(BWD_SYMBOLS.values())}: {bwd_ms}")
+          f"flash kernels by route: {routes}", flush=True)
+    print(f"    profiled step: {FWD_SYMBOL} {fmt(flash_ms['fwd'], '.3f')} ms, "
+          f"{BWD_SYMBOLS['dq']} {fmt(flash_ms['dq'], '.3f')} ms, "
+          f"{BWD_SYMBOLS['dkv']} {fmt(flash_ms['dkv'], '.3f')} ms of device "
+          f"time", flush=True)
+    check(None not in flash_ms.values(), f"the profiled step shows no "
+          f"{FWD_SYMBOL} or {' or '.join(BWD_SYMBOLS.values())}: {flash_ms}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
           f"first loss {losses[0]} is not within 0.5 of ln V")
@@ -978,9 +1065,6 @@ def train_slice(K, seed: int, rows):
           and counts["fused_adamw_update"] == n_tensors * timed,
           f"launches per step differ from 2L flash forwards (recompute), L "
           f"dq and dk/dv, one AdamW per parameter tensor: {counts}")
-    check(all(r == {"wgmma": L * timed, "cuda_cores": 0}
-              for r in routes.values()),
-          f"the bf16 backward did not run on the tensor cores: {routes}")
     for name in TRAINING_KERNELS:  # LayerNorm and flash fwd serve as well
         key = "launches_train" if "launches" in rows[name] else "launches"
         rows[name][key] = counts[name]
@@ -1041,8 +1125,10 @@ def train_vs_plain(K, seed: int):
     counts = K.launch_counts()
     check(all(counts[k] > 0 for k in TRAINING_KERNELS),
           f"kernels not used on the card: {counts}")
+    check_flash_routes(K, "cuda_cores", "[7]")
     print(f"    after step 3 (3 steps of lr {lr} move a parameter up to "
-          f"~{3 * lr:.0e}); launches {counts}", flush=True)
+          f"~{3 * lr:.0e}); launches {counts}, every flash launch on the "
+          f"fp32 route", flush=True)
     compare_updates(cfg, p0, gpu, cpu, 3, lr)
     print(f"    phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1157,6 +1243,7 @@ def train_surface(K, seed):
               f"a kernel of the training path was never launched: {counts}")
         check(fwd == (L if policy == "save_flash" else 2 * L),
               f"flash forwards per step under {policy}: {fwd}")
+        check_flash_routes(K, "wgmma", f"[8] {policy}")
         del model, opt, step, sched, scaler, out
         torch.cuda.empty_cache()
     base = results[None][3]
@@ -1269,6 +1356,7 @@ def surface_vs_plain(K, seed):
     check(lrs["card"] == lrs["cpu"], f"rates differ: {lrs}")
     check(all(counts[k] > 0 for k in TRAINING_KERNELS),
           f"kernels not used on the card: {counts}")
+    check_flash_routes(K, "cuda_cores", "[9]")
     compare_updates(cfg, p0, gpu, cpu, 3, lr)
     print(f"    phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
     del cpu, gpu, sides
@@ -1361,13 +1449,15 @@ def main() -> int:
                 print(f"    {name}: {m.group(1)}", flush=True)
             elif "registers" in line or "spill" in line:
                 print(f"    {name}:   {line.strip()}", flush=True)
-    # the bf16 backward's products run on the tensor cores: HGMMA in SASS
-    hgmma = sass_counts(_build.BUILD / "libflash_bwd_sm90.so", "HGMMA")
-    for sym in BWD_SYMBOLS.values():
-        found = {fn: n for fn, n in hgmma.items() if sym in fn}
-        print(f"    HGMMA instructions in {sym}: {found}", flush=True)
-        check(found and all(n > 0 for n in found.values()),
-              f"no HGMMA in {sym}: {found}")
+    # the bf16 flash kernels' products run on the tensor cores: HGMMA in
+    # their SASS
+    for lib, symbols in SM90_LIBS.items():
+        hgmma = sass_counts(_build.BUILD / f"lib{lib}.so", "HGMMA")
+        for sym in symbols:
+            found = {fn: n for fn, n in hgmma.items() if sym in fn}
+            print(f"    HGMMA instructions in {sym}: {found}", flush=True)
+            check(found and all(n > 0 for n in found.values()),
+                  f"no HGMMA in {sym}: {found}")
     t0 = time.perf_counter()
     x = torch.randn(4, 2048, device="cuda")
     K.fused_layer_norm(x, torch.ones(2048, device="cuda"),
@@ -1454,8 +1544,13 @@ def main() -> int:
           "token id out of range")
     check(all(counts[k] > 0 for k in SERVING_KERNELS),
           f"a kernel of the path was never launched: {counts}")
+    routes = check_flash_routes(K, "wgmma", "[4]")
+    print(f"    flash forward by route: {routes['flash_attention_fwd']}",
+          flush=True)
     for name in SERVING_KERNELS:
         rows[name]["launches"] = counts[name]
+    rows["flash_attention_fwd"]["route_launches"] = \
+        routes["flash_attention_fwd"]
     where_time_goes(model, eng, prompts, SamplingParams)
     del model, eng
     torch.cuda.empty_cache()
@@ -1484,6 +1579,9 @@ def main() -> int:
           "the card and the plain versions on the CPU")
     check(all(counts[k] > 0 for k in SERVING_KERNELS),
           f"kernels not used: {counts}")
+    routes = check_flash_routes(K, "cuda_cores", "[5]")
+    print(f"    flash forward by route on the card: "
+          f"{routes['flash_attention_fwd']}", flush=True)
     with torch.no_grad():
         lg = decode_logits(gpu_model, prompts[1], out_gpu[1], "cuda")
         lc = decode_logits(cpu_model, prompts[1], out_cpu[1], "cpu")

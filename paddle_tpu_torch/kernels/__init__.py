@@ -11,10 +11,10 @@ callable they made). ``flash_attention``, ``fused_layer_norm`` and
 ``fused_rms_norm`` are differentiable: the first through the dispatcher op
 ``paddle_tpu_torch::flash_fwd``, the norms through
 ``torch.autograd.Function``s, whose forward and backward are those
-wrappers. The two flash backward wrappers also count their launches by
-route in ``route_launches`` (``flash_attention.BWD_ROUTES``: bf16 on the
-tensor cores, fp32 on the CUDA cores). Triton and the CUDA libraries are
-imported and built only inside a launch.
+wrappers. The three flash wrappers also count their launches by route in
+``route_launches`` (``flash_attention.FWD_ROUTES`` and ``BWD_ROUTES``: bf16
+on the tensor cores, fp32 on the CUDA cores). Triton and the CUDA
+libraries are imported and built only inside a launch.
 """
 
 from . import primitive

@@ -5,7 +5,8 @@ own with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>.so`` (a directory
 git ignores), then loaded with ``ctypes``. Pointers and the CUDA stream pass
 as ``c_void_p``; every C entry returns ``cudaGetLastError()`` after its
 launch, and ``check`` raises on a non-zero code. Only the sources in this
-package are built. A library is rebuilt when its source is newer than it.
+package are built. A library is rebuilt when its source, or any header
+``csrc/*.cuh`` (which every source may include), is newer than it.
 
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
 them; the first kernel call builds its own library if it is missing.
@@ -44,7 +45,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, out = _paths(name)
-    return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return out.stat().st_mtime < newest
 
 
 def _start(name: str):

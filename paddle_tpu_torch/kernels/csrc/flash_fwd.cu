@@ -1,12 +1,13 @@
-// Flash attention forward for Hopper (sm_90a), CUDA C++ with a plain C
-// interface (bound with ctypes from kernels/flash_attention.py).
+// Flash attention forward for Hopper (sm_90a), fp32: CUDA C++ with a plain
+// C interface (bound with ctypes from kernels/flash_attention.py). bf16
+// takes the tensor-core kernel of flash_fwd_sm90.cu; this CUDA-core kernel
+// serves fp32, where wgmma would read the operands as TF32.
 //
 // Replaces paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (launched by
 // `_fwd`): blockwise causal or non-causal attention with an online softmax
-// in the exp2 domain. Scores are fp32 dot products of the native-dtype
-// operands, multiplied by scale*LOG2E; the running max m, sum l and the
-// accumulator are fp32; P is cast to v's dtype before P.V; a row whose sum
-// is 0 divides by 1. Emits O in q's dtype and the log2-domain LSE
+// in the exp2 domain. Scores are fp32 dot products, multiplied by
+// scale*LOG2E; the running max m, sum l and the accumulator are fp32; a
+// row whose sum is 0 divides by 1. Emits O and the log2-domain LSE
 // m + log2(l) as [B*H, S] fp32.
 //
 // Layout is the JAX package's [B, S, H, D] with arbitrary batch and
@@ -15,17 +16,15 @@
 // head h / (H / Hkv); no expanded K/V is materialised.
 //
 // What bounds it on the H100: at the prefill shapes (S up to 2048, D 128)
-// the work is ~4*S*S*D*H/2 operations against ~4*S*H*D*2 bytes, so it is
-// operation-bound. This first version is deliberately simple: it runs the
-// two products on the CUDA cores in fp32 (not on the tensor cores), one
-// block of 128 threads per (b*h, 64-row query tile). Each thread owns a
-// 4x4 score tile and 4 rows x D/8 output columns in registers, K/V tiles
-// are staged in shared memory once per block, and causal key tiles past the
-// diagonal are skipped by the loop bound. wgmma, TMA and warp
-// specialisation are later work.
+// the work is ~4*S*S*D*H/2 operations against ~4*S*H*D*4 bytes, so it is
+// operation-bound, and in fp32 the CUDA cores' 67 TFLOP/s is the ceiling.
+// This version is deliberately simple: it runs the two products on the
+// CUDA cores, one block of 128 threads per (b*h, 64-row query tile). Each
+// thread owns a 4x4 score tile and 4 rows x D/8 output columns in
+// registers, K/V tiles are staged in shared memory once per block, and
+// causal key tiles past the diagonal are skipped by the loop bound.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -39,24 +38,16 @@ constexpr int CG = 8;    // column groups: thread col c = cg + CG*j
 constexpr int RPT = BQ / RG;
 constexpr int CPT = BK / CG;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int S, int H, int Hkv,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int Hkv,
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, float scale_log2, int causal) {
   static_assert(D % CG == 0, "head_dim must be a multiple of 8");
@@ -73,13 +64,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
-  const T* qb = q + b * q_sb + (long long)h * D;
-  const T* kb = k + b * k_sb + (long long)hk * D;
-  const T* vb = v + b * v_sb + (long long)hk * D;
+  const float* qb = q + b * q_sb + (long long)h * D;
+  const float* kb = k + b * k_sb + (long long)hk * D;
+  const float* vb = v + b * v_sb + (long long)hk * D;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i % D, s = q0 + r;
-    Qs[r * (D + 1) + d] = s < S ? to_f(qb[s * q_ss + d]) : 0.f;
+    Qs[r * (D + 1) + d] = s < S ? qb[s * q_ss + d] : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][DPT];
@@ -99,8 +90,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, d = i % D, s = k0 + r;
       const bool ok = s < S;
-      Ks[r * (D + 1) + d] = ok ? to_f(kb[s * k_ss + d]) : 0.f;
-      Vs[r * D + d] = ok ? to_f(vb[s * v_ss + d]) : 0.f;
+      Ks[r * (D + 1) + d] = ok ? kb[s * k_ss + d] : 0.f;
+      Vs[r * D + d] = ok ? vb[s * v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -144,7 +135,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       for (int j = 0; j < CPT; ++j) {
         const float p = exp2f(sc[i][j] - m_new);
         psum += p;
-        Ps[(rg + RG * i) * (BK + 1) + cg + CG * j] = to_f(from_f<T>(p));
+        Ps[(rg + RG * i) * (BK + 1) + cg + CG * j] = p;
       }
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
       psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -177,14 +168,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int row = q0 + rg + RG * i;
     if (row >= S) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + b * o_sb + row * o_ss + (long long)h * D;
+    float* orow = o + b * o_sb + row * o_ss + (long long)h * D;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) orow[cg + CG * e] = from_f<T>(acc[i][e] / ls);
+    for (int e = 0; e < DPT; ++e) orow[cg + CG * e] = acc[i][e] / ls;
     if (cg == 0) lse[(long long)bh * S + row] = m[i] + log2f(ls);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int H, int Hkv, long long q_sb,
                    long long q_ss, long long k_sb, long long k_ss,
@@ -192,55 +183,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, S, H, Hkv,
-      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale_log2, causal);
+  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, S, H, Hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale_log2,
+      causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, void* lse, int B, int S, int H, int Hkv,
-                       long long q_sb, long long q_ss, long long k_sb,
-                       long long k_ss, long long v_sb, long long v_ss,
-                       float scale_log2, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, q_sb, q_ss, k_sb,
-                           k_ss, v_sb, v_ss, scale_log2, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, q_sb, q_ss, k_sb,
-                            k_ss, v_sb, v_ss, scale_log2, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q/k/v: [B, S, H(kv), D] with the given batch/seq strides (elements) and
-// unit feature stride; o: [B, S, H, D] contiguous; lse: [B*H, S] fp32.
-// dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code.
+// fp32 only. q/k/v: [B, S, H(kv), D] with the given batch/seq strides
+// (elements) and unit feature stride; o: [B, S, H, D] contiguous; lse:
+// [B*H, S] fp32. Returns the CUDA error code (cudaErrorInvalidValue when D
+// is not 64 or 128).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int S, int H, int Hkv, int D,
                          long long q_sb, long long q_ss, long long k_sb,
                          long long k_ss, long long v_sb, long long v_ss,
-                         float scale_log2, int causal, int dtype,
-                         void* stream) {
+                         float scale_log2, int causal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, lse, B, S, H, Hkv, q_sb, q_ss,
-                            k_sb, k_ss, v_sb, v_ss, scale_log2, causal, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, S, H, Hkv, q_sb,
-                                    q_ss, k_sb, k_ss, v_sb, v_ss, scale_log2,
-                                    causal, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (D == 64)
+    return (int)launch<64>(q, k, v, o, lse, B, S, H, Hkv, q_sb, q_ss, k_sb,
+                           k_ss, v_sb, v_ss, scale_log2, causal, st);
+  if (D == 128)
+    return (int)launch<128>(q, k, v, o, lse, B, S, H, Hkv, q_sb, q_ss, k_sb,
+                            k_ss, v_sb, v_ss, scale_log2, causal, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
-"""Flash attention, CUDA C++ for Hopper: the forward
-(``csrc/flash_fwd.cu``) and the two backward kernels, routed by dtype: bf16
-on the tensor cores (``csrc/flash_bwd_sm90.cu``: wgmma fed by TMA), fp32 on
-the CUDA cores (``csrc/flash_bwd.cu``), where wgmma would round the
-operands to TF32.
+"""Flash attention, CUDA C++ for Hopper: the forward and the two backward
+kernels, each routed by dtype (``FWD_ROUTES``, ``BWD_ROUTES``): bf16 on the
+tensor cores (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``: wgmma
+fed by TMA), fp32 on the CUDA cores (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), where wgmma would round the operands to TF32.
 
 Replaces ``paddle_tpu/kernels/flash_attention.py`` ``_fwd_kernel``
 (launched by ``_fwd``) and ``_dq_kernel`` / ``_dkv_kernel`` (launched by
@@ -32,16 +32,15 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # the softmax runs in the exp2 domain
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SIGNATURES = {"flash_fwd": [_P] * 5 + [_I] * 5 + [_LL] * 6
-               + [_F, _I, _I, _P]}
-# the backward's two libraries share one C signature per entry
-_BWD_ARGS = {"dq": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _P],
-             "dkv": [_P] * 8 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _P]}
-_BWD_SIGNATURES = {f"flash_bwd_{k}": v for k, v in _BWD_ARGS.items()}
-_BWD_SM90_SIGNATURES = {f"flash_bwd_{k}_sm90": v for k, v in _BWD_ARGS.items()}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the backward kernels' route for each dtype, the keys of their wrappers'
-#: ``route_launches``
+# the C signature of each entry; the wgmma route's library and entries
+# carry the suffix ``_sm90`` and the same signatures
+_ARGS = {"flash_fwd": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_F, _I, _P],
+         "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _P],
+         "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LL] * 6 + [_F, _F, _I, _P]}
+_LIBS = {"flash_fwd": ("flash_fwd",),
+         "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv")}
+#: each kernel's route by dtype, the keys of its wrapper's ``route_launches``
+FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_cores"}
 BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda_cores"}
 HEAD_DIMS = (64, 128)
 
@@ -88,13 +87,14 @@ def _launch_inputs(name, q, k, v):
     """The checks every kernel of this module makes before a launch.
     Returns ``(B, S, H, D)`` and q, k, v with unit feature stride and
     packed heads; batch and sequence strides are free, so column slices of
-    the fused qkv projection need no copy."""
+    the fused qkv projection need no copy (in bf16, whose TMA reads want
+    16-byte multiples, when ``_for_tma`` keeps them)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, S, H, D = _check_heads(q, k, v)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must share a device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in FWD_ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q/k/v must all be float32 or bfloat16, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if D not in HEAD_DIMS:
@@ -102,6 +102,8 @@ def _launch_inputs(name, q, k, v):
                          f"instantiated for {HEAD_DIMS}")
     q, k, v = (t if t.stride(3) == 1 and t.stride(2) == D else t.contiguous()
                for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = map(_for_tma, (q, k, v))
     return (B, S, H, D), q, k, v
 
 
@@ -110,11 +112,25 @@ def _strides(q, k, v):
             v.stride(1))
 
 
+def _entry(lib, entry, route):
+    """The C entry ``entry`` of library ``lib`` on ``route`` (the wgmma
+    route's names carry ``_sm90``), bound with every signature of that
+    library."""
+    sfx = "_sm90" if route == "wgmma" else ""
+    sigs = {e + sfx: _ARGS[e] for e in _LIBS[lib]}
+    return getattr(_build.load(lib + sfx, sigs), entry + sfx)
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False, scale: float = None):
     """``[B, S, H, D]`` flash attention forward; K/V may carry fewer heads
     (GQA, ``H % Hkv == 0``). Returns ``(o, lse)`` as ``flash_attention_ref``
     does. CPU tensors run the plain version; CUDA tensors launch the kernel
-    or raise."""
+    of their dtype's route (``FWD_ROUTES``) or raise."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, scale)
     (B, S, H, D), q, k, v = _launch_inputs("flash_attention_fwd", q, k, v)
@@ -123,18 +139,15 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale: float = None):
     if B * S == 0:
         return o, lse
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    lib = _build.load("flash_fwd", _SIGNATURES)
-    err = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, S, H, k.shape[2], D, *_strides(q, k, v), scale * LOG2E,
-        int(causal), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_fwd")
-    flash_attention_fwd.launches += 1
+    route = FWD_ROUTES[q.dtype]
+    fn = _entry("flash_fwd", "flash_fwd", route)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), B, S, H, k.shape[2], D, *_strides(q, k, v),
+             scale * LOG2E, int(causal),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, fn.__name__)
+    _count(flash_attention_fwd, route)
     return o, lse
-
-
-flash_attention_fwd.launches = 0
 
 
 # ---------------- backward -------------------------------------------------
@@ -209,22 +222,8 @@ def _bwd_launch_inputs(name, q, k, v, do, lse, delta):
                              f"on {q.device}, got {tuple(t.shape)} {t.dtype}")
     do = do.contiguous()
     if q.dtype == torch.bfloat16:
-        q, k, v, do = map(_for_tma, (q, k, v, do))
+        do = _for_tma(do)
     return shape, q, k, v, do, lse.contiguous(), delta.contiguous()
-
-
-def _bwd_entry(entry, dtype):
-    """``(C entry, route)`` of ``dtype``'s route."""
-    route = BWD_ROUTES[dtype]
-    if route == "wgmma":
-        lib = _build.load("flash_bwd_sm90", _BWD_SM90_SIGNATURES)
-        return getattr(lib, entry + "_sm90"), route
-    return getattr(_build.load("flash_bwd", _BWD_SIGNATURES), entry), route
-
-
-def _count(wrapper, route):
-    wrapper.launches += 1
-    wrapper.route_launches[route] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -240,7 +239,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
         "flash_attention_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if B * S:
-        fn, route = _bwd_entry("flash_bwd_dq", q.dtype)
+        route = BWD_ROUTES[q.dtype]
+        fn = _entry("flash_bwd", "flash_bwd_dq", route)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H,
                  k.shape[2], D, *_strides(q, k, v), scale, scale * LOG2E,
@@ -264,7 +264,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     dk = torch.empty((B, S, Hkv, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=v.dtype, device=q.device)
     if B * S:
-        fn, route = _bwd_entry("flash_bwd_dkv", q.dtype)
+        route = BWD_ROUTES[q.dtype]
+        fn = _entry("flash_bwd", "flash_bwd_dkv", route)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), B, S, H, Hkv, D, *_strides(q, k, v), scale,
@@ -275,10 +276,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     return dk, dv
 
 
-for _w in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+for _w, _routes in ((flash_attention_fwd, FWD_ROUTES),
+                   (flash_attention_bwd_dq, BWD_ROUTES),
+                   (flash_attention_bwd_dkv, BWD_ROUTES)):
     _w.launches = 0
-    _w.route_launches = dict.fromkeys(BWD_ROUTES.values(), 0)
-del _w
+    _w.route_launches = dict.fromkeys(_routes.values(), 0)
+del _w, _routes
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,

@@ -35,6 +35,24 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def _flash_inputs(cuda, dtype, B, S, Hkv, D, fused=False, pad=0, seed=1):
+    """q, k, v, do with 16 query heads; ``fused``: q/k/v are the column
+    slices of one [B, S, (16 + 2 Hkv) D + pad] projection, as models/gpt.py
+    makes them with ``pad`` 0."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if fused:
+        qkv = torch.randn(B, S, (16 + 2 * Hkv) * D + pad, generator=g,
+                          device=cuda).to(dtype)
+        q, k, v = (t.unflatten(-1, (-1, D)) for t in qkv.split(
+            [16 * D, Hkv * D, Hkv * D, pad], dim=-1)[:3])
+    else:
+        q = torch.randn(B, S, 16, D, generator=g, device=cuda).to(dtype)
+        k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+    do = torch.randn(B, S, 16, D, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 77, 2048), (5, 100)])
@@ -56,18 +74,75 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Hkv,D,causal", [(200, 16, 128, True),
                                             (130, 4, 128, False),
-                                            (64, 8, 64, True)])
+                                            (64, 8, 64, True),
+                                            (1, 16, 128, True),
+                                            (63, 16, 128, True),
+                                            (64, 16, 128, False),
+                                            (65, 4, 128, True),
+                                            (200, 1, 128, True),
+                                            (65, 16, 64, True),
+                                            (63, 1, 64, False)])
 def test_flash_kernel_matches_plain(cuda, dtype, S, Hkv, D, causal):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(2, S, 16, D, generator=g, device=cuda).to(dtype)
-    k = torch.randn(2, S, Hkv, D, generator=g, device=cuda).to(dtype)
-    v = torch.randn(2, S, Hkv, D, generator=g, device=cuda).to(dtype)
-    before = K.flash_attention_fwd.launches
-    o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
-    assert K.flash_attention_fwd.launches == before + 1
+    """O and LSE against ``flash_attention_ref`` at the edges of the
+    kernels' 64-row tiles, with GQA and at both head dims; one launch on
+    the dtype's route (bf16: tensor cores, fp32: CUDA cores)."""
+    from paddle_tpu_torch.kernels.flash_attention import FWD_ROUTES
+
+    q, k, v, _ = _flash_inputs(cuda, dtype, 2, S, Hkv, D, seed=0)
+    w = K.flash_attention_fwd
+    n, routes = w.launches, dict(w.route_launches)
+    routes[FWD_ROUTES[dtype]] += 1
+    o, lse = w(q, k, v, causal=causal)
+    assert (w.launches, w.route_launches) == (n + 1, routes)
     o_ref, lse_ref = K.flash_attention_ref(q, k, v, causal=causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
     assert _err(o, o_ref) <= TOL[dtype]
     assert _err(lse, lse_ref) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Hkv,D,causal", [(200, 16, 128, True),
+                                            (130, 4, 128, False),
+                                            (65, 1, 64, True)])
+def test_flash_fwd_reads_fused_qkv_views(cuda, dtype, S, Hkv, D, causal):
+    """q/k/v as strided column slices of the fused qkv projection: the bf16
+    route's tensor maps read them in place, and both routes match the plain
+    version on them (tolerances as above)."""
+    from paddle_tpu_torch.kernels.flash_attention import _for_tma
+
+    q, k, v, _ = _flash_inputs(cuda, dtype, 2, S, Hkv, D, fused=True)
+    assert not q.is_contiguous() and all(_for_tma(t) is t for t in (q, k, v))
+    o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = K.flash_attention_ref(q, k, v, causal=causal)
+    assert _err(o, o_ref) <= TOL[dtype] and _err(lse, lse_ref) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_flash_fwd_copies_views_tma_cannot_read(cuda):
+    """Slices of a projection 4 elements wider: their sequence stride is
+    not a 16-byte multiple, so the bf16 route copies them before the TMA
+    reads them, and still matches the plain version."""
+    from paddle_tpu_torch.kernels.flash_attention import _for_tma
+
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 2, 77, 4, 128,
+                               fused=True, pad=4, seed=2)
+    assert not any(_for_tma(t) is t for t in (q, k, v))
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = K.flash_attention_ref(q, k, v, causal=True)
+    assert _err(o, o_ref) <= TOL[torch.bfloat16]
+    assert _err(lse, lse_ref) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hkv", [16, 4])
+def test_flash_fwd_bf16_is_deterministic(cuda, Hkv):
+    """No split over keys and no atomics: two bf16 forwards give the same O
+    and LSE to the bit."""
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 2, 1024, Hkv, 128)
+    first = K.flash_attention_fwd(q, k, v, causal=True)
+    second = K.flash_attention_fwd(q, k, v, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
@@ -120,24 +195,6 @@ def test_engine_on_card_matches_cpu(cuda):
     assert got == want
 
 
-def _bwd_inputs(cuda, dtype, B, S, Hkv, D, fused=False, seed=1):
-    """q, k, v, do with 16 query heads; ``fused``: q/k/v are the column
-    slices of one [B, S, (16 + 2 Hkv) D] projection, as models/gpt.py
-    makes them."""
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    if fused:
-        qkv = torch.randn(B, S, (16 + 2 * Hkv) * D, generator=g,
-                          device=cuda).to(dtype)
-        q, k, v = (t.unflatten(-1, (-1, D)) for t in qkv.split(
-            [16 * D, Hkv * D, Hkv * D], dim=-1))
-    else:
-        q = torch.randn(B, S, 16, D, generator=g, device=cuda).to(dtype)
-        k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
-                for _ in range(2))
-    do = torch.randn(B, S, 16, D, generator=g, device=cuda).to(dtype)
-    return q, k, v, do
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Hkv,D,causal", [(200, 16, 128, True),
@@ -156,7 +213,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, S, Hkv, D, causal):
     differ by at most one rounding step (2^-5)."""
     from paddle_tpu_torch.kernels.flash_attention import BWD_ROUTES
 
-    q, k, v, do = _bwd_inputs(cuda, dtype, 2, S, Hkv, D)
+    q, k, v, do = _flash_inputs(cuda, dtype, 2, S, Hkv, D)
     o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
     wrappers = (K.flash_attention_bwd_dq, K.flash_attention_bwd_dkv)
     before = [(w.launches, dict(w.route_launches)) for w in wrappers]
@@ -182,7 +239,7 @@ def test_flash_bwd_reads_fused_qkv_views(cuda, dtype, S, Hkv, D, causal):
     the plain version on them (tolerances as above)."""
     from paddle_tpu_torch.kernels.flash_attention import _for_tma
 
-    q, k, v, do = _bwd_inputs(cuda, dtype, 2, S, Hkv, D, fused=True)
+    q, k, v, do = _flash_inputs(cuda, dtype, 2, S, Hkv, D, fused=True)
     assert not q.is_contiguous() and all(_for_tma(t) is t for t in (q, k, v))
     o, lse = K.flash_attention_fwd(q, k, v, causal=causal)
     got = K.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
@@ -197,7 +254,7 @@ def test_flash_bwd_reads_fused_qkv_views(cuda, dtype, S, Hkv, D, causal):
 def test_flash_bwd_bf16_is_deterministic(cuda, Hkv):
     """No atomics and GQA summed in registers: two bf16 calls give the same
     dq, dk and dv to the bit."""
-    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 1024, Hkv, 128)
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, 2, 1024, Hkv, 128)
     o, lse = K.flash_attention_fwd(q, k, v, causal=True)
     first = K.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     second = K.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
@@ -263,6 +320,30 @@ def test_every_parameter_gets_a_gradient_on_card(cuda, dtype):
         cpu.forward_with_loss(x, y).backward()
         for k, p in cpu.named_parameters():
             assert _err(grads[k].cpu(), p.grad) <= 1e-4 * p.grad.abs().max()
+
+
+@pytest.mark.gpu
+def test_save_flash_gradients_equal_none_in_bf16(cuda):
+    """At depth 2 in bf16 the kernels are deterministic: keeping each
+    block's O and LSE (``save_flash``) instead of replaying the forward
+    kernel gives the same gradients to the bit, with half the forwards, all
+    on the tensor-core route."""
+    rng = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 128, (2, 64), generator=rng).to(cuda)
+    y = torch.roll(x, -1, dims=1)
+    gpu = _small_gpt(cuda, torch.bfloat16)
+    grads, fwd = {}, {}
+    for policy in (None, "save_flash"):
+        gpu.cfg.recompute_policy = policy
+        gpu.zero_grad(set_to_none=True)
+        K.reset_launch_counts()
+        gpu.forward_with_loss(x, y).backward()
+        fwd[policy] = dict(K.flash_attention_fwd.route_launches)
+        grads[policy] = {k: p.grad.clone() for k, p in gpu.named_parameters()}
+    assert fwd == {None: {"wgmma": 4, "cuda_cores": 0},
+                   "save_flash": {"wgmma": 2, "cuda_cores": 0}}
+    assert all(torch.equal(grads[None][k], grads["save_flash"][k])
+               for k in grads[None])
 
 
 @pytest.mark.gpu

@@ -114,6 +114,126 @@ def test_flash_ref_gqa_and_ragged_matches_public_entry():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,Hkv", [(2, 2), (4, 1)], ids=["mha", "gqa4to1"])
+def test_flash_ref_matches_pallas_fwd_at_hopper_tiles(dtype, causal, H, Hkv):
+    """O and the log2-domain LSE of ``flash_attention_ref`` against the
+    Pallas ``_fwd`` (interpret mode) at the tiling of the tensor-core
+    forward (D 128, blocks of 64 query and 64 key rows, S 128: two tiles
+    each way), with MHA and with GQA 4/1, where the plain version reads K/V
+    natively and Pallas runs on K/V expanded to H heads. fp32: summation
+    order only. bf16: Pallas rounds P to bf16 against its running tile max,
+    the plain version against the row max (~2^-8 relative on P), and O
+    rounds to bf16 (|o| < 4: within 2^-6); the LSE is fp32 on both sides."""
+    rng = np.random.default_rng(9)
+    B, S, D = 1, 128, 128
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    jkx, jvx = (jnp.repeat(a, H // Hkv, axis=2) for a in (jk, jv))
+    o_j, lse_j, _ = jfa._fwd(jq, jkx, jvx, causal, 1.0 / math.sqrt(D), 64,
+                             64)
+    o_t, lse_t = K.flash_attention_ref(tq, tk, tv, causal=causal)
+    assert o_t.dtype == tq.dtype and o_t.shape == (B, S, H, D)
+    assert lse_t.dtype == torch.float32 and lse_t.shape == (B * H, S)
+    o_t = o_t.transpose(1, 2).reshape(B * H, S, D)  # the Pallas [B*H, S, D]
+    assert _max_err(o_j, o_t) <= TOL[dtype]
+    assert _max_err(lse_j, lse_t) <= 1e-4
+
+
+def test_flash_routes_and_their_counts():
+    """Each flash kernel is routed by dtype, bf16 to the tensor cores and
+    fp32 to the CUDA cores, and counts its launches by route;
+    ``reset_launch_counts`` zeroes those counts. On the CPU the wrappers
+    run their plain versions and count nothing, and a tensor on any other
+    device is refused (a CUDA tensor launches its route's kernel or
+    raises)."""
+    from paddle_tpu_torch.kernels.flash_attention import (BWD_ROUTES,
+                                                          FWD_ROUTES)
+
+    routes = {torch.bfloat16: "wgmma", torch.float32: "cuda_cores"}
+    assert FWD_ROUTES == BWD_ROUTES == routes
+    wrappers = (K.flash_attention_fwd, K.flash_attention_bwd_dq,
+                K.flash_attention_bwd_dkv)
+    for w in wrappers:
+        assert set(w.route_launches) == {"wgmma", "cuda_cores"}
+        w.launches, w.route_launches["wgmma"] = 3, 2
+        w.route_launches["cuda_cores"] = 1
+    K.reset_launch_counts()
+    assert all(w.launches == 0 and set(w.route_launches.values()) == {0}
+               for w in wrappers)
+    for dtype in routes:
+        q, k, v, g = (torch.randn(1, 9, 4, 64).to(dtype) for _ in range(4))
+        _torch_grads(q, k[:, :, :2], v[:, :, :2], g, causal=True)
+        K.flash_attention_fwd(q, k, v)
+    assert all(w.launches == 0 and set(w.route_launches.values()) == {0}
+               for w in wrappers)
+    x = torch.zeros(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.flash_attention_fwd(x, x, x)
+
+
+@pytest.mark.parametrize("lib,entry,route,want", [
+    ("flash_fwd", "flash_fwd", "wgmma", ("flash_fwd_sm90", "flash_fwd_sm90")),
+    ("flash_fwd", "flash_fwd", "cuda_cores", ("flash_fwd", "flash_fwd")),
+    ("flash_bwd", "flash_bwd_dkv", "wgmma",
+     ("flash_bwd_sm90", "flash_bwd_dkv_sm90")),
+    ("flash_bwd", "flash_bwd_dq", "cuda_cores",
+     ("flash_bwd", "flash_bwd_dq")),
+])
+def test_each_route_binds_its_library(monkeypatch, lib, entry, route, want):
+    """A route names its library and C entry (the wgmma route's carry
+    ``_sm90``), and the library is bound with the signatures of every entry
+    it has, so a later call of another entry finds its argument types."""
+    import importlib
+    import types
+
+    FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    loaded = {}
+
+    def load(name, signatures):
+        loaded[name] = signatures
+        return types.SimpleNamespace(**dict.fromkeys(signatures, name))
+
+    monkeypatch.setattr(FA._build, "load", load)
+    assert FA._entry(lib, entry, route) == want[0]
+    sfx = "_sm90" if route == "wgmma" else ""
+    assert loaded == {want[0]: {e + sfx: FA._ARGS[e] for e in FA._LIBS[lib]}}
+    assert want[1] in loaded[want[0]]
+
+
+def test_build_is_stale_when_a_header_is_newer(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any ``csrc/*.cuh`` header
+    (which the tensor-core kernels include) is newer than it."""
+    import os
+
+    from paddle_tpu_torch.kernels import _build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD", build)
+    src, lib = csrc / "k.cu", build / "libk.so"
+    src.write_text("")
+    assert _build._stale("k")  # never built
+    lib.write_text("")
+    os.utime(src, (100, 100))
+    os.utime(lib, (200, 200))
+    assert not _build._stale("k")
+    header = csrc / "sm90.cuh"
+    header.write_text("")
+    os.utime(header, (150, 150))
+    assert not _build._stale("k")
+    os.utime(header, (300, 300))
+    assert _build._stale("k")
+    os.utime(src, (400, 400))
+    os.utime(header, (100, 100))
+    assert _build._stale("k")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sdpa_with_mask_takes_reference_lowering(dtype):
     """With a mask the port's ``scaled_dot_product_attention`` runs its
     ``_sdpa_ref``, matching the JAX reference lowering; GQA K/V are
