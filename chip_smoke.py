@@ -11,13 +11,15 @@ Phases, each of which exits non-zero on failure:
    compiled with ``nvcc`` for sm_90a (one process per source, in parallel;
    ptxas's registers and spills printed per kernel), the HGMMA instructions
    of the bf16 flash forward's and backward's kernels are counted in their
-   SASS (``cuobjdump -sass``; none fails), and the Triton LayerNorm, the Triton
-   RMSNorm and the primitives that ``kernels.primitive`` generates for this
-   script's functions are JIT-compiled;
+   SASS (``cuobjdump -sass``; none fails), the norms are launched once, and
+   the primitives that ``kernels.primitive`` generates for this script's
+   functions are JIT-compiled (Triton);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving and training slices' shapes (RMSNorm and the primitives at
-   the 1.3B's hidden-state shapes and at ragged ones), in bf16 and fp32,
-   with the stated tolerance (the flash forward and backward also at the
+   the serving and training slices' shapes (the primitives at the 1.3B's
+   hidden-state shapes and at ragged ones), in bf16 and fp32, with the
+   stated tolerance (LayerNorm and RMSNorm forward and backward at 1 to
+   32768 rows of H 7 to 2050, on both routes, with two backward calls
+   bitwise equal; the flash forward and backward also at the
    edges of their 64-row tiles, with GQA 16/1, and on the fused qkv
    projection's column slices, each call on its dtype's route; the forward
    also on a view TMA cannot read, which is copied first; two bf16 calls
@@ -39,8 +41,9 @@ Phases, each of which exits non-zero on failure:
    master weights and bf16 moments, batch 16 x 2048; one warm-up step,
    five timed steps and one profiled step, with each kernel's launch
    count over the timed steps (the flash kernels' on the tensor-core
-   route) and the bf16 flash kernels' device time in the profiled step;
-   the loss must be finite and fall;
+   route; 4L + 1 LayerNorm forwards and 2L + 1 backwards a step) and the
+   bf16 flash kernels' and the LayerNorm kernels' device time in the
+   profiled step; the loss must be finite and fall;
 7. training vs plain: at full width and depth 2 in fp32, the same weights
    take 3 AdamW steps on the card (every flash launch on the CUDA-core
    route) and on the CPU; losses, the first step's gradients and the
@@ -58,10 +61,11 @@ Phases, each of which exits non-zero on failure:
    None and save_flash are bitwise equal on the card; a first step with an
    infinite scale is skipped on the card and on the CPU alike, then 3
    steps run; losses, the scaler's automaton and the updates agree;
-10. user-facing path at full width: ``nn.RMSNorm`` forward and backward,
-   ``nn.functional.rms_norm``, ``incubate`` ``fused_rms_norm`` and the two
-   primitive factories on the 1.3B's hidden states at batch 16 x 2048,
-   with each kernel's launch count over that run.
+10. user-facing path at full width: ``nn.RMSNorm`` forward and backward
+   (held to the plain versions), ``nn.functional.rms_norm``, ``incubate``
+   ``fused_rms_norm`` and the two primitive factories on the 1.3B's
+   hidden states at batch 16 x 2048, with each kernel's launch count over
+   that run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -109,6 +113,15 @@ TOL = {  # max |kernel - plain| accepted, by (kernel, dtype)
     # as LayerNorm: bf16 outputs of |y| < 8 within one rounding step
     ("rms_norm", "bfloat16"): 3.2e-2,
 }
+# the norms' gradients, relative to their largest entry: in bf16 one
+# rounding step of that entry (the kernel's fp32 sums run in another order
+# than the plain version's, so a value's rounding may flip); in fp32 1e-5
+# (dw and db sum up to 32768 rows, dx a row of up to 2050 values)
+NORM_GRAD_STEP = {"float32": 1e-5, "bfloat16": 2 ** -7}
+# the norm kernels, by symbol (csrc/norms.cu): the warp route's forward and
+# backward, and the backward's sum of its per-block partials of dw and db
+NORM_SYMBOLS = {"fwd": "norm_fwd_warp_kernel", "bwd": "norm_bwd_warp_kernel",
+                "reduce": "norm_bwd_reduce_kernel"}
 # the primitives' tolerance, relative to the largest output: one rounding
 # step of the output dtype (the kernels' tanh, contractions and summation
 # order differ from PyTorch's by ulps of fp32)
@@ -116,10 +129,10 @@ PRIMITIVE_STEP = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 # the kernels and the path that launches them
 SERVING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
                    "paged_attention")
-TRAINING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
-                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                    "fused_adamw_update")
-USER_API_KERNELS = ("fused_rms_norm", "elementwise_kernel",
+TRAINING_KERNELS = ("fused_layer_norm", "layer_norm_bwd",
+                    "flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "fused_adamw_update")
+USER_API_KERNELS = ("fused_rms_norm", "rms_norm_bwd", "elementwise_kernel",
                     "row_reduce_kernel")
 # the bf16 flash kernels, by symbol: the forward (csrc/flash_fwd_sm90.cu)
 # and the backward's two (csrc/flash_bwd_sm90.cu); the fp32 route's
@@ -132,9 +145,10 @@ SM90_LIBS = {"flash_fwd_sm90": (FWD_SYMBOL,),
 FP32_FWD_SYMBOL = "flash_fwd_kernel"
 FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv")
-ALL_KERNELS = ("fused_layer_norm", "flash_attention_fwd", "paged_attention",
-               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-               "fused_adamw_update") + USER_API_KERNELS
+ALL_KERNELS = ("fused_layer_norm", "layer_norm_bwd", "flash_attention_fwd",
+               "paged_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "fused_adamw_update") \
+    + USER_API_KERNELS
 # the functions this script lifts into primitives
 ELEMENTWISE_FNS = {
     "x + a*y": lambda x, y, a: x + a * y,
@@ -279,51 +293,6 @@ def kernel_checks(K, gen):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # -- LayerNorm: decode rows (B_max = 8), a prefill bucket and the
-    #    training slice's 16 x 2048 rows, H = 2048
-    H = 2048
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((8, 1, H), (1, 1024, H), (3, 77, H), (16, 2048, H)):
-            x = randn(*shape, dtype=dtype)
-            w = (1 + 0.1 * randn(H, dtype=torch.float32)).to(dtype)
-            b = (0.1 * randn(H, dtype=torch.float32)).to(dtype)
-            err = max_err(K.fused_layer_norm(x, w, b, 1e-5),
-                          K.layer_norm_ref(x, w, b, 1e-5))
-            tol = TOL[("layer_norm", str(dtype).split(".")[1])]
-            print(f"  layer_norm {str(dtype):15s} x{list(shape)} "
-                  f"max_abs_err {err:.3e} (tol {tol:.1e})", flush=True)
-            check(err <= tol, f"layer_norm {dtype} {shape}: {err} > {tol}")
-    timings = {}
-    for R in (8, 1024, 16 * 2048):
-        x = randn(R, H, dtype=torch.bfloat16)
-        w = randn(H, dtype=torch.bfloat16)
-        b = randn(H, dtype=torch.bfloat16)
-        ms = timed_ms(lambda: K.fused_layer_norm(x, w, b), 200)
-        plain = timed_ms(lambda: K.layer_norm_ref(x, w, b), 200)
-        lib = timed_ms(lambda: F.layer_norm(x, (H,), w, b, 1e-5), 200)
-        bms, by = bound(2 * R * H * 2 + 2 * H * 2, 8 * R * H, PEAK_FP32)
-        err = max_err(K.fused_layer_norm(x, w, b), K.layer_norm_ref(x, w, b))
-        dms = device_ms(lambda: K.fused_layer_norm(x, w, b), "_ln_fwd_kernel",
-                        50)
-        timings[R] = (ms, plain, lib, bms, by, err, dms)
-        print(f"  layer_norm bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
-              f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, F.layer_norm "
-              f"{lib:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
-    ms, plain, lib, bms, by, err, dms = timings[8]
-    rows["fused_layer_norm"] = dict(
-        name="fused_layer_norm", route="triton",
-        source="paddle_tpu_torch/kernels/norms.py",
-        replaces="paddle_tpu/kernels/norms.py:20",
-        shape="bf16 x[8, 2048] (decode rows)", max_abs_err=err, ms=ms,
-        device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=lib)
-    ms, plain, lib, bms, by, err, dms = timings[16 * 2048]
-    rows["fused_layer_norm"].update(
-        train_shape="bf16 x[32768, 2048] (training rows, B16 x S2048)",
-        train_max_abs_err=err, train_ms=ms, train_device_ms=dms,
-        train_plain_ms=plain, train_bound_ms=bms, train_bound_by=by,
-        train_library_ms=lib)
-
     # -- flash forward: the serving shapes (prefill B=1, H=16, D=128,
     #    causal; a ragged S, GQA 16/4, D 64) on both routes (bf16 on the
     #    tensor cores, fp32 on the CUDA cores); then, in bf16, the edges of
@@ -462,6 +431,165 @@ def kernel_checks(K, gen):
         max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=None)
     return rows
+
+
+def norm_checks(K, gen, rows):
+    """LayerNorm and RMSNorm, forward and backward, vs plain on the card:
+    every route and ragged edge, then timed at decode rows [8, 2048] and
+    training rows [32768, 2048]; adds the four kernels' rows to ``rows``."""
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    H = 2048
+    norms = {  # forward, backward, plain forward, plain backward, eps
+        "layer_norm": (K.fused_layer_norm, K.layer_norm_bwd,
+                       K.layer_norm_ref, K.layer_norm_bwd_ref, 1e-5),
+        "rms_norm": (K.fused_rms_norm, K.rms_norm_bwd, K.rms_norm_ref,
+                     K.rms_norm_bwd_ref, 1e-6)}
+
+    def case(norm, shape, dtype):
+        Hc = shape[-1]
+        x = (torch.randn(*shape, generator=gen, device=dev) * 2 + 0.5) \
+            .to(dtype)
+        w = (1 + 0.1 * torch.randn(Hc, generator=gen, device=dev)).to(dtype)
+        b = (0.1 * torch.randn(Hc, generator=gen, device=dev)).to(dtype)
+        dy = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        return x, ((w, b) if norm == "layer_norm" else (w,)), dy
+
+    # -- every route and edge: R 1, 3, 8 (decode), 231, 32768 (training)
+    #    rows by H 7, 100, 768, 2048, 2050 in both dtypes, and the serving
+    #    slice's leading shapes; one forward and one backward launch per
+    #    call on the expected route (warp: H a multiple of the 16-byte
+    #    vector and at most 2048; else block)
+    shapes = [(R, Hc) for R in (1, 3, 8, 231, 32768)
+              for Hc in (7, 100, 768, 2048, 2050)] + [
+        (8, 1, H), (1, 1024, H), (3, 77, H)]
+    for norm, (fwd, bwd, fwd_ref, bwd_ref, eps) in norms.items():
+        for dtype in (f32, bf16):
+            dn = str(dtype).split(".")[1]
+            tol = TOL[(norm, dn)]
+            for shape in shapes:
+                x, params, dy = case(norm, shape, dtype)
+                Hc = shape[-1]
+                route = ("warp" if Hc % (16 // x.element_size()) == 0
+                         and Hc <= 2048 else "block")
+                before = [(w.launches, w.route_launches[route])
+                          for w in (fwd, bwd)]
+                y = fwd(x, *params, eps)
+                grads = bwd(x, params[0], dy, eps)
+                check([(w.launches, w.route_launches[route])
+                       for w in (fwd, bwd)] == [(n + 1, r + 1)
+                                                for n, r in before],
+                      f"{norm} {dtype} {shape}: not one launch of each on "
+                      f"the {route} route")
+                err_y = max_err(y, fwd_ref(x, *params, eps))
+                errs = [(max_err(g, r), norm_grad_tol(r)) for g, r in
+                        zip(grads, bwd_ref(x, params[0], dy, eps))]
+                print(f"  {norm} {dn:8s} x{list(shape)} ({route}): y err "
+                      f"{err_y:.2e} (tol {tol:.1e}); dx/dw"
+                      f"{'/db' if len(errs) == 3 else ''} err "
+                      f"{' '.join(f'{e:.2e}' for e, _ in errs)} (tol "
+                      f"{' '.join(f'{t:.2e}' for _, t in errs)})",
+                      flush=True)
+                check(err_y <= tol and y.shape == x.shape
+                      and all(e <= t for e, t in errs),
+                      f"{norm} {dtype} {shape} ({route}): y {err_y} (tol "
+                      f"{tol}), grads (err, tol) {errs}")
+
+    # -- two backward calls at the training rows equal to the bit (a fixed
+    #    grid and no atomics); then the times
+    for norm, (fwd, bwd, fwd_ref, bwd_ref, eps) in norms.items():
+        x, params, dy = case(norm, (32768, H), bf16)
+        same = all(torch.equal(a, b) for a, b in zip(
+            bwd(x, params[0], dy, eps), bwd(x, params[0], dy, eps)))
+        print(f"  {norm} backward bf16 [32768, {H}]: two calls bitwise "
+              f"equal {same}", flush=True)
+        check(same, f"the {norm} backward is not deterministic")
+
+    names = {"layer_norm": ("fused_layer_norm", "layer_norm_bwd", ":20",
+                            ":78", "F.layer_norm"),
+             "rms_norm": ("fused_rms_norm", "rms_norm_bwd", ":29", ":128",
+                          "F.rms_norm")}
+    for norm, (fwd, bwd, fwd_ref, bwd_ref, eps) in norms.items():
+        fname, bname, fline, bline, libname = names[norm]
+        ln = norm == "layer_norm"
+
+        def lib_fwd(x, *params):
+            return (F.layer_norm(x, (H,), *params, eps) if ln
+                    else F.rms_norm(x, (H,), *params, eps))
+
+        t = {}
+        for R in (8, 32768):
+            x, params, dy = case(norm, (R, H), bf16)
+            n_par = len(params)
+            ms = timed_ms(lambda: fwd(x, *params, eps), 200)
+            plain = timed_ms(lambda: fwd_ref(x, *params, eps), 200)
+            lib = timed_ms(lambda: lib_fwd(x, *params), 200)
+            dms = device_ms(lambda: fwd(x, *params, eps), NORM_SYMBOLS["fwd"],
+                            50)
+            err = max_err(fwd(x, *params, eps), fwd_ref(x, *params, eps))
+            bms, by = bound(2 * R * H * 2 + n_par * H * 2,
+                            (8 if ln else 4) * R * H, PEAK_FP32)
+            t[R] = dict(ms=ms, device_ms=dms, plain_ms=plain, library_ms=lib,
+                        bound_ms=bms, bound_by=by, max_abs_err=err)
+            print(f"  {fname} bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
+                  f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, {libname} "
+                  f"{lib:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
+            check(dms is not None, f"the profiler did not see "
+                  f"{NORM_SYMBOLS['fwd']} for {fname}")
+        # the backward at the training rows: the kernel pair (rows, then
+        # the partial sums of dw/db), the plain version, and the library's
+        # backward through autograd (forward + backward - forward)
+        R = 32768
+        x, params, dy = case(norm, (R, H), bf16)
+        ms = timed_ms(lambda: bwd(x, params[0], dy, eps), 50)
+        kern = profile_kernels(
+            lambda: [bwd(x, params[0], dy, eps) for _ in range(20)])
+        dms_rows = kernel_ms(kern, NORM_SYMBOLS["bwd"], 20)
+        dms_red = kernel_ms(kern, NORM_SYMBOLS["reduce"], 20)
+        check(None not in (dms_rows, dms_red), f"the profiler did not see "
+              f"{NORM_SYMBOLS['bwd']} / {NORM_SYMBOLS['reduce']}: {kern[:4]}")
+        dms = dms_rows + dms_red
+        plain = timed_ms(lambda: bwd_ref(x, params[0], dy, eps), 20)
+        xs = [v.clone().requires_grad_() for v in (x, *params)]
+        lib_f = timed_ms(lambda: lib_fwd(*xs), 50)
+        lib_fb = timed_ms(lambda: torch.autograd.grad(lib_fwd(*xs), xs, dy),
+                          50)
+        got = bwd(x, params[0], dy, eps)
+        err = max(max_err(g, r) for g, r in zip(
+            got, bwd_ref(x, params[0], dy, eps)))
+        # read x and g, write dx (bf16), read w, write dw (and db)
+        bms, by = bound(3 * R * H * 2 + (1 + len(params)) * H * 2,
+                        (15 if ln else 11) * R * H, PEAK_FP32)
+        print(f"  {bname} bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
+              f"{dms:.4f} ms = rows {dms_rows:.4f} + partial sums "
+              f"{dms_red:.4f}), plain {plain:.4f} ms, {libname} backward "
+              f"{lib_fb - lib_f:.4f} ms (fwd+bwd {lib_fb:.4f} - fwd "
+              f"{lib_f:.4f}), bound {bms:.4f} ms ({by})", flush=True)
+        del xs, x, params, dy, got
+        common = dict(route="cuda",
+                      source="paddle_tpu_torch/kernels/csrc/norms.cu")
+        dec, tr = t[8], t[32768]
+        rows[fname] = dict(
+            name=fname, replaces=f"paddle_tpu/kernels/norms.py{fline}",
+            shape=f"bf16 x[8, {H}] (decode rows)", **common, **dec,
+            train_shape=f"bf16 x[32768, {H}] (training rows, B16 x S2048)",
+            **{f"train_{k}": v for k, v in tr.items()})
+        rows[bname] = dict(
+            name=bname, replaces=f"paddle_tpu/kernels/norms.py{bline}",
+            replaces_note="the backward rule, jnp that XLA fuses on the TPU",
+            shape=f"bf16 x[32768, {H}], g (training rows)", **common,
+            max_abs_err=err, ms=ms, device_ms=dms, rows_device_ms=dms_rows,
+            partial_sums_device_ms=dms_red, plain_ms=plain,
+            bound_ms=bms, bound_by=by, library_ms=lib_fb - lib_f)
+    torch.cuda.empty_cache()
+
+
+def norm_grad_tol(ref):
+    """A norm gradient's tolerance: ``NORM_GRAD_STEP`` of its largest
+    entry."""
+    step = NORM_GRAD_STEP[str(ref.dtype).split(".")[1]]
+    return step * ref.float().abs().max().item()
 
 
 def train_kernel_checks(K, gen, rows):
@@ -731,77 +859,14 @@ def primitive_err(got, want):
     return max_err(got, want), PRIMITIVE_STEP[want.dtype] * scale
 
 
-def norm_primitive_checks(K, P, ops, gen, rows):
-    """RMSNorm and the two primitive factories vs plain on the card, then
-    timed at the 1.3B's hidden-state shapes; adds their rows to ``rows``."""
-    from paddle_tpu_torch.nn import RMSNorm
-
+def primitive_checks(P, ops, gen, rows):
+    """The two primitive factories vs plain on the card, then timed at the
+    1.3B's hidden-state shapes; adds their rows to ``rows``."""
     dev = torch.device("cuda")
-    F = torch.nn.functional
     H = 2048
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-
-    # -- RMSNorm forward: decode rows and the training slice's 16 x 2048
-    for dtype in (torch.float32, torch.bfloat16):
-        for R in (8, 16 * 2048):
-            x = randn(R, H, dtype=dtype)
-            w = (1 + 0.1 * randn(H, dtype=torch.float32)).to(dtype)
-            err = max_err(K.fused_rms_norm(x, w), K.rms_norm_ref(x, w))
-            tol = TOL[("rms_norm", str(dtype).split(".")[1])]
-            print(f"  rms_norm {str(dtype):15s} x[{R}, {H}] max_abs_err "
-                  f"{err:.3e} (tol {tol:.1e})", flush=True)
-            check(err <= tol, f"rms_norm {dtype} [{R}, {H}]: {err} > {tol}")
-    # -- nn.RMSNorm forward and backward (the kernel, then rms_norm_bwd_ref
-    #    through RMSNormFunction) against the plain forward and backward
-    layer = RMSNorm(H, device=dev, dtype=torch.bfloat16)
-    with torch.no_grad():
-        layer.weight.copy_(1 + 0.1 * randn(H, dtype=torch.float32))
-    x = randn(16, 2048, H, dtype=torch.bfloat16)
-    dy = randn(16, 2048, H, dtype=torch.bfloat16)
-    xg = x.clone().requires_grad_()
-    y = layer(xg)
-    y.backward(dy)
-    w = layer.weight.detach()
-    err_y = max_err(y, K.rms_norm_ref(x, w))
-    dx, dw = K.rms_norm_bwd_ref(x, w, dy)
-    err_dx, err_dw = max_err(xg.grad, dx), max_err(layer.weight.grad, dw)
-    print(f"  nn.RMSNorm bf16 x[16, 2048, {H}] forward err {err_y:.3e} (tol "
-          f"{TOL[('rms_norm', 'bfloat16')]:.1e}), backward dx err "
-          f"{err_dx:.1e}, dw err {err_dw:.1e} (tol 0: the plain backward)",
-          flush=True)
-    check(err_y <= TOL[("rms_norm", "bfloat16")] and err_dx == 0
-          and err_dw == 0, f"nn.RMSNorm on the card: {err_y} {err_dx} "
-          f"{err_dw}")
-    del x, dy, xg, y, dx, dw
-    timings = {}
-    for R in (8, 16 * 2048):
-        x = randn(R, H, dtype=torch.bfloat16)
-        w = randn(H, dtype=torch.bfloat16)
-        ms = timed_ms(lambda: K.fused_rms_norm(x, w), 200)
-        plain = timed_ms(lambda: K.rms_norm_ref(x, w), 200)
-        lib = timed_ms(lambda: F.rms_norm(x, (H,), w, 1e-6), 200)
-        bms, by = bound(2 * R * H * 2 + H * 2, 4 * R * H, PEAK_FP32)
-        err = max_err(K.fused_rms_norm(x, w), K.rms_norm_ref(x, w))
-        dms = device_ms(lambda: K.fused_rms_norm(x, w), "_rms_fwd_kernel", 50)
-        timings[R] = (ms, plain, lib, bms, by, err, dms)
-        print(f"  rms_norm bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
-              f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, F.rms_norm "
-              f"{lib:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
-    ms, plain, lib, bms, by, err, dms = timings[16 * 2048]
-    rows["fused_rms_norm"] = dict(
-        name="fused_rms_norm", route="triton",
-        source="paddle_tpu_torch/kernels/norms.py",
-        replaces="paddle_tpu/kernels/norms.py:29",
-        shape=f"bf16 x[32768, {H}] (the 1.3B's hidden states, B16 x S2048)",
-        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib)
-    ms, plain, lib, bms, by, err, dms = timings[8]
-    rows["fused_rms_norm"].update(
-        small_shape=f"bf16 x[8, {H}]", small_max_abs_err=err, small_ms=ms,
-        small_device_ms=dms, small_plain_ms=plain, small_bound_ms=bms,
-        small_library_ms=lib)
 
     # -- the elementwise primitive: both functions at the hidden states'
     #    shape in bf16 and at ragged shapes in both dtypes
@@ -1028,6 +1093,7 @@ def train_slice(K, seed: int, rows):
     busy, top = sum(t for _, t in kernels), kernels[:10]
     flash_ms = {k: kernel_ms(kernels, sym) for k, sym in
                 (("fwd", FWD_SYMBOL), *BWD_SYMBOLS.items())}
+    norm_ms = {k: kernel_ms(kernels, sym) for k, sym in NORM_SYMBOLS.items()}
     losses = [float(v) for v in losses]
     tokens = B * S
     # bench.py's FLOP count (bench_gpt_dp): 6N + 12*L*H*S per token; it
@@ -1050,15 +1116,30 @@ def train_slice(K, seed: int, rows):
           f"{BWD_SYMBOLS['dq']} {fmt(flash_ms['dq'], '.3f')} ms, "
           f"{BWD_SYMBOLS['dkv']} {fmt(flash_ms['dkv'], '.3f')} ms of device "
           f"time", flush=True)
+    L = cfg.num_layers
+    print(f"    profiled step: LayerNorm {NORM_SYMBOLS['fwd']} "
+          f"{fmt(norm_ms['fwd'], '.3f')} ms ({counts['fused_layer_norm'] / timed:g}"
+          f" launches per step), backward {NORM_SYMBOLS['bwd']} "
+          f"{fmt(norm_ms['bwd'], '.3f')} ms + {NORM_SYMBOLS['reduce']} "
+          f"{fmt(norm_ms['reduce'], '.3f')} ms "
+          f"({counts['layer_norm_bwd'] / timed:g} launches per step) of "
+          f"device time", flush=True)
     check(None not in flash_ms.values(), f"the profiled step shows no "
           f"{FWD_SYMBOL} or {' or '.join(BWD_SYMBOLS.values())}: {flash_ms}")
+    check(None not in norm_ms.values(), f"the profiled step shows no "
+          f"{' or '.join(NORM_SYMBOLS.values())}: {norm_ms}")
+    # LayerNorm: two per block, replayed by the recompute, and the final
+    # one; one backward each for the 2L + 1 of the loss's graph
+    check(counts["fused_layer_norm"] == (4 * L + 1) * timed
+          and counts["layer_norm_bwd"] == (2 * L + 1) * timed,
+          f"LayerNorm launches per step differ from 4L + 1 forwards and "
+          f"2L + 1 backwards: {counts}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
           f"first loss {losses[0]} is not within 0.5 of ln V")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(all(counts[k] > 0 for k in TRAINING_KERNELS),
           f"a kernel of the training path was never launched: {counts}")
-    L = cfg.num_layers
     check(counts["flash_attention_fwd"] == 2 * L * timed
           and counts["flash_attention_bwd_dq"] == L * timed
           and counts["flash_attention_bwd_dkv"] == L * timed
@@ -1380,6 +1461,9 @@ def user_api_path(K, ops, rows):
     bias = torch.zeros(H, device="cuda", dtype=torch.bfloat16)
     alpha = torch.full_like(dy, 0.5)
     norm = RMSNorm(H, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn(H, generator=g,
+                                                device="cuda"))
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1404,6 +1488,21 @@ def user_api_path(K, ops, rows):
           "the user-facing path's outputs are not finite or misshapen")
     check(torch.equal(y2, y.detach()) and torch.equal(y3, y.detach()),
           "the RMSNorm entry points disagree")
+    # nn.RMSNorm's forward and backward (the kernels, through
+    # RMSNormFunction) against the plain versions from the same values
+    w = norm.weight.detach()
+    err_y = max_err(y, K.rms_norm_ref(h.detach(), w))
+    dx, dw = K.rms_norm_bwd_ref(h.detach(), w, dy)
+    errs = [(max_err(got, want), norm_grad_tol(want))
+            for got, want in ((h.grad, dx), (norm.weight.grad, dw))]
+    print(f"     nn.RMSNorm vs plain: forward err {err_y:.3e} (tol "
+          f"{TOL[('rms_norm', 'bfloat16')]:.1e}), backward dx err "
+          f"{errs[0][0]:.3e} (tol {errs[0][1]:.3e}), dw err {errs[1][0]:.3e} "
+          f"(tol {errs[1][1]:.3e})", flush=True)
+    check(err_y <= TOL[("rms_norm", "bfloat16")]
+          and all(e <= tol for e, tol in errs),
+          f"nn.RMSNorm on the card: {err_y} {errs}")
+    del dx, dw
     check(all(counts[k] > 0 for k in USER_API_KERNELS),
           f"a kernel of the user-facing path was never launched: {counts}")
     for name in USER_API_KERNELS:
@@ -1462,11 +1561,11 @@ def main() -> int:
     x = torch.randn(4, 2048, device="cuda")
     K.fused_layer_norm(x, torch.ones(2048, device="cuda"),
                        torch.zeros(2048, device="cuda"))
-    torch.cuda.synchronize()
-    print(f"    Triton LayerNorm JIT + first launch {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
     K.fused_rms_norm(x, torch.ones(2048, device="cuda"))
+    torch.cuda.synchronize()
+    print(f"    CUDA LayerNorm and RMSNorm first launches "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     P = K.primitive
     ops = {name: P.elementwise_kernel(fn)
            for name, fn in ELEMENTWISE_FNS.items()}
@@ -1479,15 +1578,16 @@ def main() -> int:
         for name in REDUCE_FNS:
             ops[name](xd)
     torch.cuda.synchronize()
-    print(f"    Triton RMSNorm and primitives {sorted(ops)} (fp32, bf16) JIT + "
-          f"first launch {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"    Triton primitives {sorted(ops)} (fp32, bf16) JIT + first "
+          f"launch {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. kernels vs plain
     print("[3] kernels vs plain on the card", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = kernel_checks(K, gen)
+    norm_checks(K, gen, rows)
     train_kernel_checks(K, gen, rows)
-    norm_primitive_checks(K, P, ops, gen, rows)
+    primitive_checks(P, ops, gen, rows)
 
     # ---- 4. slice at full width
     from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM

@@ -10,6 +10,7 @@ same function (gather the live pages into the dense layout, then the
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -23,13 +24,19 @@ _SIGNATURES = {"paged_decode": [_P] * 6 + [_I] * 7 + [_P]}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@functools.lru_cache(maxsize=None)
+def _q_scale(D: int, dtype: torch.dtype) -> float:
+    """1/sqrt(D) rounded to ``dtype``, as a Python float (exact)."""
+    return float(torch.tensor(1.0 / math.sqrt(D), dtype=dtype))
+
+
 def prescale_q(q):
     """``q * 1/sqrt(D)`` in q's own dtype: the scale is rounded to q's dtype
     first and the product rounds back to it, as the TPU wrapper does. In
-    bf16 that rounding is part of the function."""
-    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
-                         device=q.device)
-    return q * scale
+    bf16 that rounding is part of the function. The rounded scale is a
+    host number, so a call copies nothing to the card and does not wait
+    for it."""
+    return q * _q_scale(q.shape[-1], q.dtype)
 
 
 def paged_gather(pool, page_table):

@@ -65,6 +65,7 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype, shape):
     before = K.fused_layer_norm.launches
     got = K.fused_layer_norm(x, w, b)
     assert K.fused_layer_norm.launches == before + 1
+    assert got.shape == x.shape
     # |y| < 8: bf16 may differ by one rounding step (2^-5)
     tol = 1e-4 if dtype == torch.float32 else 3.2e-2
     assert got.dtype == dtype and _err(got, K.layer_norm_ref(x, w, b)) <= tol
@@ -396,8 +397,9 @@ def test_train_step_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("shape", [(3, 77, 2048), (5, 100)])
 def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
     """Forward: one launch, within one bf16 rounding step (|y| < 8: 2^-5)
-    of ``rms_norm_ref``. Backward through ``nn.RMSNorm``: the plain
-    ``rms_norm_bwd_ref`` from the same x, so dx and dw agree exactly."""
+    of ``rms_norm_ref``. Backward through ``nn.RMSNorm``: one launch of the
+    backward kernel, dx and dw within ``_grad_tol`` of ``rms_norm_bwd_ref``
+    from the same x."""
     from paddle_tpu_torch.nn import RMSNorm
 
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -414,9 +416,142 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
         layer.weight.copy_(w)
     xg = x.clone().requires_grad_()
     dy = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    before = K.rms_norm_bwd.launches
     layer(xg).backward(dy)
+    assert K.rms_norm_bwd.launches == before + 1
     dx, dw = K.rms_norm_bwd_ref(x, w, dy)
-    assert torch.equal(xg.grad, dx) and torch.equal(layer.weight.grad, dw)
+    assert xg.grad.dtype == dx.dtype and _err(xg.grad, dx) <= _grad_tol(dx)
+    assert _err(layer.weight.grad, dw) <= _grad_tol(dw)
+
+
+def _grad_tol(ref):
+    """A norm gradient's tolerance, relative to its largest entry: in bf16
+    one rounding step of that entry (2^-7: the kernel's fp32 sums run in
+    another order than the plain version's, so a value's rounding may
+    flip); in fp32 1e-5 of it (dw and db sum up to 32768 rows, dx a row of
+    up to 2050 values, in another order)."""
+    step = 2 ** -7 if ref.dtype == torch.bfloat16 else 1e-5
+    return step * ref.float().abs().max().item()
+
+
+# forward, backward, their plain versions, eps
+NORMS = {"layer_norm": (K.fused_layer_norm, K.layer_norm_bwd, K.layer_norm_ref,
+                        K.layer_norm_bwd_ref, 1e-5),
+         "rms_norm": (K.fused_rms_norm, K.rms_norm_bwd, K.rms_norm_ref,
+                      K.rms_norm_bwd_ref, 1e-6)}
+
+
+def _norm_case(cuda, norm, R, H, x_dtype, w_dtype=None, seed=0):
+    """x [R, H] (the rows of the model's hidden states), the weight (and
+    bias) near one, the output's gradient, and the parameters' tuple the
+    forward takes."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w_dtype = w_dtype or x_dtype
+    x = (torch.randn(R, H, generator=g, device=cuda) * 2 + 0.5).to(x_dtype)
+    w = (1 + 0.1 * torch.randn(H, generator=g, device=cuda)).to(w_dtype)
+    b = (0.1 * torch.randn(H, generator=g, device=cuda)).to(w_dtype)
+    dy = torch.randn(R, H, generator=g, device=cuda).to(x_dtype)
+    return x, ((w, b) if norm == "layer_norm" else (w,)), dy
+
+
+def _check_norm(norm, x, params, dy, want_route, x_grad=True):
+    """One forward and one backward launch, each on ``want_route``, through
+    the autograd Function; the output within the forward's ``TOL`` (bf16:
+    one rounding step of |y| < 8) and each gradient within ``_grad_tol`` of
+    the plain versions. ``x_grad=False`` passes x itself (not a copy, which
+    would be aligned anew), so only the parameters' gradients are read."""
+    fwd, bwd, fwd_ref, bwd_ref, eps = NORMS[norm]
+    xs = [x.clone().requires_grad_() if x_grad else x] + [
+        t.clone().requires_grad_() for t in params]
+    counts = [(w.launches, w.route_launches[want_route]) for w in (fwd, bwd)]
+    y = fwd(*xs, eps)
+    y.backward(dy)
+    assert [(w.launches, w.route_launches[want_route]) for w in (fwd, bwd)] \
+        == [(n + 1, r + 1) for n, r in counts]
+    tol = 1e-4 if x.dtype == torch.float32 else 3.2e-2
+    assert y.dtype == x.dtype and _err(y, fwd_ref(x, *params, eps)) <= tol
+    for t, want in zip(xs, bwd_ref(x, params[0], dy, eps)):
+        if not t.requires_grad:
+            continue
+        got = t.grad
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _err(got, want) <= _grad_tol(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", sorted(NORMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 3, 8, 231, 32768])
+@pytest.mark.parametrize("H", [7, 100, 768, 2048, 2050])
+def test_norm_kernels_match_plain(cuda, norm, dtype, R, H):
+    """Forward and backward of both norms against their plain versions on
+    both routes: the warp route where H is a multiple of the 16-byte vector
+    and at most 2048, the block route elsewhere (H 7 and 2050, and bf16 at
+    H 100), at one row, decode's 8 and the training slice's 32768."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    route = "warp" if H % vec == 0 and H <= 2048 else "block"
+    _check_norm(norm, *_norm_case(cuda, norm, R, H, dtype), route)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", sorted(NORMS))
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_norm_kernels_take_mixed_dtypes(cuda, norm, x_dtype, w_dtype):
+    """x in one dtype and the weight in the other (a user's fp32 RMSNorm on
+    bf16 states): y and dx in x's dtype, dw (and db) in the weight's."""
+    _check_norm(norm, *_norm_case(cuda, norm, 231, 2048, x_dtype, w_dtype),
+                "warp")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", sorted(NORMS))
+def test_norm_unaligned_rows_take_the_block_route(cuda, norm):
+    """Rows that start 2 bytes past a 16-byte boundary cannot be read in
+    vectors: the same values take the block route, forward and backward
+    (dx is read from the backward's own call)."""
+    x, params, dy = _norm_case(cuda, norm, 8, 2048, torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xo = buf[1:].view_as(x)
+    xo.copy_(x)
+    assert xo.is_contiguous() and xo.data_ptr() % 16
+    _check_norm(norm, xo, params, dy, "block", x_grad=False)
+    _, bwd, _, bwd_ref, eps = NORMS[norm]
+    before = bwd.route_launches["block"]
+    dx = bwd(xo, params[0], dy, eps)[0]
+    assert bwd.route_launches["block"] == before + 1
+    want = bwd_ref(x, params[0], dy, eps)[0]
+    assert _err(dx, want) <= _grad_tol(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", sorted(NORMS))
+@pytest.mark.parametrize("R,H", [(32768, 2048), (231, 2050)])
+def test_norm_bwd_is_deterministic(cuda, norm, R, H):
+    """A fixed grid, fixed rows per block and no atomics: two backward
+    calls give dx, dw (and db) equal to the bit, on both routes."""
+    bwd = NORMS[norm][1]
+    x, params, dy = _norm_case(cuda, norm, R, H, torch.bfloat16)
+    first, second = (bwd(x, params[0], dy) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_norm_wrappers_refuse_what_no_kernel_takes(cuda):
+    """float16 rows, a weight of another length or device, a bias in
+    another dtype than the weight, a gradient unlike x: each raises."""
+    x = torch.zeros(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="unsupported dtypes"):
+        K.fused_rms_norm(x.half(), w)
+    with pytest.raises(ValueError, match="weight must be"):
+        K.fused_layer_norm(x, w[:32], w[:32])
+    with pytest.raises(ValueError, match="weight must be"):
+        K.fused_rms_norm(x, w.cpu())
+    with pytest.raises(ValueError, match="bias is"):
+        K.fused_layer_norm(x, w, w.bfloat16())
+    with pytest.raises(ValueError, match="gradient must be like x"):
+        K.layer_norm_bwd(x, w, x.bfloat16())
 
 
 @pytest.mark.gpu

@@ -288,6 +288,37 @@ def test_paged_ref_matches_pallas(rep, dtype):
     assert _max_err(want, got) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_prescale_q_is_bitwise_the_old_arithmetic(monkeypatch, dtype, D):
+    """``prescale_q`` multiplies by the scale rounded to q's dtype on the
+    host, creating no tensor on q's device (a host-to-device copy waits for
+    the card), and gives the same bits as the product with a 0-dim tensor
+    of q's dtype on q's device."""
+    import importlib
+    import math
+
+    PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+    rng = np.random.default_rng(D)
+    q = torch.from_numpy(rng.standard_normal((3, 16, 1, D)) * 4).to(dtype)
+    old = q * torch.tensor(1.0 / math.sqrt(D), dtype=dtype, device=q.device)
+    made = []
+    real = torch.tensor
+
+    def spy(*args, **kwargs):
+        made.append(kwargs.get("device"))
+        return real(*args, **kwargs)
+
+    PA._q_scale.cache_clear()
+    monkeypatch.setattr(torch, "tensor", spy)
+    got = PA.prescale_q(q)
+    again = PA.prescale_q(q)
+    assert made == [None]  # once, on the host, then cached
+    assert got.dtype == dtype and torch.equal(got, old)
+    assert torch.equal(got.view(torch.uint8), old.view(torch.uint8))
+    assert torch.equal(again, got)
+
+
 def test_wrappers_reject_other_devices():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -432,19 +463,27 @@ def test_flash_bwd_gqa_sums_over_the_group():
 
 
 # ---------------- LayerNorm backward ---------------------------------------
+# the rows of the backward tests: a few leading shapes, one row, and H
+# that is not a multiple of the bf16 vector (8) on either side of 2048,
+# where the kernels change route
+NORM_BWD_SHAPES = [(3, 4, 48), (1, 7), (2, 3, 100), (1, 2050)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_layer_norm_bwd_matches_jax_grad(dtype):
+@pytest.mark.parametrize("shape", NORM_BWD_SHAPES, ids=str)
+def test_layer_norm_bwd_matches_jax_grad(dtype, shape):
     """dx, dw, db of ``LayerNormFunction`` against ``jax.grad`` through the
     Pallas ``fused_layer_norm`` (whose backward is ``_ln_bwd_rule``). The
     port repeats that rule's arithmetic: fp32 differs by summation order;
     bf16 outputs (|dx| < 4, |dw|, |db| < 16) by at most one rounding step
-    of their magnitude (2^-6 relative)."""
+    of their magnitude (2^-6 relative). On CPU tensors the backward runs
+    the plain version and launches nothing."""
     rng = np.random.default_rng(6)
-    R, H = 12, 48
-    x = (rng.standard_normal((3, R // 3, H)) * 2 + 0.5).astype(np.float32)
+    H = shape[-1]
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
     w = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
     b = (0.1 * rng.standard_normal(H)).astype(np.float32)
-    g = rng.standard_normal((3, R // 3, H)).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
     (jx, tx), (jw, tw), (jb, tb), (jg, tg) = (_pair(a, dtype)
                                               for a in (x, w, b, g))
     want = jax.grad(
@@ -455,7 +494,12 @@ def test_layer_norm_bwd_matches_jax_grad(dtype):
     y = K.fused_layer_norm(*xs, 1e-5)
     assert type(y.grad_fn).__name__ == "LayerNormFunctionBackward"
     assert torch.equal(y.detach(), K.layer_norm_ref(tx, tw, tb, 1e-5))
+    before = K.layer_norm_bwd.launches
     y.backward(tg)
+    assert K.layer_norm_bwd.launches == before
+    for got, ref in zip((t.grad for t in xs),
+                        K.layer_norm_bwd_ref(tx, tw, tg, 1e-5)):
+        assert torch.equal(got, ref)
     for wnt, t in zip(want, xs):
         assert t.grad.dtype == t.dtype
         mag = float(np.abs(_np(wnt)).max())
@@ -548,18 +592,21 @@ def test_rms_norm_ref_matches_pallas(dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rms_norm_bwd_matches_jax_grad(dtype):
-    """dx, dw of ``RMSNormFunction`` (``rms_norm_bwd_ref``) against
-    ``jax.grad`` through the Pallas ``fused_rms_norm``, whose backward is
-    ``_rms_bwd_rule``: fp32 to 1e-5 of the larger of 1 and the gradient's
-    magnitude (summation order); bf16 outputs to one rounding step of their
-    magnitude (2^-6 relative)."""
+@pytest.mark.parametrize("shape", NORM_BWD_SHAPES, ids=str)
+def test_rms_norm_bwd_matches_jax_grad(dtype, shape):
+    """dx, dw of ``RMSNormFunction`` (``rms_norm_bwd`` on CPU tensors:
+    ``rms_norm_bwd_ref``, no launch) against ``jax.grad`` through the
+    Pallas ``fused_rms_norm``, whose backward is ``_rms_bwd_rule``: fp32 to
+    1e-5 of the larger of 1 and the gradient's magnitude (summation order);
+    bf16 outputs to one rounding step of their magnitude (2^-6
+    relative)."""
     from paddle_tpu.kernels.norms import fused_rms_norm as j_rms_norm
 
     rng = np.random.default_rng(9)
-    x = (rng.standard_normal((3, 4, 48)) * 2 + 0.5).astype(np.float32)
-    w = (1 + 0.1 * rng.standard_normal(48)).astype(np.float32)
-    g = rng.standard_normal((3, 4, 48)).astype(np.float32)
+    H = shape[-1]
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
     (jx, tx), (jw, tw), (jg, tg) = (_pair(a, dtype) for a in (x, w, g))
     want = jax.grad(
         lambda x, w: (j_rms_norm(x, w, 1e-6).astype(jnp.float32)
@@ -568,12 +615,132 @@ def test_rms_norm_bwd_matches_jax_grad(dtype):
     y = K.fused_rms_norm(*xs, 1e-6)
     assert type(y.grad_fn).__name__ == "RMSNormFunctionBackward"
     assert torch.equal(y.detach(), K.rms_norm_ref(tx, tw, 1e-6))
+    before = K.rms_norm_bwd.launches
     y.backward(tg)
+    assert K.rms_norm_bwd.launches == before
+    for got, ref in zip((t.grad for t in xs),
+                        K.rms_norm_bwd_ref(tx, tw, tg, 1e-6)):
+        assert torch.equal(got, ref)
     for wnt, t in zip(want, xs):
         assert t.grad.dtype == t.dtype
         mag = float(np.abs(_np(wnt)).max())
         tol = 1e-5 * max(mag, 1) if dtype == "float32" else 2 ** -6 * mag
         assert _max_err(wnt, t.grad) <= tol
+
+
+def test_norm_routes():
+    """The warp route takes rows whose length is a multiple of the 16-byte
+    vector (8 bf16, 4 fp32), at most ``WARP_MAX_H``, with every tensor
+    16-byte aligned; the block route takes the rest."""
+    from paddle_tpu_torch.kernels.norms import WARP_MAX_H, route
+
+    assert WARP_MAX_H == 2048
+    for H, itemsize, ptrs, want in [
+            (2048, 2, (0, 4096, 64), "warp"), (2048, 4, (16,), "warp"),
+            (768, 2, (0,), "warp"), (100, 4, (0,), "warp"),
+            (1000, 2, (0,), "warp"), (8, 2, (0,), "warp"),
+            (100, 2, (0,), "block"), (7, 4, (0,), "block"),
+            (2050, 4, (0,), "block"), (2056, 2, (0,), "block"),
+            (4096, 2, (0,), "block"), (2048, 2, (0, 2), "block"),
+            (2048, 4, (8, 0), "block")]:
+        assert route(H, itemsize, ptrs) == want, (H, itemsize, ptrs)
+
+
+def test_norm_wrappers_count_by_route_and_refuse_other_devices():
+    """The four norm wrappers count launches in total and by route, and
+    ``reset_launch_counts`` zeroes both; CPU tensors launch nothing, and a
+    tensor on another device is refused by each."""
+    wrappers = (K.fused_layer_norm, K.layer_norm_bwd, K.fused_rms_norm,
+                K.rms_norm_bwd)
+    assert all(w in K.WRAPPERS for w in wrappers)
+    for w in wrappers:
+        assert set(w.route_launches) == {"warp", "block"}
+        w.launches, w.route_launches["warp"], w.route_launches["block"] = \
+            3, 2, 1
+    K.reset_launch_counts()
+    assert all(w.launches == 0 and set(w.route_launches.values()) == {0}
+               for w in wrappers)
+    x = torch.randn(3, 16)
+    w1 = torch.ones(16)
+    K.layer_norm_bwd(x, w1, x)
+    K.rms_norm_bwd(x, w1, x)
+    K.fused_layer_norm(x, w1, w1)
+    K.fused_rms_norm(x, w1)
+    assert all(w.launches == 0 for w in wrappers)
+    m = torch.zeros(2, 4, device="meta")
+    for call in (lambda: K.fused_layer_norm(m, m[0], m[0]),
+                 lambda: K.fused_rms_norm(m, m[0]),
+                 lambda: K.layer_norm_bwd(m, m[0], m),
+                 lambda: K.rms_norm_bwd(m, m[0], m)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+# ---------------- the C interfaces -----------------------------------------
+def _c_entries():
+    """{C entry: [argument types]} of every ``extern "C"`` function in
+    ``kernels/csrc/*.cu``, with the return type under the key "return"."""
+    import re
+
+    from paddle_tpu_torch.kernels import _build
+
+    entries = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for ret, name, args in re.findall(
+                r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(\w+)\s*\(([^)]*)\)',
+                text):
+            types = [re.sub(r"\s*\b\w+\s*$", "", a.strip())
+                     for a in args.split(",") if a.strip()]
+            entries[name] = {"return": ret.strip(), "args": types}
+    return entries
+
+
+C_ENTRIES = _c_entries()
+
+
+def _bound_signatures():
+    """{C entry: ctypes argtypes} as the wrappers bind them."""
+    import importlib
+
+    # the modules, not the package attributes of the same names (functions)
+    mod = {m: importlib.import_module(f"paddle_tpu_torch.kernels.{m}")
+           for m in ("flash_attention", "fused_optim", "norms",
+                     "paged_attention")}
+    bound = {**mod["norms"]._SIGNATURES, **mod["fused_optim"]._SIGNATURES,
+             **mod["paged_attention"]._SIGNATURES}
+    for entry, args in mod["flash_attention"]._ARGS.items():
+        bound[entry] = bound[entry + "_sm90"] = args
+    return bound
+
+
+@pytest.mark.parametrize("entry", sorted(C_ENTRIES))
+def test_c_signature_matches_its_ctypes_binding(entry):
+    """Each C entry of the CUDA sources against the ``argtypes`` its wrapper
+    binds: every pointer (and the stream) a ``c_void_p``, ``int`` a
+    ``c_int``, ``long long`` a ``c_longlong``, ``float`` a ``c_float``, and
+    an ``int`` returned. A mismatch would cut a pointer or shift every later
+    argument on the card, where no CPU test reaches."""
+    import ctypes
+
+    c_to_ctypes = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                   "float": ctypes.c_float}
+    sig = C_ENTRIES[entry]
+    bound = _bound_signatures()
+    assert sig["return"] == "int"
+    assert entry in bound, f"{entry} has no ctypes binding"
+    want = [ctypes.c_void_p if "*" in t
+            else c_to_ctypes[" ".join(t.replace("const", "").split())]
+            for t in sig["args"]]
+    assert bound[entry] == want
+
+
+def test_every_binding_names_a_c_entry():
+    """No wrapper binds an entry that no CUDA source defines, and the
+    parser found the entries of every source."""
+    assert set(_bound_signatures()) == set(C_ENTRIES)
+    assert {"norm_fwd", "norm_bwd", "norm_bwd_grid", "paged_decode",
+            "fused_adamw", "flash_fwd_sm90"} <= set(C_ENTRIES)
 
 
 # ---------------- kernel primitives ----------------------------------------
