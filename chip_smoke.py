@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --paged-shapes-of DIR [--paged-symbols S ...]
+        # another checkout's paged decode at [3]'s four shapes
 
 Phases, each of which exits non-zero on failure:
 
@@ -23,14 +25,19 @@ Phases, each of which exits non-zero on failure:
    edges of their 64-row tiles, with GQA 16/1, and on the fused qkv
    projection's column slices, each call on its dtype's route; the forward
    also on a view TMA cannot read, which is copied first; two bf16 calls
-   at the training shape bitwise equal); then timed with CUDA events and
+   at the training shape bitwise equal; paged decode on its vector route,
+   two calls bitwise equal, timed at four shapes: the serving slice's
+   decode batch, every slot and one slot at a 2048-token context, and the
+   GQA serving config); then timed with CUDA events and
    the profiler beside the plain version, a library yardstick the port
-   never calls, and the H100 bound (a flash kernel the profiler does not
-   see fails the run; others print "not seen");
+   never calls, and the H100 bound (a flash, norm or paged kernel the
+   profiler does not see fails the run; others print "not seen");
 4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
    weights from the seed) behind ``Engine.generate``, 16 greedy requests
    through 8 slots, with each kernel's launch count over that run (every
-   flash forward on the bf16 route, wgmma);
+   flash forward on the bf16 route, wgmma; every paged decode on the
+   vector route); then the device time of a decode step and a prefill
+   beside their host clock, with the paged decode's share;
 5. serving vs plain: at full width and depth 2 in fp32, the same weights
    serve 3 greedy prompts on the card (every flash forward on the fp32
    route, the CUDA cores) and on the CPU (plain versions);
@@ -76,6 +83,8 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib
 import json
 import re
 import shutil
@@ -122,6 +131,10 @@ NORM_GRAD_STEP = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # backward, and the backward's sum of its per-block partials of dw and db
 NORM_SYMBOLS = {"fwd": "norm_fwd_warp_kernel", "bwd": "norm_bwd_warp_kernel",
                 "reduce": "norm_bwd_reduce_kernel"}
+# the paged-decode kernels, by symbol (csrc/paged_decode.cu): each split of
+# a slot's live pages, then the merge of a slot's splits
+PAGED_SYMBOLS = {"split": "paged_decode_split_kernel",
+                 "combine": "paged_decode_combine_kernel"}
 # the primitives' tolerance, relative to the largest output: one rounding
 # step of the output dtype (the kernels' tanh, contractions and summation
 # order differ from PyTorch's by ulps of fp32)
@@ -263,7 +276,6 @@ def flash_inputs(randn, B, S, Hq, Hkv, D, dtype, view=None):
     projection, as models/gpt.py makes them (TMA reads them in place);
     "copied" for slices of a projection 4 elements wider, whose sequence
     stride is not a 16-byte multiple (the bf16 route copies them first)."""
-    import importlib
 
     if view is None:
         return (randn(B, S, Hq, D, dtype=dtype),
@@ -284,7 +296,6 @@ def flash_inputs(randn, B, S, Hq, Hkv, D, dtype, view=None):
 def kernel_checks(K, gen):
     """Kernel vs plain on the card; returns the JSON rows (launch counts are
     filled in from the slice run)."""
-    from paddle_tpu_torch.serving.kv_cache import PAGE_SENTINEL
 
     dev = torch.device("cuda")
     F = torch.nn.functional
@@ -300,7 +311,6 @@ def kernel_checks(K, gen):
     #    as the fused qkv projection's column slices read in place by TMA,
     #    and slices TMA cannot read, which are copied first. Each call must
     #    add one launch to its dtype's route
-    import importlib
 
     FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     FWD = K.flash_attention_fwd
@@ -373,64 +383,136 @@ def kernel_checks(K, gen):
 
     # -- paged decode: the slice's shapes (B 8, H 16/16, D 128, ps 16,
     #    S_max 2048) and the repo's GQA serving config (H 16/4, D 64, S_max
-    #    1024); ragged positions, sentinel tails, and one empty slot
-    def paged_case(B, Hq, Hkv, D, ps, S_max, dtype, lo, hi):
-        nb = S_max // ps
-        P = B * nb + 1
-        kp = randn(P, Hkv, ps, D, dtype=dtype)
-        vp = randn(P, Hkv, ps, D, dtype=dtype)
-        pos = torch.randint(lo, hi, (B,), generator=gen, device=dev)
-        pos[-1] = 0  # empty slot: all-sentinel row, reads trash page 0
-        table = torch.full((B, nb), PAGE_SENTINEL, dtype=torch.int32)
-        perm = torch.randperm(P - 1, generator=gen, device=dev).cpu() + 1
-        used = 0
-        for b in range(B - 1):
-            n = int(pos[b]) // ps + 1
-            table[b, :n] = perm[used:used + n]
-            used += n
-        q = randn(B, Hq, 1, D, dtype=dtype)
-        return (q, kp, vp, table.to(dev), pos.to(torch.int32))
-
+    #    1024); ragged positions, sentinel tails, and one empty slot; every
+    #    call on the vector route, two calls bitwise equal
+    PAGED = K.paged_attention
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, Hq, Hkv, D, S_max in ((8, 16, 16, 128, 2048),
                                      (8, 16, 4, 64, 1024)):
-            args = paged_case(B, Hq, Hkv, D, 16, S_max, dtype, 1, S_max - 1)
-            out = K.paged_attention(*args)
+            args = paged_case(gen, B, Hq, Hkv, D, 16, S_max, dtype, 1,
+                              S_max - 1)
+            want = PAGED.route_launches["vector"] + 2
+            out = PAGED(*args)
+            again = PAGED(*args)
             ref = K.paged_attention_ref(*args)
             err = max_err(out, ref)
             tol = TOL[("paged", dn)]
             print(f"  paged_decode {str(dtype):15s} B{B} H{Hq}/{Hkv} D{D} "
                   f"S_max {S_max}: max_abs_err {err:.3e} (tol {tol:.1e}), "
-                  f"finite={bool(torch.isfinite(out).all())}", flush=True)
+                  f"finite={bool(torch.isfinite(out).all())}, two calls "
+                  f"bitwise equal={torch.equal(out, again)}", flush=True)
             check(err <= tol and bool(torch.isfinite(out).all()),
                   f"paged_decode {dtype} H{Hq}/{Hkv}: {err}")
-    # timing at the decode batch the slice run sees: 8 slots with prompts
-    # of 128 and 300-700 tokens plus up to 32 generated
-    B, Hq, D, ps = 8, 16, 128, 16
-    args = paged_case(B, Hq, Hq, D, ps, 2048, torch.bfloat16, 128, 733)
-    pos = args[4]
-    live_pages = sum(int(p) // ps + 1 for p in pos.tolist())
-    tokens = sum(int(p) + 1 for p in pos.tolist())
-    ms = timed_ms(lambda: K.paged_attention(*args), 200)
-    plain = timed_ms(lambda: K.paged_attention_ref(*args), 20)
-    bms, by = bound(live_pages * Hq * ps * D * 2 * 2 + 2 * B * Hq * D * 2
-                    + args[3].numel() * 4 + B * 4,
-                    4 * D * Hq * tokens, PEAK_BF16)
-    err = max_err(K.paged_attention(*args), K.paged_attention_ref(*args))
-    dms = device_ms(lambda: K.paged_attention(*args), "paged_decode_kernel",
-                    50)
-    print(f"  paged_decode bf16 B{B} live pages {live_pages}: kernel "
-          f"{ms:.4f} ms (device {fmt(dms, '.4f')} ms), plain {plain:.4f} "
-          f"ms, bound {bms:.5f} ms ({by})", flush=True)
+            check(torch.equal(out, again), f"paged_decode {dtype} "
+                  f"H{Hq}/{Hkv}: two calls differ")
+            check(PAGED.route_launches["vector"] == want,
+                  f"paged_decode {dtype} left the vector route: "
+                  f"{PAGED.route_launches}")
+    PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+    shapes = paged_shapes(K, gen, PAGED_SYMBOLS)
+    for sh, (_, case) in zip(shapes, PAGED_SHAPES):
+        _, Hq, Hkv, D, ps, S_max = case[:6]
+        sh["plan"] = PA.plan(Hq, Hkv, ps, S_max // ps, D, 2, (0,))._asdict()
+        print(f"  paged_decode plan at {sh['shape']}: {sh['plan']}",
+              flush=True)
+        check(sh["device_ms"] is not None,
+              f"the profiler did not see {' and '.join(PAGED_SYMBOLS.values())}"
+              f" at {sh['shape']}: {sh['kernels_ms']}")
+        check(sh["max_abs_err"] <= TOL[("paged", "bfloat16")],
+              f"paged_decode at {sh['shape']}: {sh['max_abs_err']}")
+    sl = shapes[0]
     rows["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
         replaces="paddle_tpu/kernels/paged_attention.py:43",
-        shape=f"bf16 B8 H16 D128 ps16 nb128, {live_pages} live pages",
-        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=None)
+        shape=sl["shape"], max_abs_err=sl["max_abs_err"], ms=sl["ms"],
+        device_ms=sl["device_ms"], kernels_ms=sl["kernels_ms"],
+        plain_ms=sl["plain_ms"], bound_ms=sl["bound_ms"],
+        bound_by=sl["bound_by"], library_ms=None, plan=sl["plan"],
+        shapes=shapes[1:])
     return rows
+
+
+def paged_case(gen, B, Hq, Hkv, D, ps, S_max, dtype, lo, hi, empty=True,
+               at=None):
+    """q, pools of B * S_max / ps + 1 pages, a table and positions: ragged
+    positions in [lo, hi) (or every slot at ``at``), slot b's live pages
+    distinct random pool pages and the rest of its row the sentinel; with
+    ``empty`` the last slot is at position 0 with an all-sentinel row."""
+    from paddle_tpu_torch.serving.kv_cache import PAGE_SENTINEL
+
+    dev = torch.device("cuda")
+    nb = S_max // ps
+    P = B * nb + 1
+    kp = torch.randn(P, Hkv, ps, D, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(P, Hkv, ps, D, generator=gen, device=dev).to(dtype)
+    pos = torch.randint(lo, hi, (B,), generator=gen, device=dev) \
+        if at is None else torch.full((B,), at, device=dev)
+    if empty:
+        pos[-1] = 0
+    table = torch.full((B, nb), PAGE_SENTINEL, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=gen, device=dev).cpu() + 1
+    used = 0
+    for b in range(B - 1 if empty else B):
+        n = int(pos[b]) // ps + 1
+        table[b, :n] = perm[used:used + n]
+        used += n
+    q = torch.randn(B, Hq, 1, D, generator=gen, device=dev).to(dtype)
+    return (q, kp, vp, table.to(dev), pos.to(torch.int32))
+
+
+# the paged decode's timed shapes, bf16 at ps 16, as ``paged_case``'s
+# arguments: the serving slice's decode batch (8 slots with prompts of 128
+# and 300-700 tokens plus up to 32 generated, one empty), every slot of it
+# at the table's last token, one slot there, and the GQA serving config at
+# random positions
+PAGED_SHAPES = [
+    ("B8 H16/16 D128 nb128, positions 128-733 (slice)",
+     (8, 16, 16, 128, 16, 2048, torch.bfloat16, 128, 733)),
+    ("B8 H16/16 D128 nb128, every slot at 2047",
+     (8, 16, 16, 128, 16, 2048, torch.bfloat16, 0, 0, False, 2047)),
+    ("B1 H16/16 D128 nb128, position 2047",
+     (1, 16, 16, 128, 16, 2048, torch.bfloat16, 0, 0, False, 2047)),
+    ("B8 H16/4 D64 nb64, random positions (GQA config)",
+     (8, 16, 4, 64, 16, 1024, torch.bfloat16, 1, 1023))]
+
+
+def paged_shapes(K, gen, symbols):
+    """``K.paged_attention`` timed at ``PAGED_SHAPES``. Device ms is the
+    sum over ``symbols`` (substrings of kernel names; None when one is not
+    seen) per call."""
+    out = []
+    for label, case in PAGED_SHAPES:
+        args = paged_case(gen, *case)
+        q, kp, _, table, pos = args
+        Bc, Hq, _, Dc = q.shape
+        _, Hkv, ps, _ = kp.shape
+        live_pages = sum(int(p) // ps + 1 for p in pos.tolist())
+        tokens = sum(int(p) + 1 for p in pos.tolist())
+        call = functools.partial(K.paged_attention, *args)
+        ms = timed_ms(call, 200)
+        plain = timed_ms(functools.partial(K.paged_attention_ref, *args), 20)
+        bms, by = bound(live_pages * Hkv * ps * Dc * 2 * 2
+                        + 2 * Bc * Hq * Dc * 2 + table.numel() * 4 + Bc * 4,
+                        4 * Dc * Hq * tokens, PEAK_BF16)
+        err = max_err(call(), K.paged_attention_ref(*args))
+        call()
+        kernels = profile_kernels(lambda: [call() for _ in range(50)])
+        per = {name: kernel_ms(kernels, sym, 50)
+               for name, sym in symbols.items()}
+        dms = None if None in per.values() else sum(per.values())
+        print(f"  paged_decode bf16 {label}: {live_pages} live pages, "
+              f"kernel {ms:.4f} ms (device {fmt(dms, '.4f')} ms = "
+              f"{per}), plain {plain:.4f} ms, bound {bms:.5f} ms ({by}), "
+              f"max_abs_err {err:.3e}", flush=True)
+        out.append(dict(shape=f"bf16 {label}, ps16, {live_pages} live pages",
+                        live_pages=live_pages, ms=ms, device_ms=dms,
+                        kernels_ms=per, plain_ms=plain, bound_ms=bms,
+                        bound_by=by, max_abs_err=err))
+        del args, kp, call
+        torch.cuda.empty_cache()
+    return out
 
 
 def norm_checks(K, gen, rows):
@@ -596,7 +678,6 @@ def train_kernel_checks(K, gen, rows):
     """The training kernels (flash backward, fused AdamW) vs plain on the
     card, then timed at the training slice's shapes; adds their rows to
     ``rows`` and the flash forward's training-shape numbers to its row."""
-    import importlib
 
     # the module, not the package attribute of the same name (a function)
     FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
@@ -988,12 +1069,19 @@ def where_time_goes(model, eng, prompts, SamplingParams):
     decode()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    busy, top = device_busy(decode)
-    busy /= steps
+    kernels = profile_kernels(decode)
+    busy = sum(t for _, t in kernels) / steps
+    paged = {name: kernel_ms(kernels, sym, steps)
+             for name, sym in PAGED_SYMBOLS.items()}
     print(f"[4b] decode step (8 live slots): {wall * 1e3:.2f} ms host clock, "
           f"device busy {busy * 1e3:.2f} ms, idle share "
           f"{1 - busy / wall:.3f}", flush=True)
-    for name, t in top:
+    check(None not in paged.values(), f"[4b]: the profiler did not see "
+          f"{' and '.join(PAGED_SYMBOLS.values())}: {paged}")
+    print(f"     paged decode {sum(paged.values()):.3f} ms/step ({paged}), "
+          f"{sum(paged.values()) / (busy * 1e3):.3f} of device busy",
+          flush=True)
+    for name, t in kernels[:6]:
         print(f"     {t / steps * 1e3:8.3f} ms/step  {name[:90]}", flush=True)
     while eng.has_unfinished:
         eng.step()
@@ -1514,18 +1602,39 @@ def user_api_path(K, ops, rows):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged-shapes-of", metavar="DIR", type=Path,
+                    help="only time the paged_attention of the package in "
+                    "DIR (a checkout of another commit) at [3]'s four "
+                    "shapes, and exit")
+    ap.add_argument("--paged-symbols", metavar="SYMBOL", nargs="+",
+                    help="with --paged-shapes-of: the kernels whose device "
+                    "time is summed, where DIR's differ from "
+                    f"{' and '.join(PAGED_SYMBOLS.values())}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the "
               "card only", file=sys.stderr)
         return 2
-    repo = Path(__file__).resolve().parent
+    repo = (args.paged_shapes_of or Path(__file__).parent).resolve()
     if not (repo / "paddle_tpu_torch" / "__init__.py").exists():
-        print(f"chip_smoke: no paddle_tpu_torch package beside {__file__}",
+        print(f"chip_smoke: no paddle_tpu_torch package in {repo}",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
     t_start = time.perf_counter()
+    if args.paged_shapes_of:
+        from paddle_tpu_torch import kernels as K
+
+        print(f"[1] device: {nvidia_smi_line()}; paged_attention of {repo}",
+              flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        symbols = dict(zip(args.paged_symbols, args.paged_symbols)) \
+            if args.paged_symbols else PAGED_SYMBOLS
+        shapes = paged_shapes(K, gen, symbols)
+        check(all(sh["device_ms"] is not None for sh in shapes),
+              f"the profiler did not see {' and '.join(symbols.values())}")
+        print(json.dumps({"paged_shapes": shapes}), flush=True)
+        return 0
 
     # ---- 1. device
     smi = nvidia_smi_line()
@@ -1645,12 +1754,16 @@ def main() -> int:
     check(all(counts[k] > 0 for k in SERVING_KERNELS),
           f"a kernel of the path was never launched: {counts}")
     routes = check_flash_routes(K, "wgmma", "[4]")
-    print(f"    flash forward by route: {routes['flash_attention_fwd']}",
-          flush=True)
+    paged_routes = dict(K.paged_attention.route_launches)
+    print(f"    flash forward by route: {routes['flash_attention_fwd']}; "
+          f"paged decode by route: {paged_routes}", flush=True)
+    check(paged_routes["vector"] == counts["paged_attention"],
+          f"[4]: a paged decode left the vector route: {paged_routes}")
     for name in SERVING_KERNELS:
         rows[name]["launches"] = counts[name]
     rows["flash_attention_fwd"]["route_launches"] = \
         routes["flash_attention_fwd"]
+    rows["paged_attention"]["route_launches"] = paged_routes
     where_time_goes(model, eng, prompts, SamplingParams)
     del model, eng
     torch.cuda.empty_cache()

@@ -4,7 +4,13 @@ Replaces ``paddle_tpu/kernels/paged_attention.py`` ``_decode_kernel``
 (launched by ``paged_attention``). The kernel source says what bounds it
 and how it is laid out; this module holds the plain PyTorch version of the
 same function (gather the live pages into the dense layout, then the
-``decode_attend`` oracle), the ``ctypes`` binding and the wrapper.
+``decode_attend`` oracle), the ``ctypes`` binding, the launch plan and the
+wrapper. The wrapper counts its launches in ``launches`` and by route in
+``route_launches`` (``ROUTES``; ``route`` picks one from the shape).
+
+The plan (``plan``) depends on static shapes only: the wrapper reads no
+position or table entry on the host, so a CUDA graph can capture the call
+and replay it after both change in place.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -20,8 +27,58 @@ from . import _build
 NEG_INF = -1e30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"paged_decode": [_P] * 6 + [_I] * 7 + [_P]}
+_SIGNATURES = {"paged_decode": [_P] * 7 + [_I] * 11 + [_P]}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the kernel's routes: 16-byte loads, or one element at a time
+ROUTES = ("vector", "scalar")
+#: the widest head the vector route takes, and the widest any route takes
+VECTOR_MAX_D = 256
+MAX_D = 1024
+#: the most query heads a block holds (registers); more take head tiles
+MAX_HEADS = 8
+#: bytes of K (and of V) in one stage of the kernel's shared-memory ring
+STAGE_BYTES = 8192
+#: tokens a split takes (at least one page). On the H100, 64-token splits
+#: beat 128 at the slice's decode batch and tie at a full 2048-token table
+#: (PERF.md §6, row 3)
+SPLIT_TOKENS = 64
+
+
+class Plan(NamedTuple):
+    route: str
+    heads: int            # query heads per block
+    pages_per_split: int
+    n_splits: int
+    tile: int             # tokens per ring stage
+
+
+def route(D: int, itemsize: int, ptrs) -> str:
+    """``"vector"`` when a head row is a whole number of 16-byte chunks,
+    ``D <= VECTOR_MAX_D``, and every address in ``ptrs`` (the pools and
+    the scaled q) is 16-byte aligned; else ``"scalar"``."""
+    if (D * itemsize) % 16 == 0 and D <= VECTOR_MAX_D \
+            and not any(p % 16 for p in ptrs):
+        return "vector"
+    return "scalar"
+
+
+def plan(Hq: int, Hkv: int, page_size: int, num_blocks: int, D: int,
+         itemsize: int, ptrs) -> Plan:
+    """The launch shape from static shapes and the addresses' alignment
+    only."""
+    return _plan(Hq, Hkv, page_size, num_blocks, D, itemsize,
+                 route(D, itemsize, ptrs))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(Hq, Hkv, page_size, num_blocks, D, itemsize, r) -> Plan:
+    rep = Hq // Hkv
+    heads = 1 if r == "scalar" else min(MAX_HEADS,
+                                        1 << (rep - 1).bit_length())
+    pps = min(num_blocks, max(1, SPLIT_TOKENS // page_size))
+    tile = min(page_size, max(1, STAGE_BYTES // (D * itemsize)))
+    return Plan(r, heads, pps, -(-num_blocks // pps), tile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,7 +143,8 @@ def paged_attention(q, k_pool, v_pool, page_table, positions):
     positions    ``[B]`` int32 — each slot's current token index
 
     Returns ``[B, H_q, 1, D]`` in v's dtype. CPU tensors run
-    ``paged_attention_ref``; CUDA tensors launch the kernel or raise."""
+    ``paged_attention_ref``; CUDA tensors launch the kernels (split, then
+    combine) on the route ``plan`` picks, or raise."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, positions)
     if q.device.type != "cuda":
@@ -105,8 +163,10 @@ def paged_attention(q, k_pool, v_pool, page_table, positions):
                          f"or bfloat16, got {q.dtype}/{k_pool.dtype}/"
                          f"{v_pool.dtype}")
     nb = page_table.shape[1]
-    if tuple(page_table.shape) != (B, nb) or page_table.dtype != torch.int32:
-        raise ValueError("paged_attention: page_table must be [B, nb] int32")
+    if tuple(page_table.shape) != (B, nb) or page_table.dtype != torch.int32 \
+            or not nb:
+        raise ValueError("paged_attention: page_table must be [B, nb] int32 "
+                         "with nb > 0")
     pos = torch.as_tensor(positions, device=q.device)
     if pos.dim() == 0:
         pos = pos.expand(B)
@@ -119,20 +179,29 @@ def paged_attention(q, k_pool, v_pool, page_table, positions):
                              f"q on {q.device}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged_attention: the page pools must be contiguous")
+    if D > MAX_D:
+        raise ValueError(f"paged_attention: no kernel takes D {D} > {MAX_D}")
     qs = prescale_q(q[:, :, 0, :]).contiguous()
     table = page_table.contiguous()
     pos = pos.contiguous()
     out = torch.empty((B, Hq, D), dtype=v_pool.dtype, device=q.device)
     if B:
+        pl = plan(Hq, Hkv, ps, nb, D, q.element_size(),
+                  (qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()))
+        ws = torch.empty((B, Hq, pl.n_splits, D + 2), dtype=torch.float32,
+                         device=q.device)
         lib = _build.load("paged_decode", _SIGNATURES)
         err = lib.paged_decode(
             qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(), B, Hq, Hkv, ps,
-            nb, D, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            table.data_ptr(), pos.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, ps, nb, D, pl.pages_per_split, pl.tile, pl.heads,
+            int(pl.route == "vector"), _DTYPE_CODE[q.dtype],
+            torch._C._cuda_getCurrentRawStream(q.device.index))
         _build.check(err, "paged_decode")
         paged_attention.launches += 1
+        paged_attention.route_launches[pl.route] += 1
     return out[:, :, None, :]
 
 
 paged_attention.launches = 0
+paged_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -169,6 +169,174 @@ def test_paged_kernel_matches_plain(cuda, dtype, rep):
     assert _err(got, K.paged_attention_ref(*args)) <= TOL[dtype]
 
 
+def _paged_case(cuda, dtype, Hkv, rep, D, ps, nb, positions, seed=0):
+    """q, pools of B * nb + 1 pages, a table and positions: slot b's live
+    pages are distinct random pool pages and the rest of its row is -1; a
+    slot at position 0 has an all-sentinel row (an empty slot)."""
+    rng = np.random.default_rng(seed)
+    B = len(positions)
+    P = B * nb + 1
+    kp, vp = (torch.from_numpy(rng.standard_normal((P, Hkv, ps, D)))
+              .to(dtype).to(cuda) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * rep, 1, D))) \
+        .to(dtype).to(cuda)
+    return (q, kp, vp) + _paged_table(cuda, rng, P, ps, nb, positions)
+
+
+def _paged_table(cuda, rng, P, ps, nb, positions):
+    perm = rng.permutation(P - 1) + 1
+    table = np.full((len(positions), nb), -1, np.int32)
+    used = 0
+    for b, p in enumerate(positions):
+        n = min(p // ps + 1, nb) if p else 0
+        table[b, :n] = perm[used:used + n]
+        used += n
+    return (torch.from_numpy(table).to(cuda),
+            torch.tensor(positions, dtype=torch.int32, device=cuda))
+
+
+def _paged_module():
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+
+
+def _paged_plan(cuda, args):
+    """The wrapper's launch plan for these inputs."""
+    q, kp, vp, table, _ = args
+    _, Hq, _, D = q.shape
+    _, Hkv, ps, _ = kp.shape
+    return _paged_module().plan(Hq, Hkv, ps, table.shape[1], D,
+                                q.element_size(),
+                                (kp.data_ptr(), vp.data_ptr()))
+
+
+def _check_paged(args, route):
+    """One launch on ``route``, within ``TOL`` of the plain version."""
+    before = (K.paged_attention.launches,
+              K.paged_attention.route_launches[route])
+    got = K.paged_attention(*args)
+    assert (K.paged_attention.launches,
+            K.paged_attention.route_launches[route]) == \
+        (before[0] + 1, before[1] + 1)
+    want = K.paged_attention_ref(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert _err(got, want) <= TOL[got.dtype]
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_kernel_at_split_edges(cuda, dtype, rep, D, ps):
+    """Positions on either side of the second split's first token
+    (PPS * ps - 1, PPS * ps, PPS * ps + 1, with the splits of the serving
+    path: 64 tokens), one live page, a slot that fills its whole table and
+    an empty slot, on the vector route."""
+    nb = 384 // ps
+    edge = _paged_module().SPLIT_TOKENS
+    positions = [0, edge - 1, edge, edge + 1, ps - 1, nb * ps - 1]
+    args = _paged_case(cuda, dtype, 2, rep, D, ps, nb, positions)
+    plan = _paged_plan(cuda, args)
+    assert plan.route == "vector" and plan.pages_per_split * ps == edge
+    _check_paged(args, "vector")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,rep,route", [
+    (torch.bfloat16, 20, 4, "scalar"), (torch.float32, 18, 1, "scalar"),
+    (torch.bfloat16, 80, 2, "vector"), (torch.float32, 256, 4, "vector"),
+    (torch.bfloat16, 256, 8, "vector"), (torch.bfloat16, 320, 2, "scalar"),
+    (torch.float32, 64, 12, "vector"), (torch.bfloat16, 128, 3, "vector")])
+def test_paged_kernel_other_widths(cuda, dtype, D, rep, route):
+    """Heads off the vector route (bf16 D 20, fp32 D 18, D > 256), a
+    vector row of 10 chunks (bf16 D 80), two chunks a lane (fp32 D 256),
+    and rep 12 (two head tiles) and 3 (a partly empty tile)."""
+    args = _paged_case(cuda, dtype, 2, rep, D, 16, 12,
+                       [0, 5, 16, 100, 191, 47])
+    assert _paged_plan(cuda, args).route == route
+    _check_paged(args, route)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_unaligned_pools_take_the_scalar_route(cuda, dtype):
+    """Pools that start 4 bytes past a 16-byte boundary cannot be read in
+    16-byte copies: the same values take the scalar route."""
+    args = _paged_case(cuda, dtype, 2, 4, 128, 16, 8, [0, 17, 127, 64])
+    moved = []
+    for pool in args[1:3]:
+        buf = torch.empty(pool.numel() + 2, dtype=dtype, device=cuda)
+        view = buf[4 // pool.element_size():][:pool.numel()].view_as(pool)
+        view.copy_(pool)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        moved.append(view)
+    got = _check_paged((args[0], *moved, *args[3:]), "scalar")
+    assert _err(got, K.paged_attention(*args)) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 33])
+def test_paged_kernel_batch_sizes(cuda, dtype, B):
+    """One slot at the last token of a 128-page table (the long-context
+    decode), and 33 slots at random positions with an empty one."""
+    nb, ps = (128, 16) if B == 1 else (32, 16)
+    rng = np.random.default_rng(B)
+    positions = [nb * ps - 1] if B == 1 else \
+        [0] + rng.integers(1, nb * ps, B - 1).tolist()
+    _check_paged(_paged_case(cuda, dtype, 4, 2, 128, ps, nb, positions),
+                 "vector")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic(cuda, dtype):
+    """Splits merged in a fixed order, no atomics: two calls agree to the
+    bit, and with the plain version."""
+    args = _paged_case(cuda, dtype, 4, 4, 128, 16, 64,
+                       [1023, 700, 0, 333, 64, 1000, 129, 511])
+    assert _paged_plan(cuda, args).n_splits > 1
+    first = _check_paged(args, "vector")
+    assert torch.equal(first, K.paged_attention(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """The launch shape depends on static shapes only and the wrapper reads
+    nothing on the host: a captured call, replayed after q, the positions
+    and the table are rewritten in place, equals the eager call on the new
+    values."""
+    nb, ps = 64, 16
+    args = _paged_case(cuda, dtype, 4, 2, 128, ps, nb,
+                       [0, 17, 1023, 300, 64, 5])
+    q, kp, vp, table, pos = args
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        K.paged_attention(*args)  # builds and loads before the capture
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.paged_attention(*args)
+    rng = np.random.default_rng(7)
+    new_table, new_pos = _paged_table(cuda, rng, kp.shape[0], ps, nb,
+                                      [900, 0, 15, 16, 1023, 511])
+    table.copy_(new_table)
+    pos.copy_(new_pos)
+    q.copy_(torch.from_numpy(rng.standard_normal(tuple(q.shape)))
+            .to(dtype))
+    graph.replay()
+    torch.cuda.synchronize(cuda)
+    want = K.paged_attention(*args)
+    assert torch.equal(out, want)
+    assert _err(out, K.paged_attention_ref(*args)) <= TOL[dtype]
+
+
 @pytest.mark.gpu
 def test_engine_on_card_matches_cpu(cuda):
     """The same fp32 weights serve greedy requests on the card (kernels)

@@ -274,18 +274,80 @@ def _paged_inputs(rep, seed=0, B=3, Hkv=2, ps=4, nb=3, D=8):
     return q, kp, vp, table, pos
 
 
+def _paged_inputs_at_hopper_tiling(rep, seed=0, Hkv=2, ps=16, nb=8, D=128):
+    """The card's tiling: ps 16, D 128, and positions on and next to page
+    edges (15, 16, 17) and the card's split edge (63, 64, 65: a split is
+    4 pages of 16 tokens), a full table (127) and an empty slot."""
+    rng = np.random.default_rng(seed)
+    pos = np.array([0, 15, 16, 17, 63, 64, 65, 127], np.int32)
+    B = len(pos)
+    P = B * nb + 1
+    kp = rng.standard_normal((P, Hkv, ps, D)).astype(np.float32)
+    vp = rng.standard_normal((P, Hkv, ps, D)).astype(np.float32)
+    table = np.full((B, nb), -1, np.int32)
+    perm = rng.permutation(P - 1) + 1
+    used = 0
+    for b, p in enumerate(pos):
+        n = int(p) // ps + 1 if p else 0
+        table[b, :n] = perm[used:used + n]
+        used += n
+    q = rng.standard_normal((B, Hkv * rep, 1, D)).astype(np.float32)
+    return q, kp, vp, table, pos
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rep", [1, 2])
-def test_paged_ref_matches_pallas(rep, dtype):
-    q, kp, vp, table, pos = _paged_inputs(rep)
+@pytest.mark.parametrize("rep,tiling", [
+    pytest.param(1, None, id="1"), pytest.param(2, None, id="2"),
+    pytest.param(1, "hopper", id="hopper-rep1"),
+    pytest.param(4, "hopper", id="hopper-rep4")])
+def test_paged_ref_matches_pallas(rep, tiling, dtype):
+    """The plain version against the Pallas kernel in interpret mode, at a
+    tiny shape and at the widths and page size the card runs."""
+    make = _paged_inputs if tiling is None else _paged_inputs_at_hopper_tiling
+    q, kp, vp, table, pos = make(rep)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, kp, vp))
     want = j_paged(jq, jk, jv, jnp.asarray(table), jnp.asarray(pos),
                    interpret=True)
     got = K.paged_attention(tq, tk, tv, torch.from_numpy(table),
                             torch.from_numpy(pos))
-    assert got.shape == (3, 2 * rep, 1, 8) and got.dtype == tv.dtype
+    assert got.shape == q.shape and got.dtype == tv.dtype
     assert torch.isfinite(got).all()  # the empty slot reads trash page 0
     assert _max_err(want, got) <= TOL[dtype]
+
+
+def test_paged_routes_and_plan():
+    """The vector route takes heads of whole 16-byte chunks up to D 256
+    with 16-byte aligned pools and q, the scalar route the rest. The plan
+    comes from static shapes alone: 64 tokens a split (at least one page,
+    at most the table); up to 8 query heads a block on the vector route
+    (rep 12: two head tiles), one on the scalar route; a ring stage holds
+    at most 8 KB of K."""
+    import importlib
+
+    PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+    for D, itemsize, ptrs, want in [
+            (128, 2, (0, 4096, 512), "vector"), (64, 4, (16,), "vector"),
+            (80, 2, (0,), "vector"), (256, 4, (0,), "vector"),
+            (20, 2, (0,), "scalar"), (18, 4, (0,), "scalar"),
+            (320, 2, (0,), "scalar"), (128, 2, (0, 4), "scalar"),
+            (128, 4, (8, 0), "scalar")]:
+        assert PA.route(D, itemsize, ptrs) == want, (D, itemsize, ptrs)
+    for shape, want in [
+            # (Hq, Hkv, ps, nb, D, itemsize): route, heads, pps, splits,
+            # tile. The slice (H 16/16, D 128, ps 16, nb 128, bf16)
+            ((16, 16, 16, 128, 128, 2), ("vector", 1, 4, 32, 16)),
+            # the GQA serving config (H 16/4, D 64, nb 64)
+            ((16, 4, 16, 64, 64, 2), ("vector", 4, 4, 16, 16)),
+            # pages of 8 tokens: 8 a split
+            ((16, 16, 8, 256, 128, 2), ("vector", 1, 8, 32, 8)),
+            # rep 12 in two head tiles; fp32 D 256 in 8-token stages
+            ((24, 2, 32, 12, 256, 4), ("vector", 8, 2, 6, 8)),
+            ((8, 2, 16, 32, 20, 2), ("scalar", 1, 4, 8, 16)),
+            # pages of 128 tokens: one page a split, 32-token stages
+            ((16, 16, 128, 4, 128, 2), ("vector", 1, 1, 4, 32)),
+            # a table shorter than a split: one split of the whole table
+            ((16, 16, 16, 2, 128, 2), ("vector", 1, 2, 1, 16))]:
+        assert tuple(PA.plan(*shape, (0,))) == want, shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
