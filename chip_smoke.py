@@ -34,10 +34,21 @@ Phases, each of which exits non-zero on failure:
    profiler does not see fails the run; others print "not seen");
 4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
    weights from the seed) behind ``Engine.generate``, 16 greedy requests
-   through 8 slots, with each kernel's launch count over that run (every
+   through 8 slots, the decode step a CUDA graph captured once (by a
+   warm-up request) and replayed: from the counts' reset, the warm-up
+   and the 16 requests under the profiler, each wrapper's launch count
+   (eager launches, the capture's warm-up run and the capture; every
    flash forward on the bf16 route, wgmma; every paged decode on the
-   vector route); then the device time of a decode step and a prefill
-   beside their host clock, with the paged decode's share;
+   vector route) and each kernel's launches on the card by the
+   profiler's events, which must equal the wrappers' eager launches in
+   the 16 requests plus the graph replays' (2L + 1 LayerNorms and L
+   paged decodes a replay); then the 16 requests again without the
+   profiler for tokens/s, TTFT and TPOT p50; [4b]: the device time of a
+   decode step and a prefill beside their host clock, with the paged
+   decode's share, and the decode step alone on the same buffers as a
+   graph replay and as its eager function; [4c]: [4]'s requests again,
+   each decode replay followed by the eager step on the same buffers,
+   whose greedy tokens must be identical at every step;
 5. serving vs plain: at full width and depth 2 in fp32, the same weights
    serve 3 greedy prompts on the card (every flash forward on the fp32
    route, the CUDA cores) and on the CPU (plain versions);
@@ -72,7 +83,21 @@ Phases, each of which exits non-zero on failure:
    (held to the plain versions), ``nn.functional.rms_norm``, ``incubate``
    ``fused_rms_norm`` and the two primitive factories on the 1.3B's
    hidden states at batch 16 x 2048, with each kernel's launch count over
-   that run.
+   that run;
+11. prefix cache and speculative decoding at full width (run after 4):
+   GPT-3 1.3B (bf16) behind ``Engine(prefix_cache=True, speculative=3)``,
+   16 greedy requests sharing a 512-token prefix with distinct 64-256
+   token suffixes (half a repeated 32-token phrase), 64 new tokens each:
+   prefix hits (at least 15), the drafts' acceptance, one capture of the
+   verify step, tokens/s, TTFT and TPOT p50, each wrapper's launches, and
+   the kernels 4 verify replays run on the card by the profiler's events
+   (2L + 1 LayerNorms each, nothing else of the port's); the
+   page pool all free after ``prefix_cache.clear()``; the token agreement
+   with the plain engine, reported;
+12. prefix and speculative vs plain (run after 5): [11]'s traffic at full
+   width and depth 2 in fp32 on the card (verify step captured) and on
+   the CPU (plain versions): tokens must match each other and the plain
+   engine's on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -540,12 +565,15 @@ def norm_checks(K, gen, rows):
 
     # -- every route and edge: R 1, 3, 8 (decode), 231, 32768 (training)
     #    rows by H 7, 100, 768, 2048, 2050 in both dtypes, and the serving
-    #    slice's leading shapes; one forward and one backward launch per
-    #    call on the expected route (warp: H a multiple of the 16-byte
+    #    slices' leading shapes (decode [8, 1], prefill [1, 1024], the
+    #    verify step's [8, k+1] = [8, 4] rows, the prefix hits' suffix
+    #    buckets [1, 64 / 128 / 256]); one forward and one backward launch
+    #    per call on the expected route (warp: H a multiple of the 16-byte
     #    vector and at most 2048; else block)
-    shapes = [(R, Hc) for R in (1, 3, 8, 231, 32768)
+    shapes = [(R, Hc) for R in (1, 3, 8, 32, 231, 32768)
               for Hc in (7, 100, 768, 2048, 2050)] + [
-        (8, 1, H), (1, 1024, H), (3, 77, H)]
+        (8, 1, H), (1, 1024, H), (3, 77, H), (8, 4, H), (1, 64, H),
+        (1, 128, H), (1, 256, H)]
     for norm, (fwd, bwd, fwd_ref, bwd_ref, eps) in norms.items():
         for dtype in (f32, bf16):
             dn = str(dtype).split(".")[1]
@@ -1027,9 +1055,10 @@ def primitive_checks(P, ops, gen, rows):
 
 
 # --------------------------------------------------------------- phase 4b
-def profile_kernels(fn):
+def profile_launches(fn):
     """Run ``fn`` under ``torch.profiler``; returns [(kernel name, device
-    seconds)] summed by name, largest first."""
+    seconds, launches)] summed by name, largest time first. A kernel a
+    CUDA graph replay runs is an event of its own, as an eager launch is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1038,10 +1067,23 @@ def profile_kernels(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total * 1e-6)
+    kernels = [(e.key, e.self_device_time_total * 1e-6, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     return sorted(kernels, key=lambda kv: -kv[1])
+
+
+def profile_kernels(fn):
+    """Run ``fn`` under ``torch.profiler``; returns [(kernel name, device
+    seconds)] summed by name, largest first."""
+    return [(name, t) for name, t, _ in profile_launches(fn)]
+
+
+def launches_of(kernels, symbols):
+    """{symbol: launches} of the kernels named ``*symbol*`` in ``kernels``
+    (as ``profile_launches`` returns them)."""
+    return {sym: sum(n for name, _, n in kernels if sym in name)
+            for sym in symbols}
 
 
 def device_busy(fn, top: int = 6):
@@ -1051,40 +1093,81 @@ def device_busy(fn, top: int = 6):
     return sum(t for _, t in kernels), kernels[:top]
 
 
+def p50(values) -> float:
+    return sorted(values)[len(values) // 2]
+
+
+def request_latencies(reqs):
+    """(TTFT p50, TPOT p50) in ms of finished requests, by the host clock."""
+    return (p50([r.first_token_time - r.arrival_time for r in reqs]) * 1e3,
+            p50([(r.finish_time - r.first_token_time)
+                 / max(r.num_generated - 1, 1) for r in reqs]) * 1e3)
+
+
+def host_and_busy(fn, steps: int):
+    """(host clock ms, device busy ms, the kernels) per step of ``fn``, which
+    runs ``steps`` steps: the host clock around a first run that ends in a
+    synchronisation, the profiler's kernel time over a second."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = profile_kernels(fn)
+    return wall, sum(t for _, t in kernels) / steps * 1e3, kernels
+
+
 def where_time_goes(model, eng, prompts, SamplingParams):
-    """Host-clock time of 8 decode steps with all 8 slots live, and of one
-    1024-token prefill, beside the device busy time the profiler reads
-    for the same work; the difference is the device's idle share."""
-    for p in prompts[1::2][:8]:
-        eng.add_request(p, SamplingParams(max_new_tokens=30))
+    """Host-clock time of 8 engine steps with all 8 slots live (each a
+    replay of the captured decode step), beside the device busy time the
+    profiler reads for the same work; the difference is the device's idle
+    share. Then the decode step alone on the same buffers: the graph's
+    replay against its eager function. Then one 1024-token prefill."""
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=30))
+            for p in prompts[1::2][:8]]
     eng.step()  # admit all 8 + one decode step
+    ttft = p50([r.first_token_time - r.arrival_time for r in reqs]) * 1e3
     steps = 8
 
     def decode():
         for _ in range(steps):
             eng.step()
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps
-    kernels = profile_kernels(decode)
-    busy = sum(t for _, t in kernels) / steps
+    wall, busy, kernels = host_and_busy(decode, steps)
     paged = {name: kernel_ms(kernels, sym, steps)
              for name, sym in PAGED_SYMBOLS.items()}
-    print(f"[4b] decode step (8 live slots): {wall * 1e3:.2f} ms host clock, "
-          f"device busy {busy * 1e3:.2f} ms, idle share "
-          f"{1 - busy / wall:.3f}", flush=True)
+    # each step emits one token per live slot: its host clock is the TPOT
+    print(f"[4b] decode step (8 live slots, graph replay): {wall:.2f} ms host "
+          f"clock (the TPOT), device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {8 / wall * 1e3:.1f} tokens/s; the 8 "
+          f"admissions' TTFT p50 {ttft:.1f} ms", flush=True)
     check(None not in paged.values(), f"[4b]: the profiler did not see "
           f"{' and '.join(PAGED_SYMBOLS.values())}: {paged}")
     print(f"     paged decode {sum(paged.values()):.3f} ms/step ({paged}), "
-          f"{sum(paged.values()) / (busy * 1e3):.3f} of device busy",
-          flush=True)
+          f"{sum(paged.values()) / busy:.3f} of device busy", flush=True)
     for name, t in kernels[:6]:
         print(f"     {t / steps * 1e3:8.3f} ms/step  {name[:90]}", flush=True)
+    step = eng.steps["decode"]
+
+    def eager():
+        for _ in range(steps):
+            step.fn()[0].cpu()
+
+    def replayed():
+        for _ in range(steps):
+            step.replay()
+            step.outputs[0].cpu()
+
+    # eager first: the replays then leave the graph's own K/V in place
+    for name, fn in (("eager step", eager), ("graph replay", replayed)):
+        wall, busy, _ = host_and_busy(fn, steps)
+        print(f"[4b] decode step alone on the same buffers, {name}: "
+              f"{wall:.2f} ms host clock, device busy {busy:.2f} ms, idle "
+              f"share {1 - busy / wall:.3f}", flush=True)
     while eng.has_unfinished:
         eng.step()
+    print(f"[4b] decode captures {step.captures}", flush=True)
+    check(step.captures == 1, f"[4b]: {step.captures} decode captures")
     ids = torch.tensor((prompts[1] * 4)[:1024], device="cuda")[None]
 
     def prefill():
@@ -1103,6 +1186,215 @@ def where_time_goes(model, eng, prompts, SamplingParams):
           f"{busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
     for name, t in top:
         print(f"     {t * 1e3:8.3f} ms  {name[:90]}", flush=True)
+
+
+# --------------------------------------------------------------- phase 4c
+def graph_vs_eager(model, prompts, sp, want_outs):
+    """[4]'s requests through a new engine whose decode step, after each
+    replay, also runs its eager function on the same buffers: the sampled
+    (greedy) tokens must be identical at every step; the logits' largest
+    difference is reported. A second replay then puts the graph's own K/V
+    back, so the engine goes on along the graph's path."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    eng = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=2048),
+                 device="cuda")
+    step = eng.step_program("decode")
+    graph_run = step.run
+    seen = {"steps": 0, "differ": 0, "logits": 0.0}
+
+    def run(**host):
+        out = graph_run(**host)
+        g_tok, g_logits = out[0].clone(), out[1].clone()
+        e_tok, e_logits = step.fn()
+        seen["steps"] += 1
+        seen["differ"] += int(not torch.equal(g_tok, e_tok))
+        seen["logits"] = max(seen["logits"], max_err(g_logits, e_logits))
+        step.replay()
+        return out
+
+    step.run = run
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, sp)
+    print(f"[4c] decode graph vs its eager step on the same buffers, "
+          f"{len(prompts)} requests: {seen['steps']} steps, "
+          f"{seen['differ']} with differing tokens, logits max_abs_err "
+          f"{seen['logits']:.3e} (reported; bitwise equal: "
+          f"{seen['logits'] == 0.0}); outputs equal [4]'s: "
+          f"{outs == want_outs}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(seen["steps"] > 0 and seen["differ"] == 0,
+          f"[4c]: the graph's tokens differ from the eager step's at "
+          f"{seen['differ']} of {seen['steps']} steps")
+    check(step.captures == 1, f"[4c]: {step.captures} decode captures")
+
+
+# ------------------------------------------------------------ phases 11, 12
+def prefix_spec_prompts(vocab, rng):
+    """16 prompts: a 512-token shared prefix and a distinct suffix of 64-256
+    tokens, the even ones a repeated 32-token phrase (drafts match there),
+    the odd ones random."""
+    prefix = torch.randint(0, vocab, (512,), generator=rng).tolist()
+    prompts = []
+    for i in range(16):
+        n = int(torch.randint(64, 257, (1,), generator=rng))
+        if i % 2 == 0:
+            phrase = torch.randint(0, vocab, (32,), generator=rng).tolist()
+            suffix = (phrase * 8)[:n]
+        else:
+            suffix = torch.randint(0, vocab, (n,), generator=rng).tolist()
+        prompts.append(prefix + suffix)
+    return prompts
+
+
+def serve_prefix_spec(K, model, device, prompts, sp, what):
+    """The prefix-and-speculative engine (8 slots, page 16, verify k = 3)
+    serving ``prompts`` after a warm-up request that captures the verify
+    step; returns (engine, requests, seconds, launch counts)."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    eng = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                     page_size=16, prefix_cache=True,
+                                     speculative=3), device=device)
+    eng.generate([list(range(1, 65))], SamplingParams(max_new_tokens=4))
+    eng.spec_drafted = eng.spec_accepted = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, sp) for p in prompts]
+    while eng.has_unfinished:
+        eng.step()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    outs = [r.output_ids for r in reqs]
+    check(all(len(o) == sp.max_new_tokens for o in outs)
+          and all(0 <= t < model.cfg.vocab_size for o in outs for t in o),
+          f"{what}: a request did not generate {sp.max_new_tokens} tokens "
+          "in the vocabulary")
+    check(list(eng.steps) == ["verify"]
+          and eng.steps["verify"].captures == (device == "cuda"),
+          f"{what}: steps {list(eng.steps)}, verify captures "
+          f"{eng.steps['verify'].captures}")
+    return eng, reqs, wall, counts
+
+
+def pool_all_free(eng, what):
+    dropped = eng.prefix_cache.clear()
+    free, total = eng.page_alloc.num_free, eng.page_alloc.num_allocatable
+    print(f"    prefix_cache.clear() dropped {dropped} nodes: {free} of "
+          f"{total} pages free", flush=True)
+    check(free == total, f"{what}: the pool is not all free after clear()")
+
+
+def prefix_spec_slice(K, model, prompts):
+    """[11]: GPT-3 1.3B (bf16) behind the prefix-and-speculative engine, 16
+    greedy requests sharing a 512-token prefix, 64 new tokens each; prefix
+    hits, draft acceptance, one verify capture, throughput and latency,
+    each kernel's launches; the pool all free after the trie is cleared;
+    the token agreement with the plain engine, reported."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    sp = SamplingParams(max_new_tokens=64)
+    eng, reqs, wall, counts = serve_prefix_spec(K, model, "cuda", prompts,
+                                                sp, "[11]")
+    n_tok = sum(r.num_generated for r in reqs)
+    hits = sum(r.prefix_hit_blocks > 0 for r in reqs)
+    ttft, tpot = request_latencies(reqs)
+    print(f"[11] GPT-3 1.3B bf16, prefix cache + speculative k=3: "
+          f"{len(reqs)} requests (512-token shared prefix + suffixes "
+          f"{[len(p) - 512 for p in prompts]}), {n_tok} tokens in "
+          f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s", flush=True)
+    print(f"    prefix hits {hits} of {len(reqs)} (blocks "
+          f"{[r.prefix_hit_blocks for r in reqs]}); drafts accepted "
+          f"{eng.spec_accepted} of {eng.spec_drafted} = "
+          f"{eng.spec_accepted / max(eng.spec_drafted, 1):.3f}; verify "
+          f"captures {eng.steps['verify'].captures}", flush=True)
+    print(f"    TTFT p50 {ttft:.1f} ms, TPOT p50 {tpot:.2f} ms", flush=True)
+    step = eng.steps["verify"]
+    print(f"    wrapper launches in the run (the eager prefills and suffix "
+          f"extends; the {step.replays} verify replays call no wrapper): "
+          f"{counts}", flush=True)
+    check(hits >= 15, f"[11]: {hits} prefix hits of 16")
+
+    def verify():
+        for _ in range(4):
+            step.replay()
+            step.outputs[0].cpu()
+
+    # what a replay runs on the card: 2 LayerNorms a block and the final
+    # one, no flash forward and no paged decode (the verify step's
+    # attention is plain PyTorch)
+    L = model.cfg.num_layers
+    syms = (NORM_SYMBOLS["fwd"], FWD_SYMBOL, *PAGED_SYMBOLS.values())
+    per = launches_of(profile_launches(verify), syms)
+    want = dict.fromkeys(syms, 0)
+    want[NORM_SYMBOLS["fwd"]] = 4 * (2 * L + 1)
+    print(f"    kernel launches on the card in 4 verify replays (profiler): "
+          f"{per}", flush=True)
+    check(per == want, f"[11]: 4 verify replays launched {per}, not {want}")
+
+    # the step's device time depends on static shapes only, so replays on
+    # its last buffers time it
+    wall, busy, kernels = host_and_busy(verify, 4)
+    print(f"    verify step alone (graph replay): {wall:.2f} ms host clock, "
+          f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}",
+          flush=True)
+    for name, t in kernels[:6]:
+        print(f"     {t / 4 * 1e3:8.3f} ms/step  {name[:90]}", flush=True)
+    check(counts["fused_layer_norm"] > 0 and counts["flash_attention_fwd"] > 0,
+          f"[11]: a kernel of the path was never launched: {counts}")
+    check_flash_routes(K, "wgmma", "[11]")
+    outs = [r.output_ids for r in reqs]
+    pool_all_free(eng, "[11]")
+    del eng
+    plain = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=2048),
+                   device="cuda").generate(prompts, sp)
+    same = sum(a == b for o, q in zip(outs, plain) for a, b in zip(o, q))
+    print(f"    token agreement with the plain engine (bf16; reported, not "
+          f"checked): {same} of {n_tok} tokens, "
+          f"{sum(o == q for o, q in zip(outs, plain))} of {len(outs)} "
+          f"requests identical", flush=True)
+
+
+def prefix_spec_vs_plain(K, gpu_model, cpu_model, prompts):
+    """[12]: [11]'s traffic at full width and depth 2 in fp32: the
+    prefix-and-speculative engine on the card (its verify step captured)
+    and on the CPU (plain versions) give the same tokens, which are also
+    the plain engine's on the card."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    t0 = time.perf_counter()
+    sp = SamplingParams(max_new_tokens=64)
+    eng, reqs, _, counts = serve_prefix_spec(K, gpu_model, "cuda", prompts,
+                                             sp, "[12] card")
+    card = [r.output_ids for r in reqs]
+    hits = sum(r.prefix_hit_blocks > 0 for r in reqs)
+    accepted, drafted = eng.spec_accepted, eng.spec_drafted
+    routes = check_flash_routes(K, "cuda_cores", "[12]")
+    check(counts["fused_layer_norm"] > 0 and counts["flash_attention_fwd"] > 0,
+          f"[12]: a kernel of the path was never launched: {counts}")
+    pool_all_free(eng, "[12]")
+    del eng
+    _, reqs, cpu_s, _ = serve_prefix_spec(K, cpu_model, "cpu", prompts, sp,
+                                          "[12] CPU")
+    cpu = [r.output_ids for r in reqs]
+    plain = Engine(gpu_model, EngineConfig(max_batch_size=8,
+                                           max_seq_len=2048),
+                   device="cuda").generate(prompts, sp)
+    print(f"[12] depth-2 fp32 full width, prefix cache + speculative k=3: "
+          f"prefix hits {hits} of 16, drafts accepted {accepted} of "
+          f"{drafted}; flash forward by route on the card "
+          f"{routes['flash_attention_fwd']}; the CPU run {cpu_s:.1f} s",
+          flush=True)
+    print(f"    card == CPU (plain versions): {card == cpu}; card == the "
+          f"plain engine on the card: {card == plain}; first request "
+          f"{card[0][:12]}...", flush=True)
+    check(card == cpu, "[12]: tokens differ between the card and the CPU")
+    check(card == plain, "[12]: tokens differ from the plain engine's")
+    print(f"    phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1717,40 +2009,86 @@ def main() -> int:
           f"{eng.cache.nbytes / 2**30:.2f} GiB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = torch.Generator().manual_seed(args.seed)
-    eng.generate([torch.randint(0, cfg.vocab_size, (64,), generator=rng)
-                  .tolist()], SamplingParams(max_new_tokens=4))  # warm-up
+    warm = torch.randint(0, cfg.vocab_size, (64,), generator=rng).tolist()
     lengths = [128 if i % 2 == 0 else
                int(torch.randint(300, 701, (1,), generator=rng))
                for i in range(16)]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
                for n in lengths]
     sp = SamplingParams(max_new_tokens=32)
+
+    def serve():
+        reqs = [eng.add_request(p, sp) for p in prompts]
+        while eng.has_unfinished:
+            eng.step()
+        torch.cuda.synchronize()
+        return reqs
+
+    def check_outs(outs, what):
+        check(all(len(o) == 32 for o in outs),
+              f"{what}: a request did not generate 32 tokens")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+              f"{what}: token id out of range")
+
+    # the main path's run, from the counts' reset: a warm-up request (its
+    # first decode step captures the decode graph), then the 16 requests
+    # under the profiler. The wrappers count their launches (eager ones,
+    # the capture's warm-up run and the capture); the profiler's kernel
+    # events count what ran on the card, graph replays included, and are
+    # held to the wrappers' eager launches and the replays
+    K.reset_launch_counts()
+    eng.generate([warm], SamplingParams(max_new_tokens=4))
+    step = eng.steps["decode"]
+    eager0, replays0 = K.launch_counts(), step.replays
+    served = []
+    kernels = profile_launches(lambda: served.append(serve()))
+    counts = K.launch_counts()
+    replays = step.replays - replays0
+    check_outs([r.output_ids for r in served[0]], "[4]")
+    symbols = {"fused_layer_norm": (NORM_SYMBOLS["fwd"],),
+               "flash_attention_fwd": (FWD_SYMBOL,),
+               "paged_attention": tuple(PAGED_SYMBOLS.values())}
+    device = {k: launches_of(kernels, syms) for k, syms in symbols.items()}
+    eager = {k: counts[k] - eager0[k] for k in SERVING_KERNELS}
+    L = cfg.num_layers
+    # a decode step: 2 LayerNorms a block and the final one, one paged
+    # decode (split + combine) a block
+    want = {"fused_layer_norm": {NORM_SYMBOLS["fwd"]:
+                                 eager["fused_layer_norm"]
+                                 + (2 * L + 1) * replays},
+            "flash_attention_fwd": {FWD_SYMBOL:
+                                    eager["flash_attention_fwd"]},
+            "paged_attention": {sym: eager["paged_attention"] + L * replays
+                                for sym in PAGED_SYMBOLS.values()}}
+    print(f"    the main path's run: the warm-up request, then "
+          f"{len(prompts)} requests (prompt lengths {lengths}) under the "
+          f"profiler, {replays} decode graph replays", flush=True)
+    print(f"    wrapper launches over the run: {counts} (of them in the 16 "
+          f"requests, eager: {eager})", flush=True)
+    print(f"    kernel launches on the card in the 16 requests (profiler): "
+          f"{device}", flush=True)
+    check(replays > 0 and device == want,
+          f"[4]: the profiler's kernel launches {device} are not the "
+          f"eager launches plus the replays' ({replays} replays): {want}")
+
+    # the same requests again, without the profiler, for the clocks
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
     t0 = time.perf_counter()
-    reqs = [eng.add_request(p, sp) for p in prompts]
-    while eng.has_unfinished:
-        eng.step()
-    torch.cuda.synchronize()
+    reqs = serve()
     wall = time.perf_counter() - t0
-    counts = K.launch_counts()
     outs = [r.output_ids for r in reqs]
+    check_outs(outs, "[4] timed")
     n_tok = sum(len(o) for o in outs)
-    ttft = sorted(r.first_token_time - r.arrival_time for r in reqs)
-    tpot = sorted((r.finish_time - r.first_token_time)
-                  / (r.num_generated - 1) for r in reqs)
-    print(f"    served {len(reqs)} requests (prompt lengths {lengths}), "
-          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s",
-          flush=True)
-    print(f"    TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, TPOT p50 "
-          f"{tpot[len(tpot) // 2] * 1e3:.2f} ms, max memory allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"    kernel launches in the run: {counts}", flush=True)
-    check(all(len(o) == 32 for o in outs), "a request did not generate 32 "
-          "tokens")
-    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
-          "token id out of range")
+    ttft, tpot = request_latencies(reqs)
+    captures = {name: st.captures for name, st in eng.steps.items()}
+    print(f"    the 16 requests again: {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s; tokens equal the profiled run's: "
+          f"{outs == [r.output_ids for r in served[0]]}", flush=True)
+    print(f"    TTFT p50 {ttft:.1f} ms, TPOT p50 {tpot:.2f} ms, max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"captures per program {captures}", flush=True)
+    check(captures == {"decode": 1}, f"[4]: captures {captures}")
     check(all(counts[k] > 0 for k in SERVING_KERNELS),
           f"a kernel of the path was never launched: {counts}")
     routes = check_flash_routes(K, "wgmma", "[4]")
@@ -1761,11 +2099,22 @@ def main() -> int:
           f"[4]: a paged decode left the vector route: {paged_routes}")
     for name in SERVING_KERNELS:
         rows[name]["launches"] = counts[name]
+        rows[name]["device_launches"] = device[name]
     rows["flash_attention_fwd"]["route_launches"] = \
         routes["flash_attention_fwd"]
     rows["paged_attention"]["route_launches"] = paged_routes
     where_time_goes(model, eng, prompts, SamplingParams)
-    del model, eng
+    del eng
+    graph_vs_eager(model, prompts, sp, outs)
+    torch.cuda.empty_cache()
+
+    # ---- 11. prefix cache + speculative decoding at full width
+    t0 = time.perf_counter()
+    spec_prompts = prefix_spec_prompts(
+        cfg.vocab_size, torch.Generator().manual_seed(args.seed + 11))
+    prefix_spec_slice(K, model, spec_prompts)
+    print(f"    phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
     torch.cuda.empty_cache()
 
     # ---- 5. slice vs plain, fp32, depth 2
@@ -1817,6 +2166,9 @@ def main() -> int:
         check(err <= 1e-3 and int(lp[0].argmax()) == out_gpu[1][-1],
               f"prefill/decode disagree: {err}")
     print(f"    phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 12. prefix cache + speculative decoding vs plain, fp32, depth 2
+    prefix_spec_vs_plain(K, gpu_model, cpu_model, spec_prompts)
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
 

@@ -121,8 +121,8 @@ def decode_attend(q, k_cache, v_cache, positions):
         valid = key_pos <= pos
     else:
         valid = key_pos[None, None, None, :] <= pos[:, None, None, None]
-    s = torch.where(valid, s, torch.tensor(NEG_INF, device=q.device))
-    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    # a host scalar: no copy to the device, so a CUDA graph can capture it
+    probs = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()) \
         .to(v.dtype)
 

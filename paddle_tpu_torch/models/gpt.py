@@ -10,9 +10,10 @@ attends through the paged-decode kernel (``serving/kv_cache.py``).
 
 Ported: the training path (``forward`` with per-block recompute,
 ``loss`` and the chunked ``forward_with_loss``) and the serving protocol
-(``prefill_with_cache`` and ``decode_step`` over the paged KV layout). MoE,
-sharding, ``extend_step`` and the dense-cache ``generate`` belong to later
-slices.
+over the paged KV layout (``prefill_with_cache``, ``decode_step`` and the
+multi-token ``extend_step`` of prefix-cache suffix prefills and
+speculative verify). MoE, sharding, the dense KV cache and ``generate``
+belong to later slices (ROADMAP queue A items A1 and A5).
 """
 
 from __future__ import annotations
@@ -114,9 +115,11 @@ class GPTAttention(nn.Module):
                          return_kv):
         """Prefill (``return_kv=True``): causal attention over the padded
         prompt plus this layer's K/V in cache layout ``[B, H_kv, S, D]``.
-        Paged decode (``kv_cache=(k_pool, v_pool, page_table)``, ``S == 1``):
-        write the token's K/V into the pools in place at
-        ``cache_positions``, then attend the slot's live pages."""
+        Paged (``kv_cache=(k_pool, v_pool, page_table)``): write the ``S``
+        tokens' K/V into the pools in place, token ``t`` of row ``b`` at
+        ``cache_positions[b] + t``, then attend: one token through the
+        paged-decode kernel, several (``extend_step``) through
+        ``paged_extend_attend``."""
         from ..serving import kv_cache as _kvc
 
         q, k, v = self._split(qkv, B, S)
@@ -126,15 +129,17 @@ class GPTAttention(nn.Module):
             out = out.reshape(B, S, self.cfg.hidden_size)
             return (self.dropout(self.proj(out)),
                     (k.transpose(1, 2), v.transpose(1, 2)))
-        if len(kv_cache) != 3 or S != 1:
+        if len(kv_cache) != 3:
             raise NotImplementedError(
-                "only the paged single-token decode step is ported; the "
-                "dense cache and extend_step are ROADMAP queue A item 1/2")
+                "the dense (k, v) KV cache is not ported yet (ROADMAP queue "
+                "A item A1); pass paged (k_pool, v_pool, page_table) "
+                "triples")
         kc, vc, table = kv_cache
         _kvc.paged_write_kv(kc, k.transpose(1, 2), table, cache_positions)
         _kvc.paged_write_kv(vc, v.transpose(1, 2), table, cache_positions)
-        o = _kvc.paged_decode_attend(q.transpose(1, 2), kc, vc, table,
-                                     cache_positions)
+        attend = (_kvc.paged_decode_attend if S == 1
+                  else _kvc.paged_extend_attend)
+        o = attend(q.transpose(1, 2), kc, vc, table, cache_positions)
         out = o.transpose(1, 2).reshape(B, S, self.cfg.hidden_size)
         return self.dropout(self.proj(out)), (kc, vc)
 
@@ -348,3 +353,22 @@ class GPTForCausalLM(nn.Module):
         h, new = self.gpt(ids, position_ids=position_ids,
                           kv_caches=kv_caches, cache_positions=pos)
         return self._logits(h)[:, -1], new
+
+    def extend_step(self, tokens, kv_caches, positions):
+        """Multi-token cached step: ``tokens`` ``[B, T]`` ids, row ``b``'s
+        token ``t`` written at ``positions[b] + t`` (the speculative verify
+        block ``k+1`` wide, or a suffix prefill after a prefix-cache
+        splice), over paged ``kv_caches`` as ``decode_step`` takes them.
+        Returns ``(logits [B, T, V], per-layer (k_pool, v_pool))``: logits
+        at every position, so the caller reads the model's next-token
+        choice after each draft. Position ids clamp at the table edge."""
+        ids = tokens[:, None] if tokens.dim() == 1 else tokens
+        B, T = ids.shape
+        pos = torch.as_tensor(positions, device=ids.device).to(torch.int32)
+        if pos.dim() == 0:
+            pos = pos.expand(B)
+        qpos = pos.long()[:, None] + torch.arange(T, device=ids.device)
+        h, new = self.gpt(ids, position_ids=qpos.clamp(
+            0, self.cfg.max_seq_len - 1), kv_caches=kv_caches,
+            cache_positions=pos)
+        return self._logits(h), new

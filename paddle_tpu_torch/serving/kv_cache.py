@@ -7,8 +7,12 @@ the port writes into them in place on the device: ``paged_write_kv`` and
 the engine's prefill scatter update ``PagedKVCache.k``/``.v`` directly, and
 no second copy of a pool is ever live.
 
-The dense ``KVCache`` and ``extend_attend`` belong to a later slice
-(ROADMAP queue A).
+``extend_attend``/``paged_extend_attend`` are the multi-query attends of
+the suffix prefill after a prefix-cache splice and of the speculative
+verify step. As in the JAX package they run no kernel (its ragged kernel
+is single-query): a gather of the live table and two products.
+
+The dense ``KVCache`` belongs to a later slice (ROADMAP queue A item A1).
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, resolve_dtype
-from ..kernels.paged_attention import decode_attend, paged_attention, paged_gather
+from ..kernels.paged_attention import (NEG_INF, decode_attend,
+                                       paged_attention, paged_gather,
+                                       prescale_q)
 
 #: page-table entry marking an unallocated block. Device code never branches
 #: on it: lookups clamp sentinels to page 0, the reserved trash page the
@@ -28,7 +34,8 @@ from ..kernels.paged_attention import decode_attend, paged_attention, paged_gath
 PAGE_SENTINEL = -1
 
 __all__ = ["PAGE_SENTINEL", "paged_write_kv", "paged_gather", "decode_attend",
-           "paged_decode_attend", "PagedKVCache"]
+           "paged_decode_attend", "extend_attend", "paged_extend_attend",
+           "PagedKVCache"]
 
 
 def paged_write_kv(pool, new, page_table, positions):
@@ -38,18 +45,16 @@ def paged_write_kv(pool, new, page_table, positions):
     ``(positions[b]+t) % ps``. Sentinel entries clamp to the trash page
     (slots without a live request all write there, which is benign), and
     writes past the table's capacity ``num_blocks * ps`` go to the trash
-    page too. Returns ``pool``."""
+    page too: a verify step near the end of a sequence drafts past it.
+    One indexed write for all ``T`` tokens. Returns ``pool``."""
     ps = pool.shape[2]
     nb = page_table.shape[1]
-    pos = positions.long()
-    rows = torch.arange(new.shape[0], device=pool.device)
-    table = page_table.long()
-    for t in range(new.shape[2]):
-        p = pos + t
-        block = torch.clamp(p // ps, max=nb - 1)
-        pages = table[rows, block].clamp(min=0)
-        pages = torch.where(p < nb * ps, pages, torch.zeros_like(pages))
-        pool[pages, :, p % ps, :] = new[:, :, t, :].to(pool.dtype)
+    p = positions.long()[:, None] \
+        + torch.arange(new.shape[2], device=pool.device)    # [B, T]
+    block = torch.clamp(p // ps, max=nb - 1)
+    pages = torch.gather(page_table.long(), 1, block).clamp(min=0)
+    pages = torch.where(p < nb * ps, pages, 0)
+    pool[pages, :, p % ps, :] = new.transpose(1, 2).to(pool.dtype)
     return pool
 
 
@@ -60,13 +65,43 @@ def paged_decode_attend(q, k_pool, v_pool, page_table, positions):
     return paged_attention(q, k_pool, v_pool, page_table, positions)
 
 
+def extend_attend(q, k_cache, v_cache, positions):
+    """Multi-query cached attention: q ``[B, H_q, T, D]``, query ``t`` of
+    row ``b`` at position ``positions[b] + t``, attending to
+    ``key_pos <= positions[b] + t`` of dense caches ``[B, H_kv, S, D]``.
+    ``decode_attend``'s numerics (T = 1 reduces to it): q pre-scaled in its
+    own dtype, fp32 scores and softmax, output in v's dtype. The mask is a
+    ``masked_fill`` with a host scalar, so a CUDA graph can capture it."""
+    rep = q.shape[1] // k_cache.shape[1]
+    k = k_cache.repeat_interleave(rep, dim=1) if rep > 1 else k_cache
+    v = v_cache.repeat_interleave(rep, dim=1) if rep > 1 else v_cache
+    s = torch.einsum("bhqd,bhkd->bhqk", prescale_q(q).float(), k.float())
+    qpos = positions.long()[:, None] \
+        + torch.arange(q.shape[2], device=q.device)          # [B, T]
+    key_pos = torch.arange(k_cache.shape[2], device=q.device)
+    valid = key_pos[None, None, None, :] <= qpos[:, None, :, None]
+    probs = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1) \
+        .to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()) \
+        .to(v.dtype)
+
+
+def paged_extend_attend(q, k_pool, v_pool, page_table, positions):
+    """``extend_attend`` over block-paged pools: the dense view of each
+    slot's table (``paged_gather``), then the two products. Plain PyTorch
+    on every device, as in the JAX package."""
+    return extend_attend(q, paged_gather(k_pool, page_table),
+                         paged_gather(v_pool, page_table), positions)
+
+
 class PagedKVCache:
     """Block-paged K/V pools ``[L, num_pages, H_kv, page_size, D]`` on the
     device, plus the per-slot page table (host numpy) and slot bookkeeping.
 
-    The page table is host state: the allocator mutates it between steps
-    and ``table_device()`` ships a snapshot into each decode step. Page 0
-    is the trash page; a default-sized pool holds
+    The page table is host state: the allocator mutates it between steps,
+    and the engine copies it into its steps' static table buffer before
+    each one (``table_device()`` makes a fresh device copy). Page 0 is the
+    trash page; a default-sized pool holds
     ``B_max * S_max/page_size + 1`` pages.
     """
 
@@ -166,8 +201,10 @@ class PagedKVCache:
     def active_slots(self) -> int:
         return self.max_batch_size - len(self._free)
 
-    def layer_caches(self):
+    def layer_caches(self, table: Optional[torch.Tensor] = None):
         """Per-layer ``(k_pool, v_pool, page_table)`` triples — views into
-        the pools, so a decode step's writes land in them."""
-        table = self.table_device()
+        the pools, so a step's writes land in them. ``table`` is a device
+        table (``[B, num_blocks]`` int32); default ``table_device()``."""
+        if table is None:
+            table = self.table_device()
         return [(self.k[l], self.v[l], table) for l in range(self.num_layers)]

@@ -60,11 +60,11 @@ def sample_static(logits, generator, *, do_sample: bool, temperature: float,
 def sample_batched(logits, generator, temperatures, top_ks, greedy):
     """[B, V] logits -> [B] token ids with per-row parameter tensors:
     ``temperatures`` [B] f32, ``top_ks`` [B] int (0 = off), ``greedy`` [B]
-    bool. An all-greedy batch draws nothing from the generator."""
+    bool. As in the JAX decode program, every row is drawn and greedy rows
+    take their argmax by ``torch.where``: nothing is read on the host, so
+    a CUDA graph can capture the call, and each call advances the
+    generator whatever the batch holds."""
     lf = logits.float()
-    best = lf.argmax(dim=-1)
-    if bool(greedy.all()):
-        return best
     V = lf.shape[-1]
     scaled = lf / temperatures.float().clamp(min=1e-6)[:, None]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
@@ -73,4 +73,5 @@ def sample_batched(logits, generator, temperatures, top_ks, greedy):
     filter_on = (top_ks > 0) & (top_ks < V)
     filtered = torch.where(filter_on[:, None] & (scaled < kth),
                            torch.full_like(scaled, NEG_INF), scaled)
-    return torch.where(greedy, best, _categorical(filtered, generator))
+    return torch.where(greedy, lf.argmax(dim=-1),
+                       _categorical(filtered, generator))

@@ -38,6 +38,10 @@ class Request:
         self.state = QUEUED
         self.finish_reason: Optional[str] = None
         self.slot: Optional[int] = None
+        # prefix-cache and speculative-decoding bookkeeping
+        self.prefix_hit_blocks = 0
+        self.draft_tokens = 0
+        self.accepted_tokens = 0
         # host clocks: the engine sets them after work that ends in a
         # device synchronisation (the sampled token's copy to the host)
         self.arrival_time = time.perf_counter()

@@ -804,3 +804,147 @@ def test_scaled_step_skips_on_card(cuda):
     scaler.set_init_loss_scaling(2.0 ** 10)
     assert torch.isfinite(step(x, y))
     assert not all(torch.equal(p, p0[k]) for k, p in model.named_parameters())
+
+
+# ---------------- the serving engine's captured steps -----------------------
+def _serving_gpt(device, dtype=torch.float32, seed=0):
+    """A small GQA GPT whose weights (std 0.2) make greedy tokens vary."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=256, num_layers=2,
+                    num_heads=4, num_kv_heads=2, max_seq_len=64,
+                    initializer_range=0.2)
+    m = GPTForCausalLM(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    return m.to(device=device, dtype=dtype)
+
+
+def _shared_prefix_prompts(seed):
+    """Five prompts: a 16-token shared prefix and distinct suffixes, two of
+    them a repeated 4-token phrase, one prompt without the prefix."""
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(1, 128, 16).tolist()
+    phrase = rng.integers(1, 128, 4).tolist()
+    return [pre + rng.integers(1, 128, 5).tolist(), pre + phrase * 3,
+            rng.integers(1, 128, 11).tolist(),
+            pre + rng.integers(1, 128, 9).tolist(),
+            pre + phrase * 2 + rng.integers(1, 128, 2).tolist()]
+
+
+def _engine(model, device, **opts):
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    return Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64,
+                                      page_size=8, **opts), device=device,
+                  generator=torch.Generator(device=device).manual_seed(5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("program", ["decode", "verify"])
+def test_step_graph_replay_equals_the_eager_step(cuda, dtype, program):
+    """Mid-run, a replay of the engine's captured step and its eager
+    function on the same buffers: identical tokens, logits within TOL
+    (another GEMM algorithm under capture would change the summation
+    order only)."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    opts = dict(speculative=3) if program == "verify" else {}
+    eng = _engine(_serving_gpt(cuda, dtype), cuda, **opts)
+    for p in _shared_prefix_prompts(1)[:2]:
+        eng.add_request(p, SamplingParams(max_new_tokens=40))
+    for _ in range(3):
+        eng.step()
+    step = eng.steps[program]
+    assert step.captures == 1
+    step.replay()
+    g_tok, g_logits = (t.clone() for t in step.outputs)
+    e_tok, e_logits = step.fn()
+    assert torch.equal(g_tok, e_tok)
+    assert _err(g_logits, e_logits) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(prefix_cache=True),
+                                  dict(prefix_cache=True, speculative=3)])
+def test_one_capture_per_program_and_tokens_match_cpu(cuda, opts):
+    """Admissions, prefix splices, finishes, a forced copy-on-write and a
+    second generate: each program is captured once for the engine's
+    lifetime, the per-token kernels run inside it, and the greedy tokens
+    equal those of the CPU engine (plain versions) on the same weights."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts = _shared_prefix_prompts(2)
+    sp = SamplingParams(max_new_tokens=12)
+    program = "verify" if "speculative" in opts else "decode"
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = _engine(_serving_gpt(dev), dev, **opts)
+        K.reset_launch_counts()
+        first = eng.generate(prompts[:3], sp)
+        req = eng.add_request(prompts[3], SamplingParams(max_new_tokens=20))
+        eng.step()
+        assert req.prefix_hit_blocks == 2
+        shared = int(eng.cache.page_table[req.slot, 0])
+        assert eng._ensure_writable(req.slot, 0, owner="cow-test")
+        assert int(eng.cache.page_table[req.slot, 0]) != shared
+        while eng.has_unfinished:
+            eng.step()
+        outs[dev.type] = (first, req.output_ids,
+                          eng.generate(prompts[3:], sp))
+        if dev.type == "cuda":
+            assert list(eng.steps) == [program]
+            assert eng.steps[program].captures == 1
+            counts = K.launch_counts()
+            assert counts["fused_layer_norm"] > 0
+            assert counts["flash_attention_fwd"] > 0
+            if program == "decode":
+                assert counts["paged_attention"] > 0
+        eng.prefix_cache.clear()
+        assert eng.page_alloc.num_free == eng.page_alloc.num_allocatable
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.gpu
+def test_sampled_draws_repeat_across_engines_not_across_replays(cuda):
+    """Two engines on the same seed draw the same sampled tokens through
+    their graphs; consecutive replays of one graph on fixed buffers draw
+    new numbers from the registered generator."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts = _shared_prefix_prompts(3)[:3]
+    sps = [SamplingParams(max_new_tokens=10, do_sample=True,
+                          temperature=1.5, top_k=k) for k in (0, 20, 0)]
+    model = _serving_gpt(cuda)
+    runs = [_engine(model, cuda).generate(prompts, sps) for _ in range(2)]
+    assert runs[0] == runs[1]
+    eng = _engine(model, cuda)
+    eng.generate(prompts[:1], sps[:1])
+    step = eng.steps["decode"]
+    step.buffers.greedy.fill_(False)
+    step.buffers.temps.fill_(100.0)  # near uniform over 128 tokens
+    draws = []
+    for _ in range(8):
+        step.replay()
+        draws.append(tuple(step.outputs[0].tolist()))
+    assert len(set(draws)) > 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [{}, dict(speculative=2)])
+def test_load_weights_after_capture_serves_the_new_weights(cuda, opts):
+    """``load_weights`` copies into the parameters the captured graph
+    reads: the engine then serves what a fresh engine on the new weights
+    serves, with no second capture."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts = _shared_prefix_prompts(4)[:3]
+    sp = SamplingParams(max_new_tokens=8)
+    eng = _engine(_serving_gpt(cuda, seed=0), cuda, **opts)
+    before = eng.generate(prompts, sp)
+    new = _serving_gpt(cuda, seed=1)
+    want = _engine(new, cuda, **opts).generate(prompts, sp)
+    assert want != before
+    eng.load_weights(new.state_dict())
+    assert eng.generate(prompts, sp) == want
+    assert all(s.captures == 1 for s in eng.steps.values())

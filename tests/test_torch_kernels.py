@@ -381,6 +381,39 @@ def test_prescale_q_is_bitwise_the_old_arithmetic(monkeypatch, dtype, D):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attend_mask_is_bitwise_the_old_where(dtype):
+    """``decode_attend`` masks with ``masked_fill`` and a host scalar (no
+    copy to the device, so a CUDA graph can capture it): bitwise the old
+    ``torch.where`` against a 0-dim tensor, per-row and scalar positions."""
+    import importlib
+
+    PA = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((3, 4, 1, 32))).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((3, 2, 40, 32))).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((3, 2, 40, 32))).to(dtype)
+
+    def old(positions):
+        kk, vv = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", PA.prescale_q(q).float(),
+                         kk.float())
+        pos = torch.as_tensor(positions)
+        key_pos = torch.arange(40)
+        valid = key_pos <= pos if pos.dim() == 0 else \
+            key_pos[None, None, None, :] <= pos[:, None, None, None]
+        s = torch.where(valid, s, torch.tensor(PA.NEG_INF))
+        probs = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", probs.float(),
+                            vv.float()).to(v.dtype)
+
+    for positions in (torch.tensor([0, 17, 39], dtype=torch.int32),
+                      torch.tensor(21, dtype=torch.int32)):
+        got = PA.decode_attend(q, k, v, positions)
+        want = old(positions)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 def test_wrappers_reject_other_devices():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

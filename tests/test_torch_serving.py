@@ -192,8 +192,6 @@ def test_page_allocator_invariants():
 
 
 @pytest.mark.parametrize("kw", [dict(kv_layout="dense"),
-                                dict(prefix_cache=True),
-                                dict(speculative=4),
                                 dict(request_trace_dir="traces")])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
