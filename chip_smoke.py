@@ -34,21 +34,25 @@ Phases, each of which exits non-zero on failure:
    profiler does not see fails the run; others print "not seen");
 4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
    weights from the seed) behind ``Engine.generate``, 16 greedy requests
-   through 8 slots, the decode step a CUDA graph captured once (by a
-   warm-up request) and replayed: from the counts' reset, the warm-up
-   and the 16 requests under the profiler, each wrapper's launch count
-   (eager launches, the capture's warm-up run and the capture; every
-   flash forward on the bf16 route, wgmma; every paged decode on the
-   vector route) and each kernel's launches on the card by the
-   profiler's events, which must equal the wrappers' eager launches in
-   the 16 requests plus the graph replays' (2L + 1 LayerNorms and L
-   paged decodes a replay); then the 16 requests again without the
-   profiler for tokens/s, TTFT and TPOT p50; [4b]: the device time of a
-   decode step and a prefill beside their host clock, with the paged
-   decode's share, and the decode step alone on the same buffers as a
-   graph replay and as its eager function; [4c]: [4]'s requests again,
-   each decode replay followed by the eager step on the same buffers,
-   whose greedy tokens must be identical at every step;
+   through 8 slots, each prefill bucket's program and the decode step a
+   CUDA graph captured once (by warm-up requests, one per bucket) and
+   replayed: from the counts' reset, the warm-ups and the 16 requests
+   under the profiler, each wrapper's launch count (the captures' warm-up
+   runs and the captures; every flash forward on the bf16 route, wgmma;
+   every paged decode on the vector route), none of them eager in the 16
+   requests, and each kernel's launches on the card by the profiler's
+   events, which must equal the replays' (2L + 1 LayerNorms a decode or
+   prefill replay, L paged decodes a decode replay, L flash forwards a
+   prefill replay); the captures per program and the graphs' memory;
+   then the 16 requests again without the profiler for tokens/s, TTFT
+   and TPOT p50; [4b]: the device time of a decode step beside its host
+   clock, with the paged decode's share, the decode step alone on the
+   same buffers as a graph replay and as its eager function, and a
+   1024-token prefill's program the same way (and its forward alone,
+   eager), with the capture's cost; [4c]: [4]'s requests again, each
+   prefill replay followed by its eager call on the same buffers (logits
+   and the slot's written pages bitwise equal) and each decode replay by
+   the eager step (greedy tokens identical at every step);
 5. serving vs plain: at full width and depth 2 in fp32, the same weights
    serve 3 greedy prompts on the card (every flash forward on the fp32
    route, the CUDA cores) and on the CPU (plain versions);
@@ -87,9 +91,11 @@ Phases, each of which exits non-zero on failure:
 11. prefix cache and speculative decoding at full width (run after 4):
    GPT-3 1.3B (bf16) behind ``Engine(prefix_cache=True, speculative=3)``,
    16 greedy requests sharing a 512-token prefix with distinct 64-256
-   token suffixes (half a repeated 32-token phrase), 64 new tokens each:
-   prefix hits (at least 15), the drafts' acceptance, one capture of the
-   verify step, tokens/s, TTFT and TPOT p50, each wrapper's launches, and
+   token suffixes (half a repeated 32-token phrase), 64 new tokens each,
+   after a warm-up of the same lengths that captures every prefill and
+   extend program they use: prefix hits (at least 15), the drafts'
+   acceptance, one capture of each program, tokens/s, TTFT and TPOT p50,
+   each wrapper's launches, and
    the kernels 4 verify replays run on the card by the profiler's events
    (2L + 1 LayerNorms each, nothing else of the port's); the
    page pool all free after ``prefix_cache.clear()``; the token agreement
@@ -97,7 +103,24 @@ Phases, each of which exits non-zero on failure:
 12. prefix and speculative vs plain (run after 5): [11]'s traffic at full
    width and depth 2 in fp32 on the card (verify step captured) and on
    the CPU (plain versions): tokens must match each other and the plain
-   engine's on the card.
+   engine's on the card;
+13. ``GPTForCausalLM.generate`` at full width (run after 11): GPT-3 1.3B
+   (bf16), 8 prompts of 512 tokens, 64 new greedy tokens; the first call
+   captures the prefill and decode step, the second replays them
+   (tokens/s, and no new capture); the prefill's and decode step's host
+   clock against device busy, the dense ``decode_attend``'s share of the
+   step, the kernels a prefill and a decode replay run on the card by the
+   profiler (L flash forwards and 2L + 1 LayerNorms; 2L + 1 LayerNorms)
+   and a call's replays (1 and 63), the step's sampling against its
+   argmax alone, and the first tokens against the paged engine's (a
+   differing prompt must be a tie
+   within the two prefills' logit difference);
+14. the dense layout at full width: [4]'s requests through
+   ``Engine(kv_layout="dense")`` (tokens/s, TTFT and TPOT p50, one
+   capture per program, no paged decode, the decode step's host clock,
+   device busy and ``decode_attend``'s share); then (run after 12) at
+   depth 2 in fp32, the dense engine and ``generate`` on the card and on
+   the CPU: tokens must match.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -109,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import importlib
 import json
 import re
@@ -118,6 +142,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores,
@@ -181,6 +206,10 @@ BWD_SYMBOLS = {"dq": "flash_bwd_dq_sm90_kernel",
 SM90_LIBS = {"flash_fwd_sm90": (FWD_SYMBOL,),
              "flash_bwd_sm90": tuple(BWD_SYMBOLS.values())}
 FP32_FWD_SYMBOL = "flash_fwd_kernel"
+# the serving kernels' symbols on the card, by wrapper
+SERVING_SYMBOLS = {"fused_layer_norm": (NORM_SYMBOLS["fwd"],),
+                   "flash_attention_fwd": (FWD_SYMBOL,),
+                   "paged_attention": tuple(PAGED_SYMBOLS.values())}
 FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv")
 ALL_KERNELS = ("fused_layer_norm", "layer_norm_bwd", "flash_attention_fwd",
@@ -330,7 +359,9 @@ def kernel_checks(K, gen):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     # -- flash forward: the serving shapes (prefill B=1, H=16, D=128,
-    #    causal; a ragged S, GQA 16/4, D 64) on both routes (bf16 on the
+    #    causal; a ragged S, GQA 16/4, D 64; the engine's captured prefill
+    #    buckets S 128 and 512 and generate's B 8 S 512) on both routes
+    #    (bf16 on the
     #    tensor cores, fp32 on the CUDA cores); then, in bf16, the edges of
     #    the 64-row tiles (S 1, 63, 64, 65, 200), GQA 16/1 and D 64, q/k/v
     #    as the fused qkv projection's column slices read in place by TMA,
@@ -341,7 +372,9 @@ def kernel_checks(K, gen):
     FWD = K.flash_attention_fwd
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(1, 1024, 16, 16, 128, True), (1, 200, 16, 16, 128, True),
-             (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True)]
+             (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True),
+             (8, 512, 16, 16, 128, True), (1, 512, 16, 16, 128, True),
+             (1, 128, 16, 16, 128, True)]
     edges = [(1, 1, 16, 16, 128, True), (1, 63, 16, 16, 128, True),
              (1, 64, 16, 16, 128, False), (2, 65, 16, 16, 128, True),
              (1, 200, 16, 1, 128, True), (2, 65, 16, 4, 64, True),
@@ -567,13 +600,14 @@ def norm_checks(K, gen, rows):
     #    rows by H 7, 100, 768, 2048, 2050 in both dtypes, and the serving
     #    slices' leading shapes (decode [8, 1], prefill [1, 1024], the
     #    verify step's [8, k+1] = [8, 4] rows, the prefix hits' suffix
-    #    buckets [1, 64 / 128 / 256]); one forward and one backward launch
+    #    buckets [1, 64 / 128 / 256], the prefill bucket [1, 512] and
+    #    generate's prefill [8, 512]); one forward and one backward launch
     #    per call on the expected route (warp: H a multiple of the 16-byte
     #    vector and at most 2048; else block)
     shapes = [(R, Hc) for R in (1, 3, 8, 32, 231, 32768)
               for Hc in (7, 100, 768, 2048, 2050)] + [
         (8, 1, H), (1, 1024, H), (3, 77, H), (8, 4, H), (1, 64, H),
-        (1, 128, H), (1, 256, H)]
+        (1, 128, H), (1, 256, H), (1, 512, H), (8, 512, H)]
     for norm, (fwd, bwd, fwd_ref, bwd_ref, eps) in norms.items():
         for dtype in (f32, bf16):
             dn = str(dtype).split(".")[1]
@@ -1086,13 +1120,6 @@ def launches_of(kernels, symbols):
             for sym in symbols}
 
 
-def device_busy(fn, top: int = 6):
-    """(device busy seconds, the ``top`` kernels by device time) of ``fn``.
-    Busy is the sum of kernel times on the one stream the port uses."""
-    kernels = profile_kernels(fn)
-    return sum(t for _, t in kernels), kernels[:top]
-
-
 def p50(values) -> float:
     return sorted(values)[len(values) // 2]
 
@@ -1115,6 +1142,17 @@ def host_and_busy(fn, steps: int):
     wall = (time.perf_counter() - t0) / steps * 1e3
     kernels = profile_kernels(fn)
     return wall, sum(t for _, t in kernels) / steps * 1e3, kernels
+
+
+def graph_programs(eng):
+    """{program: (captures, replays, capture ms)} of an engine's programs."""
+    return {name: (st.captures, st.replays,
+                   round(st.capture_seconds * 1e3, 1))
+            for name, st in eng.steps.items()}
+
+
+def replays_of(eng):
+    return {name: st.replays for name, st in eng.steps.items()}
 
 
 def where_time_goes(model, eng, prompts, SamplingParams):
@@ -1168,24 +1206,41 @@ def where_time_goes(model, eng, prompts, SamplingParams):
         eng.step()
     print(f"[4b] decode captures {step.captures}", flush=True)
     check(step.captures == 1, f"[4b]: {step.captures} decode captures")
-    ids = torch.tensor((prompts[1] * 4)[:1024], device="cuda")[None]
+    # a 1024-token prefill through the engine's program for its bucket, on
+    # one set of host inputs (slot 0's row, all sentinels now: the writes
+    # land on the trash page): the graph's run (the host state copied in,
+    # one replay) against the eager function on the same buffers
+    pre = eng.step_program("prefill:1024")
+    host = dict(ids=np.asarray([(prompts[1] * 4)[:1024]]),
+                length=np.array([1024]), row=eng.cache.page_table[:1])
 
-    def prefill():
-        model.prefill_with_cache(ids, lengths=torch.tensor([1024],
-                                                           device="cuda"))
+    def graph_run():
+        pre.run(**host)
 
+    def eager_run():
+        pre.buffers.write(**host)
+        pre.fn()
+
+    for name, fn in (("graph replay", graph_run), ("eager call", eager_run)):
+        fn()
+        wall, busy, kernels = host_and_busy(fn, 1)
+        print(f"[4b] prefill T=1024, {name}: {wall:.2f} ms host clock, "
+              f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}",
+              flush=True)
+        for kname, t in kernels[:6]:
+            print(f"     {t * 1e3:8.3f} ms  {kname[:90]}", flush=True)
+    ids = torch.from_numpy(host["ids"]).cuda()
     with torch.no_grad():
-        prefill()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        busy, top = device_busy(prefill)
-    print(f"[4b] prefill T=1024: {wall * 1e3:.2f} ms host clock, device busy "
-          f"{busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
-    for name, t in top:
-        print(f"     {t * 1e3:8.3f} ms  {name[:90]}", flush=True)
+        wall, busy, _ = host_and_busy(
+            lambda: model.prefill_with_cache(
+                ids, lengths=torch.tensor([1024], device="cuda")), 1)
+    print(f"[4b] prefill T=1024, the forward alone without the page writes, "
+          f"eager: {wall:.2f} ms host clock, device busy "
+          f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+    print(f"[4b] prefill:1024 captured {pre.captures} time(s); the capture "
+          f"with its warm-up run took {pre.capture_seconds * 1e3:.1f} ms of "
+          f"host clock", flush=True)
+    check(pre.captures == 1, f"[4b]: {pre.captures} prefill:1024 captures")
 
 
 # --------------------------------------------------------------- phase 4c
@@ -1214,8 +1269,26 @@ def graph_vs_eager(model, prompts, sp, want_outs):
         return out
 
     step.run = run
+    pre = {"runs": 0, "differ": 0}
+    make = eng.step_program
+
+    def step_program(name):
+        st = make(name)
+        if name.startswith("prefill:") and "run" not in vars(st):
+            st.run = functools.partial(prefill_vs_eager, eng, st,
+                                       int(name.split(":")[1]), st.run, pre)
+        return st
+
+    eng.step_program = step_program
     t0 = time.perf_counter()
     outs = eng.generate(prompts, sp)
+    print(f"[4c] prefill graphs vs their eager calls on the same buffers: "
+          f"{pre['runs']} prefills, {pre['differ']} with logits or written "
+          f"pages not bitwise equal; programs {graph_programs(eng)}",
+          flush=True)
+    check(pre["runs"] == len(prompts) and pre["differ"] == 0,
+          f"[4c]: prefill graph and eager differ at {pre['differ']} of "
+          f"{pre['runs']} prefills")
     print(f"[4c] decode graph vs its eager step on the same buffers, "
           f"{len(prompts)} requests: {seen['steps']} steps, "
           f"{seen['differ']} with differing tokens, logits max_abs_err "
@@ -1229,15 +1302,85 @@ def graph_vs_eager(model, prompts, sp, want_outs):
     check(step.captures == 1, f"[4c]: {step.captures} decode captures")
 
 
+def prefill_vs_eager(eng, step, T, graph_run, seen, **host):
+    """A prefill program's run, then its eager function on the same
+    buffers: the logits and the slot's pages the prompt was written to
+    must be bitwise equal (``seen`` counts runs and differences). The
+    trash page, where the bucket's blocks past the slot's pages all write
+    in no set order, is not compared. A second replay puts the graph's
+    own values back."""
+    out = graph_run(**host)
+    ps = eng.cache.page_size
+    row = host["row"][0, :(T + ps - 1) // ps]
+    pages = torch.from_numpy(row[row > 0].astype(np.int64)).cuda()
+    g = (out[0].clone(), eng.cache.k[:, pages].clone(),
+         eng.cache.v[:, pages].clone())
+    e = (step.fn()[0], eng.cache.k[:, pages], eng.cache.v[:, pages])
+    seen["runs"] += 1
+    seen["differ"] += int(not all(map(torch.equal, g, e)))
+    step.replay()
+    return out
+
+
+def graph_memory(model, eng_cfg):
+    """[4d]: the memory an engine's graphs reserve with every bucket's
+    prefill and extend program captured (paged, prefix cache on, [4]'s
+    envelope), all in the one pool the engine shares among its programs,
+    and for comparison each in a private pool of its own. The bucket
+    programs run on slot 0's row, all sentinels: their writes land on the
+    trash page. Engines kept by reference cycles ([4c]'s) are collected
+    first: freeing their graphs during a capture would release memory
+    inside the measurement."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    seen = {}
+    for kind in ("shared", "private"):
+        eng = Engine(model, EngineConfig(
+            max_batch_size=eng_cfg.max_batch_size,
+            max_seq_len=eng_cfg.max_seq_len, prefix_cache=True),
+            device="cuda")
+        if kind == "private":
+            eng._graph_pool = None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        for T in eng.config.prefill_buckets:
+            for prog in ("prefill", "extend"):
+                eng.step_program(f"{prog}:{T}").run(
+                    ids=np.zeros((1, T), np.int64), length=np.array([T]),
+                    row=eng.cache.page_table[:1],
+                    start=np.array([0], np.int32))
+        torch.cuda.synchronize()
+        seen[kind] = (torch.cuda.memory_reserved() - mem0) / 2**30
+        pools = {st.pool for st in eng.steps.values()}
+        print(f"[4d] every bucket's prefill and extend captured "
+              f"({len(eng.steps)} programs, buckets "
+              f"{list(eng.config.prefill_buckets)}), {kind} pool"
+              f"{'' if kind == 'shared' else 's'}: memory reserved +"
+              f"{seen[kind]:.3f} GiB, captures {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
+        check(all(st.captures == 1 for st in eng.steps.values())
+              and pools == {eng._graph_pool},
+              f"[4d] {kind}: captures or pools wrong ({pools})")
+        del eng
+    torch.cuda.empty_cache()
+    check(seen["shared"] <= seen["private"],
+          f"[4d]: the shared pool reserved more than private ones: {seen}")
+
+
 # ------------------------------------------------------------ phases 11, 12
-def prefix_spec_prompts(vocab, rng):
+def prefix_spec_prompts(vocab, rng, suffix_lengths=None):
     """16 prompts: a 512-token shared prefix and a distinct suffix of 64-256
-    tokens, the even ones a repeated 32-token phrase (drafts match there),
-    the odd ones random."""
+    tokens (or of ``suffix_lengths``), the even ones a repeated 32-token
+    phrase (drafts match there), the odd ones random."""
     prefix = torch.randint(0, vocab, (512,), generator=rng).tolist()
     prompts = []
     for i in range(16):
         n = int(torch.randint(64, 257, (1,), generator=rng))
+        if suffix_lengths is not None:
+            n = suffix_lengths[i]
         if i % 2 == 0:
             phrase = torch.randint(0, vocab, (32,), generator=rng).tolist()
             suffix = (phrase * 8)[:n]
@@ -1247,20 +1390,26 @@ def prefix_spec_prompts(vocab, rng):
     return prompts
 
 
-def serve_prefix_spec(K, model, device, prompts, sp, what):
+def serve_prefix_spec(K, model, device, prompts, sp, what, warm=()):
     """The prefix-and-speculative engine (8 slots, page 16, verify k = 3)
     serving ``prompts`` after a warm-up request that captures the verify
-    step; returns (engine, requests, seconds, launch counts)."""
+    step (and, with ``warm``, those prompts served first, which capture
+    the prefill and extend programs ``prompts`` use; the trie is cleared
+    after them); returns (engine, requests, seconds of ``prompts``,
+    launch counts from the warm-up on)."""
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
     eng = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=2048,
                                      page_size=16, prefix_cache=True,
                                      speculative=3), device=device)
+    K.reset_launch_counts()
     eng.generate([list(range(1, 65))], SamplingParams(max_new_tokens=4))
+    if warm:
+        eng.generate(list(warm), sp)
+        eng.prefix_cache.clear()
     eng.spec_drafted = eng.spec_accepted = 0
     if device == "cuda":
         torch.cuda.synchronize()
-    K.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = [eng.add_request(p, sp) for p in prompts]
     while eng.has_unfinished:
@@ -1274,10 +1423,11 @@ def serve_prefix_spec(K, model, device, prompts, sp, what):
           and all(0 <= t < model.cfg.vocab_size for o in outs for t in o),
           f"{what}: a request did not generate {sp.max_new_tokens} tokens "
           "in the vocabulary")
-    check(list(eng.steps) == ["verify"]
-          and eng.steps["verify"].captures == (device == "cuda"),
-          f"{what}: steps {list(eng.steps)}, verify captures "
-          f"{eng.steps['verify'].captures}")
+    kinds = {name.split(":")[0] for name in eng.steps}
+    check("verify" in eng.steps and kinds <= {"verify", "prefill", "extend"}
+          and all(st.captures == (device == "cuda")
+                  for st in eng.steps.values()),
+          f"{what}: programs {graph_programs(eng)}")
     return eng, reqs, wall, counts
 
 
@@ -1298,8 +1448,14 @@ def prefix_spec_slice(K, model, prompts):
     from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 
     sp = SamplingParams(max_new_tokens=64)
+    # the warm-up: prompts of the same lengths, other tokens (another
+    # shared prefix), so the timed run replays every program it uses
+    warm = prefix_spec_prompts(model.cfg.vocab_size,
+                               torch.Generator().manual_seed(len(prompts)),
+                               [len(p) - 512 for p in prompts])
+    mem0 = torch.cuda.memory_reserved()
     eng, reqs, wall, counts = serve_prefix_spec(K, model, "cuda", prompts,
-                                                sp, "[11]")
+                                                sp, "[11]", warm)
     n_tok = sum(r.num_generated for r in reqs)
     hits = sum(r.prefix_hit_blocks > 0 for r in reqs)
     ttft, tpot = request_latencies(reqs)
@@ -1314,9 +1470,12 @@ def prefix_spec_slice(K, model, prompts):
           f"captures {eng.steps['verify'].captures}", flush=True)
     print(f"    TTFT p50 {ttft:.1f} ms, TPOT p50 {tpot:.2f} ms", flush=True)
     step = eng.steps["verify"]
-    print(f"    wrapper launches in the run (the eager prefills and suffix "
-          f"extends; the {step.replays} verify replays call no wrapper): "
-          f"{counts}", flush=True)
+    print(f"    programs (captures, replays, capture ms), all captured in "
+          f"the warm-up: {graph_programs(eng)}; memory reserved "
+          f"{mem0 / 2**30:.2f} -> {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB", flush=True)
+    print(f"    wrapper launches from the warm-up on (the captures; replays "
+          f"call no wrapper): {counts}", flush=True)
     check(hits >= 15, f"[11]: {hits} prefix hits of 16")
 
     def verify():
@@ -1395,6 +1554,271 @@ def prefix_spec_vs_plain(K, gpu_model, cpu_model, prompts):
     check(card == cpu, "[12]: tokens differ between the card and the CPU")
     check(card == plain, "[12]: tokens differ from the plain engine's")
     print(f"    phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------------------------------------ phases 13, 14
+def attend_share(cache, positions, step_busy_ms):
+    """Device ms of the dense ``decode_attend`` over one layer's slice of
+    ``cache`` at ``positions``, times the layers, and its share of a step
+    of ``step_busy_ms``."""
+    from paddle_tpu_torch.serving import decode_attend
+
+    L, B, Hkv, _, D = cache.k.shape
+    q = torch.randn(B, Hkv, 1, D, device="cuda").to(cache.k.dtype)
+
+    def attend():
+        for _ in range(L):
+            decode_attend(q, cache.k[0], cache.v[0], positions)
+
+    _, busy, _ = host_and_busy(attend, 1)
+    return busy, busy / step_busy_ms
+
+
+def replay_clock(step, n: int = 8):
+    """(host clock ms, device busy ms, kernels) per replay of ``step`` on
+    its buffers as they are."""
+    def replays():
+        for _ in range(n):
+            step.replay()
+
+    return host_and_busy(replays, n)
+
+
+def generate_slice(K, model, rows, seed):
+    """[13]: GPT-3 1.3B (bf16) through ``GPTForCausalLM.generate``: 8
+    prompts of 512 tokens, 64 new greedy tokens. The first call captures
+    the prefill and the decode step, later calls replay them; tokens/s of
+    the second, the prefill and decode step's host clock against device
+    busy, ``decode_attend``'s share of the step, the kernels a prefill
+    and a decode replay run on the card by the profiler (24 flash
+    forwards and 49 LayerNorms; 49 LayerNorms) and a call's replays (1
+    and 63), and the first tokens against the paged engine's."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    t_phase = time.perf_counter()
+    cfg, L, new = model.cfg, model.cfg.num_layers, 64
+    ids = torch.randint(0, cfg.vocab_size, (8, 512),
+                        generator=torch.Generator().manual_seed(seed + 13))
+    ids = ids.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    state = model._generate_state
+    r0 = (state.prefill.replays, state.decode.replays)
+    t0 = time.perf_counter()
+    again = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = (state.prefill.replays - r0[0], state.decode.replays - r0[1])
+    check(out.shape == (8, 512 + new) and torch.equal(out[:, :512], ids)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"[13]: generate returned {tuple(out.shape)} or ids out of range")
+    check(torch.equal(out, again), "[13]: a replayed generate differs from "
+          "the captured one")
+    print(f"[13] GPT-3 1.3B bf16 GPTForCausalLM.generate, 8 prompts x 512 "
+          f"tokens, {new} new greedy: first call (captures) {first_s:.3f} s, "
+          f"second (replays) {wall:.3f} s = {8 * new / wall:.1f} tokens/s; "
+          f"dense caches {state.cache.nbytes / 2**30:.2f} GiB, memory "
+          f"reserved {mem0 / 2**30:.2f} -> "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+    print(f"    captures: prefill {state.prefill.captures} "
+          f"({state.prefill.capture_seconds * 1e3:.1f} ms with its warm-up "
+          f"run), decode {state.decode.captures} "
+          f"({state.decode.capture_seconds * 1e3:.1f} ms); wrapper launches "
+          f"in the first call: {counts}", flush=True)
+    check(state.prefill.captures == 1 and state.decode.captures == 1
+          and model._generate_state is state,
+          "[13]: the second call with the same key captured again")
+    check(counts["fused_layer_norm"] > 0 and counts["flash_attention_fwd"] > 0,
+          f"[13]: a kernel of the path was never launched: {counts}")
+    check_flash_routes(K, "wgmma", "[13]")
+    for name in ("fused_layer_norm", "flash_attention_fwd"):
+        rows[name]["launches_generate"] = counts[name]
+    # what a call runs on the card: its replays (the programs' counters over
+    # the second call) times what a replay runs (the profiler's kernel
+    # events over replays of each program). A whole call under the
+    # profiler, ~45k kernel events, once came back short of what its
+    # graphs hold (3030 LayerNorms, not a multiple of 49)
+    syms = (NORM_SYMBOLS["fwd"], FWD_SYMBOL, *PAGED_SYMBOLS.values())
+    per_replay = {"prefill": (state.prefill, 1, {NORM_SYMBOLS["fwd"]:
+                                                2 * L + 1, FWD_SYMBOL: L}),
+                  "decode step": (state.decode, 8,
+                                  {NORM_SYMBOLS["fwd"]: 2 * L + 1})}
+    for what, (step, n, each) in per_replay.items():
+        w, busy, kernels = replay_clock(step, n)
+        got = launches_of(profile_launches(
+            lambda: [step.replay() for _ in range(n)]), syms)
+        print(f"    {what} alone (graph replay): {w:.2f} ms host clock, "
+              f"device busy {busy:.2f} ms, idle share {1 - busy / w:.3f}; "
+              f"kernel launches on the card in {n} replay(s) (profiler): "
+              f"{got}", flush=True)
+        for kname, t in kernels[:5]:
+            print(f"     {t / n * 1e3:8.3f} ms  {kname[:90]}", flush=True)
+        want = {sym: n * each.get(sym, 0) for sym in syms}
+        check(got == want, f"[13]: {n} {what} replay(s) launched {got}, "
+              f"not {want}")
+    print(f"    a call: {calls[0]} prefill and {calls[1]} decode step "
+          f"replays, so {L * calls[0]} flash forwards and "
+          f"{(2 * L + 1) * sum(calls)} LayerNorms on the card", flush=True)
+    check(calls == (1, new - 1), f"[13]: a call replayed {calls}")
+    attend, share = attend_share(state.cache, state.decode.buffers.positions,
+                                 busy)
+    print(f"    dense decode_attend, {L} layers over [8, 16, {512 + new}, "
+          f"128]: {attend:.3f} ms device busy, {share:.3f} of the decode "
+          f"step", flush=True)
+    # the step's sampling (the engine's decode program's: a draw for the
+    # greedy rows too) against the argmax alone, on the step's last logits
+    from paddle_tpu_torch.serving.sampling import sample_batched
+
+    bufs, logits = state.decode.buffers, state.decode.outputs[1]
+    draw = host_and_busy(lambda: [sample_batched(
+        logits, state.generator, bufs.temps, bufs.top_ks, bufs.greedy)
+        for _ in range(8)], 8)[1]
+    argmax = host_and_busy(lambda: [logits.float().argmax(dim=-1)
+                                    for _ in range(8)], 8)[1]
+    print(f"    the step's sampling over [8, {cfg.vocab_size}]: "
+          f"{draw:.4f} ms device busy, the argmax alone {argmax:.4f} ms",
+          flush=True)
+    # the first token against the paged engine's on the same prompts; a
+    # prompt whose two best logits lie within the two prefills' logit
+    # difference (B 8 against B 1 GEMMs, bf16) is a tie, reported
+    first = out[:, 512].tolist()
+    eng = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=2048),
+                 device="cuda")
+    paged = [o[0] for o in eng.generate(ids.tolist(),
+                                        SamplingParams(max_new_tokens=1))]
+    del eng
+    with torch.no_grad():
+        ref = torch.cat([model.prefill_with_cache(ids[b:b + 1])[0]
+                         for b in range(8)]).float()
+    err = max_err(state.prefill.outputs[0], ref)
+    top2 = ref.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    ties = [b for b in range(8) if first[b] != paged[b]]
+    print(f"    first tokens: generate {first}, paged engine {paged}; "
+          f"prefill logits max_abs_err {err:.3e}; differing prompts {ties} "
+          f"(top-2 gaps there {[round(gaps[b], 4) for b in ties]})",
+          flush=True)
+    check(all(gaps[b] <= 2 * err for b in ties),
+          f"[13]: first tokens differ from the paged engine's at {ties} "
+          f"beyond a tie")
+    model._generate_state = None  # the caches and graphs go
+    torch.cuda.empty_cache()
+    print(f"    phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def dense_engine_slice(K, model, prompts, lengths, sp, paged_outs, rows):
+    """[14]: [4]'s requests through the dense ``Engine`` (8 slots, S_max
+    2048): warm-up requests capture each bucket's prefill and the decode
+    step, then the 16 requests for tokens/s, TTFT and TPOT p50; the
+    decode step's host clock against device busy and ``decode_attend``'s
+    share of it; the token agreement with the paged engine, reported."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    t_phase = time.perf_counter()
+    eng = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                     kv_layout="dense"), device="cuda")
+    buckets = sorted({eng._bucket(n) for n in [64] + lengths})
+    warm = prompts[0][:64]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    eng.generate([warm * (T // 64) for T in buckets],
+                 SamplingParams(max_new_tokens=4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, sp) for p in prompts]
+    while eng.has_unfinished:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    outs = [r.output_ids for r in reqs]
+    check(all(len(o) == sp.max_new_tokens for o in outs)
+          and all(0 <= t < model.cfg.vocab_size for o in outs for t in o),
+          "[14]: a request did not generate its tokens in the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    ttft, tpot = request_latencies(reqs)
+    print(f"[14] GPT-3 1.3B bf16, dense Engine (B 8, S_max 2048, KV "
+          f"{eng.cache.nbytes / 2**30:.2f} GiB), [4]'s 16 requests: {n_tok} "
+          f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; TTFT p50 "
+          f"{ttft:.1f} ms, TPOT p50 {tpot:.2f} ms", flush=True)
+    print(f"    programs (captures, replays, capture ms): "
+          f"{graph_programs(eng)}; wrapper launches from the warm-up on: "
+          f"{counts}", flush=True)
+    check(set(graph_programs(eng)) == {"decode",
+                                       *(f"prefill:{T}" for T in buckets)}
+          and all(st.captures == 1 for st in eng.steps.values()),
+          f"[14]: programs {graph_programs(eng)}")
+    check(counts["fused_layer_norm"] > 0 and counts["flash_attention_fwd"] > 0
+          and counts["paged_attention"] == 0,
+          f"[14]: the dense path's launches {counts}")
+    for name in ("fused_layer_norm", "flash_attention_fwd"):
+        rows[name]["launches_dense"] = counts[name]
+    same = sum(a == b for o, q in zip(outs, paged_outs) for a, b in zip(o, q))
+    print(f"    token agreement with the paged engine ([4], bf16; reported, "
+          f"not checked): {same} of {n_tok} tokens, "
+          f"{sum(o == q for o, q in zip(outs, paged_outs))} of {len(outs)} "
+          f"requests identical", flush=True)
+    step = eng.steps["decode"]
+    w, busy, kernels = replay_clock(step)
+    per = launches_of(profile_launches(lambda: step.replay()),
+                      (NORM_SYMBOLS["fwd"], FWD_SYMBOL,
+                       *PAGED_SYMBOLS.values()))
+    attend, share = attend_share(eng.cache, step.buffers.positions, busy)
+    print(f"    dense decode step alone (graph replay): {w:.2f} ms host "
+          f"clock, device busy {busy:.2f} ms, idle share {1 - busy / w:.3f}; "
+          f"decode_attend {attend:.3f} ms, {share:.3f} of it; a replay "
+          f"launched {per}", flush=True)
+    for kname, t in kernels[:5]:
+        print(f"     {t / 8 * 1e3:8.3f} ms  {kname[:90]}", flush=True)
+    check(per[NORM_SYMBOLS["fwd"]] == 2 * model.cfg.num_layers + 1
+          and sum(per.values()) == per[NORM_SYMBOLS["fwd"]],
+          f"[14]: a dense decode replay launched {per}")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"    phase 14 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def dense_vs_plain(K, gpu_model, cpu_model, rng):
+    """[14], depth 2 fp32 at full width: ``generate`` and the dense engine
+    on the card (every flash forward on the CUDA cores) and on the CPU
+    (plain versions) give identical tokens."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    t0 = time.perf_counter()
+    V = cpu_model.cfg.vocab_size
+    prompts = [torch.randint(0, V, (n,), generator=rng).tolist()
+               for n in (17, 100, 45)]
+    ids = torch.randint(0, V, (2, 100), generator=rng)
+    sp = SamplingParams(max_new_tokens=8)
+    cfg = EngineConfig(max_batch_size=2, max_seq_len=2048, kv_layout="dense")
+    K.reset_launch_counts()
+    card = (Engine(gpu_model, cfg, device="cuda").generate(prompts, sp),
+            gpu_model.generate(ids.cuda(), max_new_tokens=8).cpu())
+    counts = K.launch_counts()
+    routes = check_flash_routes(K, "cuda_cores", "[14] fp32")
+    cpu = (Engine(cpu_model, cfg, device="cpu").generate(prompts, sp),
+           cpu_model.generate(ids, max_new_tokens=8))
+    print(f"[14] depth-2 fp32 full width: dense engine card {card[0]}, CPU "
+          f"{cpu[0]}; generate card == CPU: {torch.equal(card[1], cpu[1])} "
+          f"({card[1][:, 100:].tolist()}); flash forward by route "
+          f"{routes['flash_attention_fwd']}; {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    check(counts["fused_layer_norm"] > 0 and counts["flash_attention_fwd"] > 0,
+          f"[14] fp32: a kernel of the path was never launched: {counts}")
+    check(card[0] == cpu[0], "[14]: the dense engine's tokens differ between "
+          "the card and the CPU")
+    check(torch.equal(card[1], cpu[1]), "[14]: generate's tokens differ "
+          "between the card and the CPU")
+    gpu_model._generate_state = cpu_model._generate_state = None
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2030,46 +2454,54 @@ def main() -> int:
         check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
               f"{what}: token id out of range")
 
-    # the main path's run, from the counts' reset: a warm-up request (its
-    # first decode step captures the decode graph), then the 16 requests
-    # under the profiler. The wrappers count their launches (eager ones,
-    # the capture's warm-up run and the capture); the profiler's kernel
-    # events count what ran on the card, graph replays included, and are
-    # held to the wrappers' eager launches and the replays
+    # the main path's run, from the counts' reset: one warm-up request per
+    # prefill bucket of the 16 prompts and the 64-token one (each captures
+    # its bucket's prefill program, the first also the decode step), then
+    # the 16 requests under the profiler. The wrappers count their
+    # launches (eager ones, a capture's warm-up run and the capture); the
+    # profiler's kernel events count what ran on the card, graph replays
+    # included, and are held to the wrappers' eager launches (none: every
+    # program is a replay by then) and the replays
     K.reset_launch_counts()
-    eng.generate([warm], SamplingParams(max_new_tokens=4))
-    step = eng.steps["decode"]
-    eager0, replays0 = K.launch_counts(), step.replays
+    buckets = sorted({eng._bucket(n) for n in [len(warm)] + lengths})
+    mem0 = torch.cuda.memory_reserved()
+    eng.generate([warm * (T // len(warm)) for T in buckets],
+                 SamplingParams(max_new_tokens=4))
+    torch.cuda.synchronize()
+    print(f"    warm-up requests of {buckets} tokens: graph programs "
+          f"{graph_programs(eng)}; memory reserved {mem0 / 2**30:.2f} -> "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+    eager0, replays0 = K.launch_counts(), replays_of(eng)
     served = []
     kernels = profile_launches(lambda: served.append(serve()))
     counts = K.launch_counts()
-    replays = step.replays - replays0
+    replays = {k: n - replays0.get(k, 0) for k, n in replays_of(eng).items()}
     check_outs([r.output_ids for r in served[0]], "[4]")
-    symbols = {"fused_layer_norm": (NORM_SYMBOLS["fwd"],),
-               "flash_attention_fwd": (FWD_SYMBOL,),
-               "paged_attention": tuple(PAGED_SYMBOLS.values())}
-    device = {k: launches_of(kernels, syms) for k, syms in symbols.items()}
+    device = {k: launches_of(kernels, syms)
+              for k, syms in SERVING_SYMBOLS.items()}
     eager = {k: counts[k] - eager0[k] for k in SERVING_KERNELS}
     L = cfg.num_layers
+    n_dec = replays["decode"]
+    n_pre = sum(n for k, n in replays.items() if k.startswith("prefill:"))
     # a decode step: 2 LayerNorms a block and the final one, one paged
-    # decode (split + combine) a block
+    # decode (split + combine) a block; a prefill: the same LayerNorms and
+    # one flash forward a block
     want = {"fused_layer_norm": {NORM_SYMBOLS["fwd"]:
-                                 eager["fused_layer_norm"]
-                                 + (2 * L + 1) * replays},
-            "flash_attention_fwd": {FWD_SYMBOL:
-                                    eager["flash_attention_fwd"]},
-            "paged_attention": {sym: eager["paged_attention"] + L * replays
+                                 (2 * L + 1) * (n_dec + n_pre)},
+            "flash_attention_fwd": {FWD_SYMBOL: L * n_pre},
+            "paged_attention": {sym: L * n_dec
                                 for sym in PAGED_SYMBOLS.values()}}
-    print(f"    the main path's run: the warm-up request, then "
+    print(f"    the main path's run: the warm-up requests, then "
           f"{len(prompts)} requests (prompt lengths {lengths}) under the "
-          f"profiler, {replays} decode graph replays", flush=True)
+          f"profiler: replays {replays}", flush=True)
     print(f"    wrapper launches over the run: {counts} (of them in the 16 "
           f"requests, eager: {eager})", flush=True)
     print(f"    kernel launches on the card in the 16 requests (profiler): "
           f"{device}", flush=True)
-    check(replays > 0 and device == want,
+    check(n_dec > 0 and n_pre == len(prompts)
+          and not any(eager.values()) and device == want,
           f"[4]: the profiler's kernel launches {device} are not the "
-          f"eager launches plus the replays' ({replays} replays): {want}")
+          f"replays' ({replays}) {want}, or a kernel ran eagerly: {eager}")
 
     # the same requests again, without the profiler, for the clocks
     torch.cuda.synchronize()
@@ -2088,7 +2520,8 @@ def main() -> int:
     print(f"    TTFT p50 {ttft:.1f} ms, TPOT p50 {tpot:.2f} ms, max memory "
           f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"captures per program {captures}", flush=True)
-    check(captures == {"decode": 1}, f"[4]: captures {captures}")
+    check(set(captures) == {"decode", *(f"prefill:{T}" for T in buckets)}
+          and set(captures.values()) == {1}, f"[4]: captures {captures}")
     check(all(counts[k] > 0 for k in SERVING_KERNELS),
           f"a kernel of the path was never launched: {counts}")
     routes = check_flash_routes(K, "wgmma", "[4]")
@@ -2107,6 +2540,7 @@ def main() -> int:
     del eng
     graph_vs_eager(model, prompts, sp, outs)
     torch.cuda.empty_cache()
+    graph_memory(model, eng_cfg)
 
     # ---- 11. prefix cache + speculative decoding at full width
     t0 = time.perf_counter()
@@ -2114,6 +2548,10 @@ def main() -> int:
         cfg.vocab_size, torch.Generator().manual_seed(args.seed + 11))
     prefix_spec_slice(K, model, spec_prompts)
     print(f"    phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 13. GPTForCausalLM.generate; 14. the dense engine, at full width
+    generate_slice(K, model, rows, args.seed)
+    dense_engine_slice(K, model, prompts, lengths, sp, outs, rows)
     del model
     torch.cuda.empty_cache()
 
@@ -2169,6 +2607,7 @@ def main() -> int:
 
     # ---- 12. prefix cache + speculative decoding vs plain, fp32, depth 2
     prefix_spec_vs_plain(K, gpu_model, cpu_model, spec_prompts)
+    dense_vs_plain(K, gpu_model, cpu_model, rng)
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
 

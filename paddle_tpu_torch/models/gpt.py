@@ -6,14 +6,16 @@ Module and parameter names match the JAX package's, and weights keep its
 ``paddle_tpu`` parameter dict name for name. Attention runs through
 ``nn.functional.scaled_dot_product_attention`` (the flash kernel) and
 LayerNorm through the fused LayerNorm kernel; the serving decode step
-attends through the paged-decode kernel (``serving/kv_cache.py``).
+attends through the paged-decode kernel over the paged KV layout, and
+through the plain ``decode_attend`` over the dense one
+(``serving/kv_cache.py``).
 
 Ported: the training path (``forward`` with per-block recompute,
-``loss`` and the chunked ``forward_with_loss``) and the serving protocol
-over the paged KV layout (``prefill_with_cache``, ``decode_step`` and the
-multi-token ``extend_step`` of prefix-cache suffix prefills and
-speculative verify). MoE, sharding, the dense KV cache and ``generate``
-belong to later slices (ROADMAP queue A items A1 and A5).
+``loss`` and the chunked ``forward_with_loss``), the serving protocol over
+both KV layouts (``prefill_with_cache``, ``decode_step``, and on the paged
+layout the multi-token ``extend_step`` of prefix-cache suffix prefills and
+speculative verify) and ``generate``. MoE and sharding belong to a later
+slice (ROADMAP queue A item A5).
 """
 
 from __future__ import annotations
@@ -119,7 +121,10 @@ class GPTAttention(nn.Module):
         tokens' K/V into the pools in place, token ``t`` of row ``b`` at
         ``cache_positions[b] + t``, then attend: one token through the
         paged-decode kernel, several (``extend_step``) through
-        ``paged_extend_attend``."""
+        ``paged_extend_attend``. Dense (``kv_cache=(k, v)``, each
+        ``[B, H_kv, S_max, D]``): write the one token at
+        ``cache_positions``, then ``decode_attend`` over all ``S_max``
+        positions, masked to the valid prefix."""
         from ..serving import kv_cache as _kvc
 
         q, k, v = self._split(qkv, B, S)
@@ -129,17 +134,26 @@ class GPTAttention(nn.Module):
             out = out.reshape(B, S, self.cfg.hidden_size)
             return (self.dropout(self.proj(out)),
                     (k.transpose(1, 2), v.transpose(1, 2)))
-        if len(kv_cache) != 3:
-            raise NotImplementedError(
-                "the dense (k, v) KV cache is not ported yet (ROADMAP queue "
-                "A item A1); pass paged (k_pool, v_pool, page_table) "
-                "triples")
-        kc, vc, table = kv_cache
-        _kvc.paged_write_kv(kc, k.transpose(1, 2), table, cache_positions)
-        _kvc.paged_write_kv(vc, v.transpose(1, 2), table, cache_positions)
-        attend = (_kvc.paged_decode_attend if S == 1
-                  else _kvc.paged_extend_attend)
-        o = attend(q.transpose(1, 2), kc, vc, table, cache_positions)
+        if len(kv_cache) == 3:
+            kc, vc, table = kv_cache
+            _kvc.paged_write_kv(kc, k.transpose(1, 2), table,
+                                cache_positions)
+            _kvc.paged_write_kv(vc, v.transpose(1, 2), table,
+                                cache_positions)
+            attend = (_kvc.paged_decode_attend if S == 1
+                      else _kvc.paged_extend_attend)
+            o = attend(q.transpose(1, 2), kc, vc, table, cache_positions)
+        else:
+            if S > 1:
+                raise NotImplementedError(
+                    "multi-token cached decode (extend_step / speculative "
+                    "verify) requires the paged KV layout; the dense cache "
+                    "only decodes one token per step")
+            kc, vc = kv_cache
+            _kvc.write_kv(kc, k.transpose(1, 2), cache_positions)
+            _kvc.write_kv(vc, v.transpose(1, 2), cache_positions)
+            o = _kvc.decode_attend(q.transpose(1, 2), kc, vc,
+                                   cache_positions)
         out = o.transpose(1, 2).reshape(B, S, self.cfg.hidden_size)
         return self.dropout(self.proj(out)), (kc, vc)
 
@@ -339,10 +353,13 @@ class GPTForCausalLM(nn.Module):
 
     def decode_step(self, tokens, kv_caches, positions):
         """One cached decode step: ``tokens`` ``[B]`` (or ``[B, 1]``) ids,
-        ``kv_caches`` a per-layer list of paged ``(k_pool, v_pool,
-        page_table)`` triples (pools ``[P, H_kv, ps, D]``, updated in
-        place), ``positions`` ``[B]`` — the index each row's token is
-        written at. Returns ``(logits [B, V], per-layer (k_pool, v_pool))``."""
+        ``kv_caches`` a per-layer list of either dense ``(k, v)`` entries
+        (each ``[B, H_kv, S_max, D]``) or paged ``(k_pool, v_pool,
+        page_table)`` triples (pools ``[P, H_kv, ps, D]``, table
+        ``[B, num_blocks]`` int32), both updated in place, ``positions``
+        ``[B]`` (or a scalar) — the index each row's token is written at.
+        Returns ``(logits [B, V], per-layer (k, v))``: the caches
+        themselves (a paged table is host state and is not returned)."""
         ids = tokens[:, None] if tokens.dim() == 1 else tokens
         pos = torch.as_tensor(positions, device=ids.device).to(torch.int32)
         if pos.dim() == 0:
@@ -372,3 +389,26 @@ class GPTForCausalLM(nn.Module):
             0, self.cfg.max_seq_len - 1), kv_caches=kv_caches,
             cache_positions=pos)
         return self._logits(h), new
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, eos_token_id=None,
+                 generator: torch.Generator = None):
+        """Autoregressive decoding (PaddleNLP ``GenerationMixin.generate``'s
+        greedy/sampling core) of ``input_ids`` ``[B, S]``: one prefill and
+        one-token decode steps over a dense KV cache; returns the prompt
+        and the new tokens as ``[B, S + n]`` ids on the model's device.
+        Greedy, temperature and top-k sampling, and the forced-eos fill of
+        finished rows with an early stop once every row has finished, as
+        the JAX package's. Sampled draws come from ``generator`` (a
+        ``torch.Generator`` on the model's device; the device's default
+        generator when omitted, which ``torch.manual_seed`` seeds), which
+        advances as the draws consume it. On CUDA the prefill and the
+        decode step are CUDA graphs captured once per shape and kept with
+        their caches on the model (``serving.engine.cached_generate``)."""
+        from ..serving.engine import cached_generate
+
+        return cached_generate(
+            self, input_ids, max_new_tokens=max_new_tokens,
+            do_sample=do_sample, temperature=temperature, top_k=top_k,
+            eos_token_id=eos_token_id, generator=generator)

@@ -1,34 +1,36 @@
-"""LLM serving engine: bucketed prefill + batched paged decode with
-continuous batching (``paddle_tpu/serving/engine.py`` analog, paged layout).
+"""LLM serving engine: bucketed prefill + batched decode with continuous
+batching over a paged or dense KV cache (``paddle_tpu/serving/engine.py``
+analog), and ``cached_generate``, the batch decode loop
+``GPTForCausalLM.generate`` rides on.
 
-The JAX engine AOT-compiles one prefill executable per prompt-length bucket
-and one decode executable for its lifetime. The port keeps the same static
-shapes (power-of-two prefill buckets, a ``[B_max]`` decode batch, a
-``[B_max, num_blocks]`` page table). Its per-token program, the decode
-step or, with speculation on, the verify-k step, is captured once per
-engine lifetime as a CUDA graph over static buffers and replayed every
-step (``serving/graphs.py``). Prefill, and the suffix prefill after a
-prefix-cache hit, run eagerly, once per request. KV pools and parameters
-are updated in place where the JAX engine donated and rebound them.
+The JAX engine AOT-compiles one prefill executable and one suffix-prefill
+(extend) executable per prompt-length bucket and one decode executable for
+its lifetime. The port keeps the same static shapes (power-of-two prefill
+buckets, a ``[B_max]`` decode batch, a ``[B_max, num_blocks]`` page table
+or a ``[B_max, S_max]`` dense row per slot), and captures each of these
+programs as a CUDA graph over static buffers on its first use, replayed
+for the engine's lifetime (``serving/graphs.py``): ``"prefill:T"`` and
+``"extend:T"`` per bucket, and the per-token ``"decode"`` step or, with
+speculation on, ``"verify"``. KV caches and parameters are updated in
+place where the JAX engine donated and rebound them.
 
 Request flow: ``add_request`` queues; each ``step()`` first admits waiting
 requests into free KV-cache slots (a prefill, or a prefix splice plus a
 suffix prefill, and the first token), then runs one batched decode (or
 verify-k) step over every running request.
 
-Ported: the paged layout, the radix prefix cache (``prefix_cache``),
-n-gram speculative decoding (``speculative``) and ``load_weights`` (which
-takes no ``shardings=`` until ROADMAP queue A item A5). Not ported yet,
-each raising ``NotImplementedError`` naming its ROADMAP item:
-``kv_layout="dense"`` with ``cached_generate`` (A1) and
-``request_trace_dir`` (A6).
+Ported: both KV layouts, the radix prefix cache (``prefix_cache``),
+n-gram speculative decoding (``speculative``), ``cached_generate`` and
+``load_weights`` (which takes no ``shardings=`` until ROADMAP queue A item
+A5). Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
+item: ``request_trace_dir`` (A6).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,11 +38,139 @@ import torch
 from ..device import resolve_device
 from . import graphs as _graphs
 from . import sampling as _sampling
-from .kv_cache import PAGE_SENTINEL, PagedKVCache
+from .kv_cache import PAGE_SENTINEL, KVCache, PagedKVCache
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams
 from .scheduler import FINISHED, PageAllocator, Request, Scheduler
 from .speculative import SpeculativeConfig, accept_greedy, propose_ngram
+
+
+# ---------------------------------------------------------------------------
+# Batch decode loop: the static-shape core GPTForCausalLM.generate rides on.
+# ---------------------------------------------------------------------------
+
+class _GenerateState(NamedTuple):
+    """One shape's programs for ``cached_generate``, kept on the model."""
+
+    key: tuple
+    cache: KVCache
+    prefill: _graphs.CapturedStep
+    decode: _graphs.CapturedStep
+    generator: torch.Generator  # the decode graph's own; see cached_generate
+
+
+def _generate_state(model, key: tuple) -> _GenerateState:
+    state = getattr(model, "_generate_state", None)
+    if state is not None and state.key == key:
+        return state
+    # a graph is bound to its buffers: one shape's caches and programs are
+    # kept per model, and a new shape releases the old one's before its own
+    # are made
+    model._generate_state = state = None
+    B, S, S_max = key[:3]
+    cfg, dev = model.cfg, model.device
+    cache = KVCache(cfg.num_layers, B, cfg.num_kv_heads, S_max, cfg.head_dim,
+                    model.dtype, device=dev)
+    pre = _graphs.Buffers(
+        ids=torch.zeros((B, S), dtype=torch.long, device=dev),
+        length=torch.full((B,), S, dtype=torch.long, device=dev),
+        row=torch.arange(B, device=dev))
+    step = _graphs.StepBuffers(B, None, None, dev)
+    gen = torch.Generator(device=dev)
+    model._generate_state = _GenerateState(
+        key, cache,
+        _graphs.CapturedStep(_graphs.prefill_program(model, cache, pre, S),
+                             pre, dev),
+        _graphs.CapturedStep(_graphs.decode_program(model, cache, gen, step),
+                             step, dev, gen),
+        gen)
+    return model._generate_state
+
+
+def _default_generator(device: torch.device) -> torch.Generator:
+    if device.type == "cuda":
+        idx = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        return torch.cuda.default_generators[idx]
+    return torch.default_generator
+
+
+@torch.no_grad()
+def cached_generate(model, input_ids, *, max_new_tokens: int = 32,
+                    do_sample: bool = False, temperature: float = 1.0,
+                    top_k: int = 0, eos_token_id=None,
+                    generator: Optional[torch.Generator] = None):
+    """Autoregressive decoding over a static dense KV cache: the body of
+    ``GPTForCausalLM.generate`` (the JAX package's ``cached_generate``,
+    same semantics). ``input_ids`` ``[B, S]``; returns ``[B, S + n]`` ids
+    (the input's dtype, on the model's device), ``n <= max_new_tokens``:
+    fewer only when ``eos_token_id`` is set and every row has emitted it,
+    rows that finished earlier filled with it. ``max_new_tokens <= 0``
+    returns the ids.
+
+    One prefill over the prompt into caches ``[L, B, H_kv, S +
+    max_new_tokens, D]``, the first token sampled from its logits, then one
+    decode step per token at positions ``S, S+1, ...``. Greedy is the
+    argmax; ``do_sample`` draws from the temperature-scaled, top-k
+    filtered distribution with ``generator`` (the model device's default
+    generator when None), which advances by the draws as an eager run
+    would advance it; a greedy call leaves it as it was.
+
+    The JAX package compiles one prefill and one decode executable per
+    ``(B, S, S_max, dtypes, do_sample, temperature, top_k)`` per model.
+    Here each is a CUDA graph, captured on the first call with a ``(B, S,
+    S_max, dtypes)`` key and replayed by every later one; the caches and
+    buffers the graphs are bound to stay on the model with them. The
+    decode step is the engine's ``decode_program`` over the dense cache:
+    the sampling settings are buffers it reads, so a call with other
+    settings replays it too. Like the engine's step it draws for greedy
+    rows as well and takes their argmax (a sort, a softmax and a draw over
+    ``[B, V]`` a step, from the model's own generator, never the
+    caller's): one program for every setting, for that cost.
+    One key's are kept per model: a call with another key releases them
+    first. They are not
+    small: the caches alone take ~0.9 GB for GPT-3 1.3B at B 8 × 576
+    positions in bf16. With ``eos_token_id`` set, each step reads the
+    finished rows on the host (the early stop); without it nothing is read
+    until the end."""
+    dev = model.device
+    ids = torch.as_tensor(input_ids).to(dev)
+    if max_new_tokens <= 0:
+        return ids
+    B, S = int(ids.shape[0]), int(ids.shape[1])
+    S_max = S + max_new_tokens
+    key = (B, S, S_max, ids.dtype, model.dtype)
+    state = _generate_state(model, key)
+    if generator is None:
+        generator = _default_generator(dev)
+    state.generator.set_state(generator.get_state())
+    bufs = state.decode.buffers
+    bufs.temps.fill_(float(temperature))
+    bufs.top_ks.fill_(int(top_k))
+    bufs.greedy.fill_(not do_sample)
+    out = torch.empty((B, S_max), dtype=ids.dtype, device=dev)
+    out[:, :S] = ids
+    logits = state.prefill.run(ids=ids)[0]
+    nxt = _sampling.sample_static(logits, state.generator,
+                                  do_sample=do_sample,
+                                  temperature=temperature, top_k=top_k)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n = max_new_tokens
+    for i in range(max_new_tokens):
+        if i > 0:
+            bufs.tokens.copy_(nxt)
+            bufs.positions.fill_(S - 1 + i)
+            nxt = state.decode.run()[0]
+        if eos_token_id is not None:
+            nxt = torch.where(finished, eos_token_id, nxt)
+            finished |= nxt == eos_token_id
+        out[:, S + i] = nxt
+        if eos_token_id is not None and bool(finished.all()):
+            n = i + 1
+            break
+    if do_sample:
+        generator.set_state(state.generator.get_state())
+    return out[:, :S + n]
 
 
 @dataclass
@@ -64,12 +194,9 @@ class EngineConfig:
     speculative: Optional[Union[bool, int, SpeculativeConfig]] = None
 
     def __post_init__(self):
-        if self.kv_layout == "dense":
-            raise NotImplementedError(
-                "kv_layout='dense' is not ported yet (ROADMAP queue A item "
-                "A1: dense KVCache + cached_generate)")
-        if self.kv_layout != "paged":
-            raise ValueError(f"kv_layout {self.kv_layout!r}; want 'paged'")
+        if self.kv_layout not in ("paged", "dense"):
+            raise ValueError(f"kv_layout {self.kv_layout!r}; "
+                             "want 'paged' or 'dense'")
         if self.request_trace_dir:
             raise NotImplementedError(
                 "EngineConfig.request_trace_dir is not ported yet (ROADMAP "
@@ -85,6 +212,12 @@ class EngineConfig:
             raise ValueError(
                 f"speculative={self.speculative!r}; want True, an int k, or "
                 "a SpeculativeConfig")
+        if ((self.prefix_cache or self.speculative is not None)
+                and self.kv_layout != "paged"):
+            raise ValueError(
+                "prefix_cache / speculative require kv_layout='paged' "
+                "(page-table splices and trash-routed draft writes have no "
+                "dense equivalent)")
         while self.page_size > 1 and self.max_seq_len % self.page_size:
             self.page_size //= 2
         if self.prefill_buckets is None:
@@ -112,8 +245,10 @@ class Engine:
     ``device`` defaults to ``cuda`` (raising without a card) and must be the
     model's device. Sampled requests draw from ``generator`` (a
     ``torch.Generator`` on that device, seed 0 when omitted). ``steps``
-    holds the per-token programs made so far (``"decode"``, ``"verify"``),
-    each captured once for the engine's lifetime on CUDA.
+    holds the programs made so far (``"prefill:T"`` and ``"extend:T"`` per
+    bucket ``T``, ``"decode"``, ``"verify"``), each captured once for the
+    engine's lifetime on CUDA, all into one memory pool: a program's
+    outputs are valid until the engine replays any program.
     """
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
@@ -132,15 +267,20 @@ class Engine:
                 f"engine max_seq_len {self.config.max_seq_len} exceeds the "
                 f"model's position table ({cfg.max_seq_len})")
         B, S_max = self.config.max_batch_size, self.config.max_seq_len
-        ps = self.config.page_size
-        num_pages = self.config.kv_pages
-        if num_pages is None:
-            num_pages = B * (S_max // ps) + 1  # full budget + trash page
-        self.cache = PagedKVCache(
-            cfg.num_layers, B, cfg.num_kv_heads, S_max, cfg.head_dim,
-            self.config.cache_dtype or model.dtype, page_size=ps,
-            num_pages=num_pages, device=self.device)
-        self.page_alloc = PageAllocator(num_pages)
+        dt = self.config.cache_dtype or model.dtype
+        self.page_alloc: Optional[PageAllocator] = None
+        if self.config.kv_layout == "paged":
+            ps = self.config.page_size
+            num_pages = self.config.kv_pages
+            if num_pages is None:
+                num_pages = B * (S_max // ps) + 1  # full budget + trash page
+            self.cache = PagedKVCache(
+                cfg.num_layers, B, cfg.num_kv_heads, S_max, cfg.head_dim, dt,
+                page_size=ps, num_pages=num_pages, device=self.device)
+            self.page_alloc = PageAllocator(num_pages)
+        else:
+            self.cache = KVCache(cfg.num_layers, B, cfg.num_kv_heads, S_max,
+                                 cfg.head_dim, dt, device=self.device)
         self.scheduler = Scheduler(B)
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
@@ -151,13 +291,19 @@ class Engine:
         self._top_ks = np.zeros((B,), np.int32)
         self._greedy = np.ones((B,), bool)
         self.prefix_cache: Optional[PrefixCache] = (
-            PrefixCache(ps, self.page_alloc) if self.config.prefix_cache
-            else None)
+            PrefixCache(self.config.page_size, self.page_alloc)
+            if self.config.prefix_cache else None)
         self.spec: Optional[SpeculativeConfig] = self.config.speculative
         # speculation totals over greedy rows (sampled rows draft nothing)
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.steps: Dict[str, _graphs.CapturedStep] = {}
+        # one memory pool for all of the engine's graphs: a replay may
+        # overwrite another program's outputs, and each output is consumed
+        # (a prefill's logits sampled, a step's tokens read back) before
+        # the next replay
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
 
     # -- weight management --
     @torch.no_grad()
@@ -231,26 +377,47 @@ class Engine:
         self._decode()
 
     def step_program(self, name: str) -> _graphs.CapturedStep:
-        """The ``"decode"`` or ``"verify"`` step (``decode_program`` /
-        ``verify_program`` analog), made on first use and kept for the
-        engine's lifetime."""
+        """The program ``name``, made on first use and kept for the
+        engine's lifetime: ``"prefill:T"`` or ``"extend:T"`` for a bucket
+        ``T`` (of ``config.prefill_buckets``, or ``max_seq_len``; what
+        ``_bucket`` returns) (``prefill_program`` /
+        ``extend_program`` analog; extend on the paged layout only),
+        ``"decode"`` or ``"verify"`` (``decode_program`` /
+        ``verify_program`` analog)."""
         step = self.steps.get(name)
         if step is not None:
             return step
-        if name == "decode":
+        kind, _, bucket = name.partition(":")
+        nb = (self.cache.num_blocks if self.page_alloc is not None
+              else None)
+        gen = None
+        if kind in ("prefill", "extend") and bucket.isdigit() \
+                and self._bucket(int(bucket)) == int(bucket):
+            T = int(bucket)
+            if kind == "extend" and nb is None:
+                raise ValueError("the extend program needs "
+                                 "kv_layout='paged'")
+            bufs = _graphs.PrefillBuffers(T, nb, self.device)
+            program = (_graphs.prefill_program if kind == "prefill"
+                       else _graphs.extend_program)
+            fn = program(self.model, self.cache, bufs, T)
+        elif name in ("decode", "verify"):
             width, program = None, _graphs.decode_program
-        elif name == "verify":
-            if self.spec is None:
-                raise ValueError("the verify step needs "
-                                 "EngineConfig(speculative=...)")
-            width, program = self.spec.k + 1, _graphs.verify_program
+            if name == "verify":
+                if self.spec is None:
+                    raise ValueError("the verify step needs "
+                                     "EngineConfig(speculative=...)")
+                width, program = self.spec.k + 1, _graphs.verify_program
+            bufs = _graphs.StepBuffers(self.config.max_batch_size, nb, width,
+                                       self.device)
+            gen = self.generator
+            fn = program(self.model, self.cache, gen, bufs)
         else:
-            raise ValueError(f"step {name!r}; want 'decode' or 'verify'")
-        bufs = _graphs.StepBuffers(self.config.max_batch_size,
-                                   self.cache.num_blocks, width, self.device)
-        step = _graphs.CapturedStep(
-            program(self.model, self.cache, self.generator, bufs), bufs,
-            self.generator)
+            raise ValueError(
+                f"program {name!r}; want 'decode', 'verify', or 'prefill:T' "
+                f"/ 'extend:T' for T in {self.config.prefill_buckets}")
+        step = _graphs.CapturedStep(fn, bufs, self.device, gen,
+                                    self._graph_pool)
         self.steps[name] = step
         return step
 
@@ -266,34 +433,36 @@ class Engine:
         the first decode step writes into."""
         return prompt_len // self.cache.page_size + 1
 
+    def _slot_row(self, slot: int) -> np.ndarray:
+        """What a prefill program reads for ``slot``: its table row
+        (paged) or its index (dense)."""
+        if self.page_alloc is not None:
+            return self.cache.page_table[slot:slot + 1]
+        return np.array([slot], np.int64)
+
     def _prefill(self, req: Request, slot: int):
-        """Bucketed prefill of ``req`` into ``slot``'s pages; returns the
-        last real token's logits ``[1, V]``."""
+        """Bucketed prefill of ``req`` into ``slot`` through the bucket's
+        ``prefill:T`` program; returns the last real token's logits
+        ``[1, V]`` (the program's output, valid until its next run)."""
         n = len(req.prompt_ids)
         T = self._bucket(n)
-        ids = torch.zeros((1, T), dtype=torch.long)
-        ids[0, :n] = torch.tensor(req.prompt_ids)
-        logits, kvs = self.model.prefill_with_cache(
-            ids.to(self.device),
-            lengths=torch.tensor([n], device=self.device))
-        self.cache.write_prefill(kvs, self.cache.page_table[slot], T)
-        return logits
+        ids = np.zeros((1, T), np.int64)
+        ids[0, :n] = req.prompt_ids
+        return self.step_program(f"prefill:{T}").run(
+            ids=ids, length=np.array([n]), row=self._slot_row(slot))[0]
 
     def _extend(self, suffix: List[int], slot: int, start: int):
-        """Suffix prefill after a prefix splice (``extend_program``
-        analog): the suffix, padded to its bucket, through ``extend_step``
-        at positions ``start, start+1, ...`` over the slot's table row
-        (padding past the mapped pages lands on the trash page). Returns
-        the last real suffix token's logits ``[1, V]``."""
+        """Suffix prefill after a prefix splice through the bucket's
+        ``extend:T`` program: the suffix, padded to ``T``, at positions
+        ``start, start+1, ...`` over the slot's table row. Returns the last
+        real suffix token's logits ``[1, V]``."""
         m = len(suffix)
-        ids = torch.zeros((1, self._bucket(m)), dtype=torch.long)
-        ids[0, :m] = torch.tensor(suffix)
-        dev = self.device
-        table = torch.from_numpy(self.cache.page_table[slot:slot + 1]).to(dev)
-        logits, _ = self.model.extend_step(
-            ids.to(dev), self.cache.layer_caches(table),
-            torch.tensor([start], dtype=torch.int32, device=dev))
-        return logits[:, m - 1]
+        T = self._bucket(m)
+        ids = np.zeros((1, T), np.int64)
+        ids[0, :m] = suffix
+        return self.step_program(f"extend:{T}").run(
+            ids=ids, length=np.array([m]), row=self._slot_row(slot),
+            start=np.array([start], np.int32))[0]
 
     def _admit(self):
         while self.cache.free_slots and self.scheduler.waiting:
@@ -306,15 +475,20 @@ class Engine:
             hit_blocks, hit_pages = 0, []
             if self.prefix_cache is not None:
                 hit_blocks, hit_pages = self.prefix_cache.match(req.prompt_ids)
-            # the splice's reference first: evicting the matched chain's
-            # leaves to make room must not hand their pages out again
-            self.page_alloc.retain(hit_pages, owner=owner)
-            pages = self._alloc_pages(self._pages_needed(n) - hit_blocks,
-                                      owner)
-            if pages is None:
-                # the next try matches again (the trie may have lost it)
-                self.page_alloc.free(hit_pages, owner=owner)
-                break
+            pages = None
+            if self.page_alloc is not None:
+                # the splice's reference first: evicting the matched
+                # chain's leaves to make room must not hand their pages
+                # out again
+                self.page_alloc.retain(hit_pages, owner=owner)
+                pages = self._alloc_pages(
+                    self._pages_needed(n) - hit_blocks, owner)
+                if pages is None:
+                    # the next try matches again (the trie may have lost it)
+                    self.page_alloc.free(hit_pages, owner=owner)
+                    break
+            # (dense admission never backpressures: a free slot is the
+            # whole reservation)
             self.scheduler.next_waiting()  # pops the peeked head
             slot = self.cache.alloc_slot()
             req.slot = slot
@@ -323,8 +497,9 @@ class Engine:
                 # device work
                 self.cache.assign_pages(slot, hit_pages)
                 req.prefix_hit_blocks = hit_blocks
-            self.cache.assign_pages(slot, pages, start_block=hit_blocks)
-            ps = self.cache.page_size
+            if pages is not None:
+                self.cache.assign_pages(slot, pages, start_block=hit_blocks)
+            ps = self.config.page_size
             if hit_blocks:
                 # at least one suffix token: match is capped at (n-1)//ps
                 logits = self._extend(req.prompt_ids[hit_blocks * ps:], slot,
@@ -405,14 +580,18 @@ class Engine:
                 self._finish(req, "cache_full")
 
     def _step_inputs(self, tokens: np.ndarray) -> Dict[str, np.ndarray]:
-        return dict(tokens=tokens, positions=self._positions,
+        host = dict(tokens=tokens, positions=self._positions,
                     temps=self._temps, top_ks=self._top_ks,
-                    greedy=self._greedy, table=self.cache.page_table)
+                    greedy=self._greedy)
+        if self.page_alloc is not None:
+            host["table"] = self.cache.page_table
+        return host
 
     def _decode(self):
         if self.spec is not None:
             return self._decode_speculative()
-        self._grow_pages()
+        if self.page_alloc is not None:
+            self._grow_pages()
         running = [r for r in self._slots if r is not None]
         if not running:
             return
@@ -491,8 +670,9 @@ class Engine:
         self._temps[slot] = 1.0
         self._top_ks[slot] = 0
         self._greedy[slot] = True
-        # drop this request's reference on every page its slot mapped; the
-        # allocator raises on double-free
-        self.page_alloc.free(self.cache.clear_slot(slot),
-                             owner=f"req{req.request_id}")
+        if self.page_alloc is not None:
+            # drop this request's reference on every page its slot mapped;
+            # the allocator raises on double-free
+            self.page_alloc.free(self.cache.clear_slot(slot),
+                                 owner=f"req{req.request_id}")
         self.cache.free_slot(slot)

@@ -1,24 +1,42 @@
-"""The serving engine's per-token programs, each captured once as a CUDA
-graph (``paddle_tpu/serving/engine.py`` ``_aot``, ``decode_program`` and
-``verify_program`` analog).
+"""The serving programs, each captured once per shape as a CUDA graph
+(``paddle_tpu/serving/engine.py`` ``_aot`` analog: ``prefill_program``,
+``extend_program``, ``decode_program`` and ``verify_program``, which
+``cached_generate`` uses too for its prefill and decode).
 
-The JAX engine compiles one decode executable for its lifetime (with
-speculation on, one verify-k executable in its place) and calls it every
-step: the host ships its numpy state in and reads back only the sampled
-tokens. Here the program is a function over static device buffers
-(``StepBuffers``: tokens, positions, per-row sampling parameters, the page
-table), and ``CapturedStep`` captures it as a CUDA graph on its first call
-and replays the graph on every call after, once the host has copied its
-state into the buffers.
+The JAX package compiles one executable per program and shape: the engine
+a prefill and a suffix prefill (extend) per prompt bucket and one decode
+(with speculation on, verify-k) step for its lifetime, ``cached_generate``
+a prefill and a decode step per batch shape. The host ships its numpy
+state in and reads back only the logits or the sampled tokens. Here a
+program is a function over static device buffers (``StepBuffers`` for the
+per-token steps, ``PrefillBuffers`` for a bucket's prefill or extend), and
+``CapturedStep`` captures it as a CUDA graph on its first call and replays
+the graph on every call after, once the host has copied its state into the
+buffers.
 
-The capture runs with an all-sentinel table and zero positions, so its
-warm-up run writes K/V only into the trash page 0. The K/V pools, the
-parameters and the buffers keep their addresses for the engine's lifetime
-(the pools are written in place, ``Engine.load_weights`` copies into the
-parameters), so the graph stays valid. The sampling generator is
+A capture runs on the state of its first call: the host state goes into
+the buffers first, and the warm-up run then writes exactly the K/V that
+the first replay, right after the capture, writes again (the same
+positions of the same slots from the same inputs; a step writes a
+position before it reads it). So a capture leaves every other slot's K/V
+as it was, in either layout: the dense decode step, which writes one
+position in every row, writes each live row's next position and each
+idle row's position 0, which holds nothing live. The generator's state is
+saved before the warm-up and put back after the capture, so a capture
+consumes no draws: a call draws the same numbers whether it captured or
+replayed. The K/V buffers, the parameters and the program buffers keep
+their addresses (the caches are written in place, ``Engine.load_weights``
+copies into the parameters), so a graph stays valid; the generator is
 registered with the graph, so each replay draws new numbers from it.
 
-On a CPU engine the same function runs eagerly on CPU buffers, because the
+Programs captured into one memory pool (``pool``, as ``Engine`` does for
+all of its own) share their intermediate memory: a replay may overwrite
+the outputs of any other program of the pool. So a program's outputs are
+valid until the next replay of any program of its pool, and are read (or
+copied) before it; the engine samples each prefill's logits and reads each
+step's tokens back before it replays another program.
+
+On the CPU the same function runs eagerly on CPU buffers, because the
 caller asked for the CPU. On CUDA nothing runs it eagerly: a capture that
 fails raises.
 
@@ -31,58 +49,78 @@ and a profiler's kernel events count what ran on the card.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .kv_cache import PAGE_SENTINEL
+from .kv_cache import PAGE_SENTINEL, PagedKVCache
 from .sampling import sample_batched
 
 
-class StepBuffers:
+class Buffers:
+    """Named static device tensors that a program reads."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        self.__dict__.update(tensors)
+
+    def write(self, **host):
+        """Copy arrays (numpy, or tensors on any device) into the buffers
+        of the same names, in place."""
+        for name, value in host.items():
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.asarray(value))
+            getattr(self, name).copy_(value)
+
+
+class StepBuffers(Buffers):
     """Static inputs of a per-token program on ``device``: ``tokens``
     ``[B]`` (decode) or ``[B, width]`` (verify) int64, ``positions`` [B]
     int32, ``temps`` [B] fp32, ``top_ks`` [B] int32, ``greedy`` [B] bool
-    and ``table`` ``[B, num_blocks]`` int32."""
+    and, for a paged cache (``num_blocks`` given), ``table``
+    ``[B, num_blocks]`` int32 (None for a dense cache)."""
 
-    def __init__(self, B: int, num_blocks: int, width: Optional[int],
-                 device):
+    def __init__(self, B: int, num_blocks: Optional[int],
+                 width: Optional[int], device):
         tok_shape = (B,) if width is None else (B, width)
         self.tokens = torch.zeros(tok_shape, dtype=torch.long, device=device)
         self.positions = torch.zeros((B,), dtype=torch.int32, device=device)
         self.temps = torch.ones((B,), dtype=torch.float32, device=device)
         self.top_ks = torch.zeros((B,), dtype=torch.int32, device=device)
         self.greedy = torch.ones((B,), dtype=torch.bool, device=device)
-        self.table = torch.full((B, num_blocks), PAGE_SENTINEL,
-                                dtype=torch.int32, device=device)
+        self.table = None if num_blocks is None else torch.full(
+            (B, num_blocks), PAGE_SENTINEL, dtype=torch.int32, device=device)
 
-    def write(self, **host: np.ndarray):
-        """Copy host arrays into the buffers of the same names, in place."""
-        for name, value in host.items():
-            getattr(self, name).copy_(torch.from_numpy(value))
 
-    def idle(self):
-        """The state a capture runs on: no live slot, every K/V write on
-        the trash page."""
-        self.tokens.zero_()
-        self.positions.zero_()
-        self.temps.fill_(1.0)
-        self.top_ks.zero_()
-        self.greedy.fill_(True)
-        self.table.fill_(PAGE_SENTINEL)
+class PrefillBuffers(Buffers):
+    """Static inputs of a ``T``-token bucket's prefill or extend program on
+    ``device``: ``ids`` ``[1, T]`` int64 (the prompt or suffix, zero
+    padded), ``length`` [1] int64 (its real tokens), ``start`` [1] int32
+    (extend: the suffix's first position) and ``row``: the slot's table
+    row ``[1, num_blocks]`` int32 for a paged cache, the slot index [1]
+    int64 for a dense one (``num_blocks`` None)."""
+
+    def __init__(self, T: int, num_blocks: Optional[int], device):
+        self.ids = torch.zeros((1, T), dtype=torch.long, device=device)
+        self.length = torch.ones((1,), dtype=torch.long, device=device)
+        self.start = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.row = (torch.zeros((1,), dtype=torch.long, device=device)
+                    if num_blocks is None else
+                    torch.full((1, num_blocks), PAGE_SENTINEL,
+                               dtype=torch.int32, device=device))
 
 
 def decode_program(model, cache, generator, bufs: StepBuffers):
-    """The decode step: ``decode_step`` over the buffers, then
-    ``sample_batched``. Returns ``fn() -> (next tokens [B], logits
-    [B, V])``."""
+    """The decode step: ``decode_step`` over the buffers (the page table's,
+    or the dense cache's rows), then ``sample_batched``. Returns ``fn() ->
+    (next tokens [B], logits [B, V])``."""
 
     @torch.no_grad()
     def fn():
-        logits, _ = model.decode_step(bufs.tokens,
-                                      cache.layer_caches(bufs.table),
-                                      bufs.positions)
+        caches = (cache.layer_caches() if bufs.table is None
+                  else cache.layer_caches(bufs.table))
+        logits, _ = model.decode_step(bufs.tokens, caches, bufs.positions)
         return (sample_batched(logits, generator, bufs.temps, bufs.top_ks,
                                bufs.greedy), logits)
 
@@ -109,35 +147,74 @@ def verify_program(model, cache, generator, bufs: StepBuffers):
     return fn
 
 
+def prefill_program(model, cache, bufs: Buffers, T: int):
+    """The ``T``-token bucket's prefill: ``prefill_with_cache`` over the
+    padded prompt, its K/V written into the slot's pages (paged) or into
+    positions ``[0, T)`` of the slot's row (dense) inside the program.
+    Returns ``fn() -> (last real token's logits [1, V],)``. Over dense
+    buffers of ``n`` rows (``ids [n, T]``, ``length [n]``, ``row`` the
+    ``n`` slots) it is ``cached_generate``'s prefill."""
+    paged = isinstance(cache, PagedKVCache)
+
+    @torch.no_grad()
+    def fn():
+        logits, kvs = model.prefill_with_cache(bufs.ids, lengths=bufs.length)
+        cache.write_prefill(kvs, bufs.row[0] if paged else bufs.row, T)
+        return (logits,)
+
+    return fn
+
+
+def extend_program(model, cache, bufs: PrefillBuffers, T: int):
+    """The ``T``-token bucket's suffix prefill after a prefix-cache splice
+    (paged only): ``extend_step`` over the padded suffix at positions
+    ``start, start+1, ...`` through the slot's table row (padding past the
+    mapped pages lands on the trash page). Returns ``fn() -> (last real
+    suffix token's logits [1, V],)``."""
+
+    @torch.no_grad()
+    def fn():
+        logits, _ = model.extend_step(bufs.ids, cache.layer_caches(bufs.row),
+                                      bufs.start)
+        last = (bufs.length - 1).clamp(0, T - 1)
+        return (logits[0].index_select(0, last),)
+
+    return fn
+
+
 class CapturedStep:
     """``fn`` over ``buffers``, captured as a CUDA graph on its first call
     and replayed after (run eagerly on CPU buffers). ``captures`` counts
-    the captures, ``outputs`` holds ``fn``'s outputs (on CUDA the graph's
-    static output tensors), and ``fn`` stays callable for a comparison on
-    the same buffers. ``replays`` counts the graph's replays."""
+    the captures, ``capture_seconds`` is the host time of the capture with
+    its warm-up run, ``outputs`` holds ``fn``'s outputs (on CUDA the
+    graph's static output tensors, in the graph's memory pool: its own, or
+    ``pool`` shared with other programs, when they are valid until any of
+    them replays), and ``fn`` stays callable for a comparison on the same
+    buffers. ``replays`` counts the graph's replays."""
 
     def __init__(self, fn: Callable[[], Sequence[torch.Tensor]],
-                 buffers: StepBuffers,
-                 generator: Optional[torch.Generator] = None):
+                 buffers: Buffers, device,
+                 generator: Optional[torch.Generator] = None, pool=None):
         self.fn = fn
         self.buffers = buffers
-        self.device = buffers.table.device
+        self.device = torch.device(device)
         self.generator = generator
+        self.pool = pool
         self.captures = 0
+        self.capture_seconds = 0.0
         self.replays = 0
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self._graph = None
 
     def run(self, **host: np.ndarray) -> Tuple[torch.Tensor, ...]:
-        """Copy ``host`` into the buffers and run the step once; returns
-        its outputs."""
+        """Copy ``host`` into the buffers and run the step once (on CUDA,
+        captured first if it was not); returns its outputs."""
+        self.buffers.write(**host)
         if self.device.type == "cpu":
-            self.buffers.write(**host)
-            self.outputs = self.fn()
+            self.outputs = tuple(self.fn())
             return self.outputs
         if self._graph is None:
             self._capture()
-        self.buffers.write(**host)
         self.replay()
         return self.outputs
 
@@ -148,19 +225,28 @@ class CapturedStep:
 
     def _capture(self):
         dev = self.device
-        self.buffers.idle()
-        # one eager run on a side stream first: builds and loads the
-        # kernels and lets the libraries allocate their workspaces
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.fn()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        t0 = time.perf_counter()
+        gen = self.generator
+        saved = gen.get_state() if gen is not None else None
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            with torch.cuda.device(dev):
-                graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
-            outputs = self.fn()
+        try:
+            # one eager run on a side stream first: builds and loads the
+            # kernels and lets the libraries allocate their workspaces
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if gen is not None:
+                with torch.cuda.device(dev):
+                    graph.register_generator_state(gen)
+            with torch.cuda.graph(graph, pool=self.pool):
+                outputs = self.fn()
+        finally:
+            if gen is not None:
+                # the warm-up's draws are given back, the capture failed
+                # or not
+                gen.set_state(saved)
         self._graph, self.outputs = graph, tuple(outputs)
         self.captures += 1
+        self.capture_seconds = time.perf_counter() - t0

@@ -1,18 +1,23 @@
-"""Block-paged KV cache: the serving engine's device-resident decode state
-(``paddle_tpu/serving/kv_cache.py`` analog, paged layout).
+"""KV caches: the serving engine's device-resident decode state
+(``paddle_tpu/serving/kv_cache.py`` analog), in both layouts.
 
-The pools are preallocated at engine construction. Where the JAX package
-donates the pools to each compiled step and rebinds the returned arrays,
-the port writes into them in place on the device: ``paged_write_kv`` and
-the engine's prefill scatter update ``PagedKVCache.k``/``.v`` directly, and
-no second copy of a pool is ever live.
+``KVCache`` is the dense layout, ``[L, B_max, H_kv, S_max, D]`` per K and
+V: a slot owns a whole row of ``S_max`` positions. ``PagedKVCache`` is the
+block-paged layout: pools of fixed-size pages routed by a per-slot page
+table. Both are preallocated at construction. Where the JAX package
+donates the buffers to each compiled step and rebinds the returned arrays,
+the port writes into them in place on the device (``write_kv``,
+``paged_write_kv`` and the prefill writes), and no second copy of a cache
+is ever live.
+
+``decode_attend`` is the dense layout's attention, plain PyTorch on every
+device as the JAX package's is plain jnp (no TPU kernel corresponds); it
+is also the paged-decode kernel's plain version.
 
 ``extend_attend``/``paged_extend_attend`` are the multi-query attends of
 the suffix prefill after a prefix-cache splice and of the speculative
 verify step. As in the JAX package they run no kernel (its ragged kernel
 is single-query): a gather of the live table and two products.
-
-The dense ``KVCache`` belongs to a later slice (ROADMAP queue A item A1).
 """
 
 from __future__ import annotations
@@ -33,9 +38,35 @@ from ..kernels.paged_attention import (NEG_INF, decode_attend,
 #: keeps trash bytes out of the math.
 PAGE_SENTINEL = -1
 
-__all__ = ["PAGE_SENTINEL", "paged_write_kv", "paged_gather", "decode_attend",
-           "paged_decode_attend", "extend_attend", "paged_extend_attend",
-           "PagedKVCache"]
+__all__ = ["PAGE_SENTINEL", "write_kv", "paged_write_kv", "paged_gather",
+           "decode_attend", "paged_decode_attend", "extend_attend",
+           "paged_extend_attend", "KVCache", "PagedKVCache"]
+
+
+def write_kv(cache, new, positions):
+    """Write new K (or V) entries into a ``[B, H_kv, S_max, D]`` cache, in
+    place; returns ``cache``.
+
+    ``positions`` a scalar (an int or a 0-d tensor): contiguous write of
+    ``new [B, H_kv, T, D]`` starting at that index, clamped so the ``T``
+    tokens fit, as ``lax.dynamic_update_slice`` clamps. ``positions``
+    ``[B]``: each row's single token of ``new [B, H_kv, 1, D]`` at its own
+    index (continuous-batching decode, slots at different positions); the
+    indices must lie in ``[0, S_max)``. Neither form reads the card on the
+    host, so a CUDA graph can capture both."""
+    new = new.to(cache.dtype)
+    S, T = cache.shape[2], new.shape[2]
+    if isinstance(positions, int):
+        start = min(max(positions, 0), S - T)
+        cache[:, :, start:start + T] = new
+        return cache
+    pos = positions.to(cache.device)
+    if pos.dim() == 0:
+        idx = pos.long().clamp(0, S - T) + torch.arange(T, device=cache.device)
+        return cache.index_copy_(2, idx, new)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, :, pos.long(), :] = new[:, :, 0, :]
+    return cache
 
 
 def paged_write_kv(pool, new, page_table, positions):
@@ -94,7 +125,77 @@ def paged_extend_attend(q, k_pool, v_pool, page_table, positions):
                          paged_gather(v_pool, page_table), positions)
 
 
-class PagedKVCache:
+class _Slots:
+    """The decode slots' free list and the K/V buffers' size, shared by
+    both layouts (``max_batch_size``, ``k``, ``v`` and ``_free`` set by the
+    layout)."""
+
+    @property
+    def nbytes(self) -> int:
+        return 2 * self.k.numel() * self.k.element_size()
+
+    def alloc_slot(self) -> Optional[int]:
+        """Lowest free slot index, or None when the batch is full."""
+        return self._free.pop() if self._free else None
+
+    def free_slot(self, slot: int):
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_slots(self) -> int:
+        return self.max_batch_size - len(self._free)
+
+
+class KVCache(_Slots):
+    """Dense K/V buffers ``[L, B_max, H_kv, S_max, D]`` on the device, plus
+    the slot free list.
+
+    A slot owns row ``b`` of every layer for its whole life: the prefill
+    writes positions ``[0, T)``, each decode step one position (bucket
+    padding past the prompt holds garbage that the decode mask
+    ``key_pos <= position`` never admits before a real token overwrites
+    it). A freed slot is reusable at once for the same reason.
+    """
+
+    def __init__(self, num_layers: int, max_batch_size: int,
+                 num_kv_heads: int, max_seq_len: int, head_dim: int,
+                 dtype="float32", device=None):
+        self.device = resolve_device(device)
+        self.num_layers = num_layers
+        self.max_batch_size = max_batch_size
+        self.num_kv_heads = num_kv_heads
+        self.max_seq_len = max_seq_len
+        self.head_dim = head_dim
+        shape = (num_layers, max_batch_size, num_kv_heads, max_seq_len,
+                 head_dim)
+        dt = resolve_dtype(dtype)
+        self.k = torch.zeros(shape, dtype=dt, device=self.device)
+        self.v = torch.zeros(shape, dtype=dt, device=self.device)
+        self._free: List[int] = list(range(max_batch_size))[::-1]
+
+    def write_prefill(self, kvs, slots, T: int):
+        """Install a ``T``-token prefill's per-layer K/V (each
+        ``[n, H_kv, T, D]``) at positions ``[0, T)`` of the rows ``slots``
+        (``[n]`` slot indices on the device, which a captured prefill
+        reads), in place."""
+        slots = slots.to(self.device).long()
+        for pool, new in ((self.k, torch.stack([k for k, _ in kvs])),
+                          (self.v, torch.stack([v for _, v in kvs]))):
+            pool[:, slots, :, :T] = new
+
+    def layer_caches(self):
+        """Per-layer ``(k, v)`` views ``[B_max, H_kv, S_max, D]`` of the
+        buffers, as ``decode_step`` takes them; a step's writes land in
+        the buffers."""
+        return [(self.k[l], self.v[l]) for l in range(self.num_layers)]
+
+
+class PagedKVCache(_Slots):
     """Block-paged K/V pools ``[L, num_pages, H_kv, page_size, D]`` on the
     device, plus the per-slot page table (host numpy) and slot bookkeeping.
 
@@ -134,10 +235,6 @@ class PagedKVCache:
                                   PAGE_SENTINEL, np.int32)
         self._free: List[int] = list(range(max_batch_size))[::-1]
 
-    @property
-    def nbytes(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
-
     def table_device(self) -> torch.Tensor:
         """Snapshot of the host page table on the cache's device."""
         return torch.from_numpy(self.page_table).to(self.device)
@@ -155,15 +252,19 @@ class PagedKVCache:
     def write_prefill(self, kvs, page_row, T: int):
         """Install a ``T``-token prefill's per-layer K/V (each
         ``[1, H_kv, T, D]``) into the pages of ``page_row`` (a slot's table
-        row), in place. Full pages go in one indexed copy per pool; a
-        partial last block writes only its ``T % ps`` tokens. Blocks whose
-        entry is the sentinel land on the trash page."""
+        row: host numpy, or a device tensor, which a captured prefill
+        reads), in place. Full pages go in one indexed copy per pool; a
+        partial last block writes only its ``T % ps`` tokens (``T`` is
+        static). Blocks whose entry is the sentinel land on the trash
+        page; the clamp runs on the device, so nothing is read on the
+        host."""
         ps = self.page_size
         knew = torch.stack([k[0] for k, _ in kvs])    # [L, Hkv, T, D]
         vnew = torch.stack([v[0] for _, v in kvs])
-        pages = torch.from_numpy(
-            np.maximum(page_row[:(T + ps - 1) // ps], 0).astype(np.int64)
-        ).to(self.device)
+        if isinstance(page_row, np.ndarray):
+            page_row = torch.from_numpy(page_row)
+        pages = page_row[:(T + ps - 1) // ps].to(self.device).long() \
+            .clamp(min=0)
         full = T // ps
         L, Hkv, _, D = knew.shape
         for pool, new in ((self.k, knew), (self.v, vnew)):
@@ -172,7 +273,10 @@ class PagedKVCache:
                 pool[:, pages[:full]] = new[:, :, :full * ps] \
                     .reshape(L, Hkv, full, ps, D).transpose(1, 2)
             if T % ps:
-                pool[:, pages[full], :, :T % ps] = new[:, :, full * ps:]
+                # a one-entry index, not a 0-d one: indexing by a 0-d
+                # tensor reads it on the host
+                pool[:, pages[full:], :, :T % ps] = \
+                    new[:, None, :, full * ps:]
 
     def slot_pages(self, slot: int) -> List[int]:
         row = self.page_table[slot]
@@ -184,22 +288,6 @@ class PagedKVCache:
         pages = self.slot_pages(slot)
         self.page_table[slot, :] = PAGE_SENTINEL
         return pages
-
-    def alloc_slot(self) -> Optional[int]:
-        """Lowest free slot index, or None when the batch is full."""
-        return self._free.pop() if self._free else None
-
-    def free_slot(self, slot: int):
-        self._free.append(slot)
-        self._free.sort(reverse=True)
-
-    @property
-    def free_slots(self) -> int:
-        return len(self._free)
-
-    @property
-    def active_slots(self) -> int:
-        return self.max_batch_size - len(self._free)
 
     def layer_caches(self, table: Optional[torch.Tensor] = None):
         """Per-layer ``(k_pool, v_pool, page_table)`` triples — views into

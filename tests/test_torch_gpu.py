@@ -893,8 +893,9 @@ def test_one_capture_per_program_and_tokens_match_cpu(cuda, opts):
         outs[dev.type] = (first, req.output_ids,
                           eng.generate(prompts[3:], sp))
         if dev.type == "cuda":
-            assert list(eng.steps) == [program]
-            assert eng.steps[program].captures == 1
+            assert program in eng.steps and not (
+                set(eng.steps) - {program} - _bucket_programs(eng))
+            assert all(st.captures == 1 for st in eng.steps.values())
             counts = K.launch_counts()
             assert counts["fused_layer_norm"] > 0
             assert counts["flash_attention_fwd"] > 0
@@ -948,3 +949,205 @@ def test_load_weights_after_capture_serves_the_new_weights(cuda, opts):
     eng.load_weights(new.state_dict())
     assert eng.generate(prompts, sp) == want
     assert all(s.captures == 1 for s in eng.steps.values())
+
+
+# ---------------- per-bucket prefill and extend, the dense layout ----------
+def _bucket_programs(eng):
+    return {f"{kind}:{T}" for kind in ("prefill", "extend")
+            for T in eng.config.prefill_buckets}
+
+
+def _pools(eng):
+    """Copies of the K/V buffers; paged, without the trash page 0, where
+    writes past a slot's pages collide in no set order."""
+    first = 1 if eng.page_alloc is not None else 0
+    return eng.cache.k[:, first:].clone(), eng.cache.v[:, first:].clone()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_prefill_and_extend_graphs_equal_the_eager_call(cuda, dtype, layout):
+    """After a run, each bucket program's replay and its eager function on
+    the same buffers: the logits and the whole written K/V bitwise
+    equal."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    opts = dict(prefix_cache=True) if layout == "paged" \
+        else dict(kv_layout="dense")
+    eng = _engine(_serving_gpt(cuda, dtype), cuda, **opts)
+    eng.generate(_shared_prefix_prompts(6), SamplingParams(max_new_tokens=4))
+    names = [n for n in eng.steps if ":" in n]
+    assert any(n.startswith("prefill") for n in names)
+    assert any(n.startswith("extend") for n in names) == (layout == "paged")
+    for name in names:
+        step = eng.steps[name]
+        step.replay()
+        g_logits, g_pools = step.outputs[0].clone(), _pools(eng)
+        e_logits = step.fn()[0]
+        torch.cuda.synchronize()
+        assert torch.equal(g_logits, e_logits), name
+        assert all(torch.equal(a, b) for a, b in zip(g_pools, _pools(eng))), \
+            name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [{}, dict(prefix_cache=True),
+                                  dict(kv_layout="dense")])
+def test_one_capture_per_bucket_and_tokens_match_cpu(cuda, opts):
+    """Two generates over prompts of three buckets: every program is
+    captured once for the engine's lifetime and replayed after, nothing
+    runs eagerly on the card, and the greedy tokens equal the CPU
+    engine's on the same weights."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts = _shared_prefix_prompts(7)
+    sp = SamplingParams(max_new_tokens=6)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = _engine(_serving_gpt(dev), dev, **opts)
+        outs[dev.type] = [eng.generate(prompts, sp) for _ in range(2)]
+        if dev.type == "cuda":
+            buckets = {n for n in eng.steps if ":" in n}
+            assert buckets and buckets <= _bucket_programs(eng)
+            assert all(st.captures == 1 for st in eng.steps.values())
+            # with the prefix cache the second pass hits: extends instead
+            assert all(st.replays >= 1 + (not opts.get("prefix_cache"))
+                       for n, st in eng.steps.items() if n in buckets)
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_captures_leave_live_slots_unchanged(cuda, dtype):
+    """Dense layout: a prefill captured for a new slot while another slot
+    is live leaves every other row's K/V bitwise unchanged; the decode
+    step captured with two live slots leaves each row's positions before
+    its own write, and every idle row but position 0, unchanged."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    eng = Engine(_serving_gpt(cuda, dtype), EngineConfig(
+        max_batch_size=3, max_seq_len=64, kv_layout="dense"), device=cuda)
+    prompts = _shared_prefix_prompts(8)
+    eng.add_request(prompts[2], SamplingParams(max_new_tokens=8))  # 11: T 16
+    eng._admit()
+    before = _pools(eng)
+    eng.add_request(prompts[1], SamplingParams(max_new_tokens=8))  # 28: T 32
+    eng._admit()
+    assert {n: s.captures for n, s in eng.steps.items()} \
+        == {"prefill:16": 1, "prefill:32": 1}
+    after = _pools(eng)
+    for a, b in zip(before, after):
+        assert torch.equal(a[:, 0], b[:, 0]) and torch.equal(a[:, 2], b[:, 2])
+    pos = eng._positions.copy()
+    eng._decode()  # captures the decode step, then replays it
+    assert eng.steps["decode"].captures == 1
+    for a, b in zip(after, _pools(eng)):
+        for slot in (0, 1):
+            p = int(pos[slot])
+            assert torch.equal(a[:, slot, :, :p], b[:, slot, :, :p])
+            assert torch.equal(a[:, slot, :, p + 1:], b[:, slot, :, p + 1:])
+        assert torch.equal(a[:, 2, :, 1:], b[:, 2, :, 1:])
+
+
+@pytest.mark.gpu
+def test_generate_captures_once_per_key_and_matches_cpu(cuda):
+    """``generate`` on the card: the ids equal the CPU's (fp32); a second
+    call with the same key replays without a new capture, whatever its
+    eos and sampling settings; another key releases the first key's
+    programs and captures its own."""
+    model, cpu = _serving_gpt(cuda), _serving_gpt(torch.device("cpu"))
+    ids = torch.tensor(_shared_prefix_prompts(9)[0][:12]).repeat(3, 1)
+    ids[1:, 0] = torch.tensor([5, 7])
+    got = model.generate(ids.to(cuda), max_new_tokens=10)
+    assert torch.equal(got.cpu(), cpu.generate(ids, max_new_tokens=10))
+    state = model._generate_state
+    assert (state.prefill.captures, state.decode.captures) == (1, 1)
+    again = model.generate(ids.to(cuda), max_new_tokens=10)
+    assert torch.equal(again, got) and model._generate_state is state
+    assert (state.prefill.captures, state.decode.captures) == (1, 1)
+    assert (state.prefill.replays, state.decode.replays) == (2, 18)
+    eos = int(got[0, 14])
+    want = cpu.generate(ids, max_new_tokens=10, eos_token_id=eos)
+    assert torch.equal(model.generate(ids.to(cuda), max_new_tokens=10,
+                                      eos_token_id=eos).cpu(), want)
+    assert model._generate_state is state  # eos is not part of the key
+    model.generate(ids.to(cuda), max_new_tokens=10, do_sample=True, top_k=5)
+    assert model._generate_state is state  # nor are the sampling settings
+    assert torch.equal(model.generate(ids.to(cuda), max_new_tokens=10), got)
+    assert (state.prefill.captures, state.decode.captures) == (1, 1)
+    model.generate(ids[:2].to(cuda), max_new_tokens=4)
+    assert model._generate_state is not state
+    assert model._generate_state.prefill.captures == 1
+
+
+@pytest.mark.gpu
+def test_sampled_generate_draws_the_same_whether_captured_or_replayed(cuda):
+    """The capture gives the warm-up's draws back to the generator: a first
+    call (which captures) and a second (which replays) on the same seed
+    return the same ids, and the caller's generator advances."""
+    model = _serving_gpt(cuda)
+    ids = torch.tensor(_shared_prefix_prompts(10)[2]).repeat(2, 1).to(cuda)
+    kw = dict(max_new_tokens=12, do_sample=True, temperature=1.5, top_k=20)
+    runs = []
+    for _ in range(2):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        state = g.get_state()
+        runs.append(model.generate(ids, generator=g, **kw))
+        assert not torch.equal(g.get_state(), state)
+    assert model._generate_state.decode.captures == 1
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0][0], runs[0][1])  # rows draw apart
+
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises(cuda):
+    """A program that reads the card on the host cannot be captured: the
+    capture raises, nothing runs it eagerly in its place, and the draws of
+    its warm-up run are given back to its generator all the same."""
+    from paddle_tpu_torch.serving.graphs import Buffers, CapturedStep
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    before = gen.get_state()
+    bufs = Buffers(x=torch.ones(4, device=cuda))
+    step = CapturedStep(
+        lambda: (torch.rand(4, device=cuda, generator=gen)
+                 * float(bufs.x.sum()),), bufs, cuda, gen)
+    with pytest.raises(RuntimeError):
+        step.run()
+    assert step.captures == 0 and step.outputs is None
+    assert torch.equal(gen.get_state(), before)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_programs_share_one_pool_and_each_prefill_is_sampled_first(cuda,
+                                                                  layout):
+    """The engine captures its programs into one memory pool, where a
+    replay may overwrite another program's outputs. Two requests of two
+    buckets admitted in one step (two prefill replays back to back): each
+    first token is the argmax of its own bucket's eager call on the
+    request's inputs, so each prefill's logits were sampled before the
+    next replay."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    opts = {} if layout == "paged" else dict(kv_layout="dense")
+    eng = _engine(_serving_gpt(cuda), cuda, **opts)
+    prompts = _shared_prefix_prompts(11)
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=4))
+            for p in (prompts[2], prompts[1])]  # 11 tokens: T 16; 28: T 32
+    eng._admit()
+    assert set(eng.steps) == {"prefill:16", "prefill:32"}
+    assert eng._graph_pool is not None
+    assert {st.pool for st in eng.steps.values()} == {eng._graph_pool}
+    for req in reqs:
+        n = len(req.prompt_ids)
+        T = eng._bucket(n)
+        ids = np.zeros((1, T), np.int64)
+        ids[0, :n] = req.prompt_ids
+        step = eng.steps[f"prefill:{T}"]
+        step.buffers.write(ids=ids, length=np.array([n]),
+                           row=eng._slot_row(req.slot))
+        assert req.output_ids[0] == int(step.fn()[0].argmax(dim=-1)[0])

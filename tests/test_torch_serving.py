@@ -191,7 +191,8 @@ def test_page_allocator_invariants():
         PageAllocator(1)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="dense"),
+@pytest.mark.parametrize("kw", [dict(kv_layout="dense",
+                                     request_trace_dir="traces"),
                                 dict(request_trace_dir="traces")])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
