@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --paged-shapes-of DIR [--paged-symbols S ...]
         # another checkout's paged decode at [3]'s four shapes
+    python3 chip_smoke.py --train-of DIR
+        # a checkout's training step ([6]) and recompute policies ([8])
 
 Phases, each of which exits non-zero on failure:
 
@@ -120,7 +122,25 @@ Phases, each of which exits non-zero on failure:
    capture per program, no paged decode, the decode step's host clock,
    device busy and ``decode_attend``'s share); then (run after 12) at
    depth 2 in fp32, the dense engine and ``generate`` on the card and on
-   the CPU: tokens must match.
+   the CPU: tokens must match;
+15. checkpoint, data and resume at full width (run after 10): GPT-3 1.3B
+   with 6's configuration and optimizer, fed by the port's pipeline
+   (``TokenBinSource`` over token files written from the seed,
+   ``SequencePacker``, ``GlobalBatchFeeder`` with prefetch depth 2);
+   run A takes 2 steps, saves them through ``CheckpointManager`` (async:
+   ``state_for_checkpoint()`` and the pipeline's state) and takes 2 more;
+   run B builds a model from other weights, restores the save and the
+   pipeline's position and takes the same 2 steps: its losses and every
+   parameter and optimizer slot must equal run A's bit for bit (every
+   flash launch on the wgmma route). It prints the state's bytes on disk,
+   the save's blocking against its total ms, the restore's ms and GB/s,
+   the pipeline's host wait per step and the step time under the feeder
+   against 6's, each beside the card's name and power limit. Then the
+   same resume with dropout 0.1 at full width and depth 2 (the attention
+   plain: the flash kernels have no dropout), run A 1 step, a save and 2
+   steps, run B restored into other weights bitwise equal to run A, the
+   save restored under another seed drawing other masks; and the port's
+   ``Dropout`` timed against ``torch.nn.Dropout`` on a block's output.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -226,6 +246,10 @@ REDUCE_FNS = {
     "row max": (lambda acc, b: torch.maximum(acc, b.amax(-1)),
                 float("-inf")),
 }
+# where phase 15 writes its token files and its 1.3B checkpoint (13.2 GB):
+# the temp directory (``tempfile``'s, TMPDIR when set), a disk with 75 GB
+# free on the card's machine, where /dev/shm is memory
+CKPT_PARENT = None
 ADAMW_HP = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
                 beta1_pow=0.9 ** 3, beta2_pow=0.999 ** 3)
 
@@ -671,14 +695,21 @@ def norm_checks(K, gen, rows):
             lib = timed_ms(lambda: lib_fwd(x, *params), 200)
             dms = device_ms(lambda: fwd(x, *params, eps), NORM_SYMBOLS["fwd"],
                             50)
+            # the library call's device time: every kernel it launches
+            lib_k = profile_kernels(
+                lambda: [lib_fwd(x, *params) for _ in range(50)])
+            lib_dms = sum(s for _, s in lib_k) / 50 * 1e3
             err = max_err(fwd(x, *params, eps), fwd_ref(x, *params, eps))
             bms, by = bound(2 * R * H * 2 + n_par * H * 2,
                             (8 if ln else 4) * R * H, PEAK_FP32)
             t[R] = dict(ms=ms, device_ms=dms, plain_ms=plain, library_ms=lib,
-                        bound_ms=bms, bound_by=by, max_abs_err=err)
+                        library_device_ms=lib_dms, bound_ms=bms, bound_by=by,
+                        max_abs_err=err)
             print(f"  {fname} bf16 [{R}, {H}]: kernel {ms:.4f} ms (device "
                   f"{fmt(dms, '.4f')} ms), plain {plain:.4f} ms, {libname} "
-                  f"{lib:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
+                  f"{lib:.4f} ms (device {lib_dms:.4f} ms over "
+                  f"{len(lib_k)} kernel(s) {[k for k, _ in lib_k][:2]}), "
+                  f"bound {bms:.5f} ms ({by})", flush=True)
             check(dms is not None, f"the profiler did not see "
                   f"{NORM_SYMBOLS['fwd']} for {fname}")
         # the backward at the training rows: the kernel pair (rows, then
@@ -1956,6 +1987,7 @@ def train_slice(K, seed: int, rows):
     print(f"    phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     del model, opt, step
     torch.cuda.empty_cache()
+    return step_s
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2315,6 +2347,296 @@ def user_api_path(K, ops, rows):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 15
+def state_tensors(step):
+    """The train step's state by name: each parameter, and each optimizer
+    slot as ``name/slot`` (tensors; the step powers fp32 host scalars)."""
+    out = dict(step.params)
+    for name, slots in step.optimizer.state.items():
+        out.update({f"{name}/{k}": v for k, v in slots.items()})
+    return out
+
+
+def state_checksum(state) -> int:
+    """Sum over the tensors of their words as integers (int64 sums mod
+    2**64), a summary printed beside the bitwise comparison."""
+    total = 0
+    for v in state.values():
+        if isinstance(v, torch.Tensor):
+            words = v.detach().reshape(-1).view(
+                {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                    v.element_size()])
+            total += int(words.to(torch.int64).sum())
+        else:
+            total += int(np.asarray(v).view(np.int32))
+    return total % 2 ** 64
+
+
+def write_token_shards(directory: Path, seed: int, vocab: int, n_tokens: int,
+                       n_shards: int = 4):
+    """uint16 token shards of EOS-ended documents of 64 to 2048 tokens
+    (EOS = 0), ``n_tokens`` in all, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    per = n_tokens // n_shards
+    paths = []
+    for i in range(n_shards):
+        toks = rng.integers(1, vocab, per, dtype=np.int64).astype(np.uint16)
+        ends = np.cumsum(rng.integers(64, 2049, per // 64 + 1))
+        toks[ends[ends < per] - 1] = 0
+        toks[-1] = 0
+        path = directory / f"tokens_{i:02d}.bin"
+        toks.tofile(path)
+        paths.append(str(path))
+    return paths
+
+
+def ckpt_resume_slice(K, seed: int, rows, step6_s):
+    """GPT-3 1.3B (phase 6's configuration and optimizer) fed by the port's
+    pipeline, saved through ``CheckpointManager`` after k steps and resumed
+    into a model of other weights: the n steps after the save must be
+    bitwise those of the run that kept going."""
+    import math
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.checkpoint import CheckpointManager, TrainState
+    from paddle_tpu_torch.data import build_pretrain_pipeline
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**GPT3_1p3B, dropout=0.0, use_recompute=True,
+                    recompute_interval=1, loss_chunk=128)
+    B, S, k, n, depth = 16, 2048, 2, 2, 2
+    for where in (tempfile.gettempdir(), "/dev/shm"):
+        if os.path.isdir(where):
+            print(f"[15] free bytes in {where}: "
+                  f"{shutil.disk_usage(where).free}", flush=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=CKPT_PARENT))
+    try:
+        files = write_token_shards(work, seed + 15, cfg.vocab_size,
+                                   16 * B * S)
+
+        def build(init_seed):
+            model = GPTForCausalLM(
+                cfg, device="cuda", dtype=torch.bfloat16,
+                generator=torch.Generator(device="cuda").manual_seed(
+                    init_seed))
+            model.train()
+            opt = AdamW(learning_rate=1e-4,
+                        parameters=model.named_parameters(),
+                        multi_precision=True, moment_dtype="bfloat16")
+            step = make_sharded_train_step(model, opt, seed=seed)
+            pipe = build_pretrain_pipeline(
+                files, B, S, eos_id=0, seed=seed, process_index=0,
+                process_count=1, prefetch_depth=depth, device="cuda")
+            return step, pipe
+
+        def train(step, it, steps):
+            losses, times = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                x = next(it)["tokens"]
+                loss = step(x, torch.roll(x, -1, dims=1))
+                losses.append(float(loss))  # one read: the step's end
+                times.append(time.perf_counter() - t0)
+            return losses, times
+
+        K.reset_launch_counts()
+        step, pipe = build(seed)
+        it = iter(pipe)
+        losses_a, _ = train(step, it, k)
+        mgr = CheckpointManager(str(work / "ckpt"), keep_last_n=1)
+        ts = step.state_for_checkpoint()
+        ts.data_position = pipe.get_state()
+        torch.cuda.synchronize()
+        mgr.save(step.step_index, ts.to_tree())
+        blocking_ms = mgr.last_save["blocking_s"] * 1e3
+        more_a, times_a = train(step, it, n)
+        mgr.wait_until_finished()
+        saved = mgr.last_save
+        it.close()
+        want = {name: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for name, v in state_tensors(step).items()}
+        sum_a = state_checksum(want)
+        wait_a = pipe.host_wait_ms_mean
+        del step, pipe, it, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        step, pipe = build(seed + 1)
+        restored = CheckpointManager(str(work / "ckpt"))
+        t0 = time.perf_counter()
+        tree = restored.restore()
+        read_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        step.restore_from_checkpoint(tree)
+        pipe.set_state(TrainState.from_tree(tree).data_position)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t1
+        del tree
+        it = iter(pipe)
+        losses_b, times_b = train(step, it, n)
+        it.close()
+        counts = K.launch_counts()
+        routes = check_flash_routes(K, "wgmma", "[15]")
+        got = state_tensors(step)
+        sum_b = state_checksum(got)
+        differ = [name for name, v in want.items()
+                  if not (torch.equal(v, got[name])
+                          if isinstance(v, torch.Tensor)
+                          else np.asarray(v).tobytes()
+                          == np.asarray(got[name]).tobytes())]
+        gb = saved["bytes"] / 1e9
+        smi = nvidia_smi_line()
+        print(f"[15] GPT-3 1.3B ({smi}) fed by TokenBinSource -> "
+              f"SequencePacker -> GlobalBatchFeeder (prefetch {depth}) over "
+              f"{len(files)} token files; run A: {k} steps, an async save "
+              f"of step {k}, {n} steps; run B: other init weights, restored, "
+              f"{n} steps", flush=True)
+        print(f"    state on disk {saved['bytes']} bytes ({gb:.3f} GB) in "
+              f"{work.parent}; save blocking {blocking_ms:.1f} ms (the "
+              f"device-to-host snapshot), total {saved['total_s'] * 1e3:.1f} "
+              f"ms ({smi})", flush=True)
+        print(f"    restore: read and checked {read_s * 1e3:.1f} ms "
+              f"({gb / read_s:.2f} GB/s), copied into the live state "
+              f"{copy_s * 1e3:.1f} ms ({smi})", flush=True)
+        print(f"    host wait per step (host_wait_ms_mean): run A "
+              f"{wait_a:.3f} ms, run B {pipe.host_wait_ms_mean:.3f} ms; "
+              f"step under the feeder: run A after the save "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times_a)} ms (the "
+              f"write in flight), run B "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times_b)} ms, against "
+              f"[6]'s {step6_s * 1e3:.1f} ms ({smi})", flush=True)
+        print(f"    losses run A {losses_a + more_a}, run B {losses_b}; "
+              f"state checksum A {sum_a} B {sum_b}; tensors that differ: "
+              f"{len(differ)} of {len(want)}", flush=True)
+        print(f"    kernel launches over both runs: {counts}; flash by "
+              f"route: {routes}", flush=True)
+        check(all(math.isfinite(v) for v in losses_a + more_a + losses_b),
+              "[15]: a loss is not finite")
+        check(losses_b == more_a, f"[15]: run B's losses {losses_b} are not "
+              f"run A's {more_a}")
+        check(not differ, f"[15]: run B's state differs from run A's in "
+              f"{differ[:6]}")
+        check(all(counts[name] > 0 for name in TRAINING_KERNELS),
+              f"[15]: a kernel of the training path was never launched: "
+              f"{counts}")
+        for name in TRAINING_KERNELS:
+            rows[name]["launches_resume"] = counts[name]
+        mgr.close()
+        restored.close()
+        del step, pipe, it, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"    phase 15 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def dropout_resume(seed: int):
+    """[15]'s resume with dropout 0.1: 6's model and optimizer at full width
+    and depth 2 (attention with dropout is the plain attention, in the JAX
+    package as in the port: the flash kernels have no dropout). Run A
+    takes 1 step, saves it through ``CheckpointManager`` and takes 2 more;
+    run B, from other weights, restores the save and takes the same 2
+    steps bitwise; the save restored under another seed must draw other
+    masks. Then the port's ``Dropout`` against ``torch.nn.Dropout`` on a
+    block's output, [16, 2048, 2048] bf16, by CUDA events."""
+    import math
+    import tempfile
+
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import Dropout
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**{**GPT3_1p3B, "num_layers": 2}, dropout=0.1,
+                    use_recompute=True, recompute_interval=1, loss_chunk=128)
+    B, S, k, n = 16, 2048, 1, 2
+    g = torch.Generator(device="cuda").manual_seed(seed + 16)
+    xs = torch.randint(0, cfg.vocab_size, (k + n, B, S), generator=g,
+                       device="cuda")
+
+    def build(init_seed):
+        model = GPTForCausalLM(
+            cfg, device="cuda", dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(init_seed))
+        model.train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                    multi_precision=True, moment_dtype="bfloat16")
+        return make_sharded_train_step(model, opt, seed=seed)
+
+    def train(step, batches):
+        losses, times = [], []
+        for x in batches:
+            t0 = time.perf_counter()
+            losses.append(float(step(x, torch.roll(x, -1, dims=1))))
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dropout_",
+                                 dir=CKPT_PARENT))
+    try:
+        step = build(seed)
+        train(step, xs[:k])
+        mgr = CheckpointManager(str(work), async_=False)
+        mgr.save(step.step_index, step.state_for_checkpoint().to_tree())
+        more_a, times_a = train(step, xs[k:])
+        want = {name: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for name, v in state_tensors(step).items()}
+        del step
+        torch.cuda.empty_cache()
+        step = build(seed + 1)
+        step.restore_from_checkpoint(mgr.restore())
+        losses_b, times_b = train(step, xs[k:])
+        got = state_tensors(step)
+        differ = [name for name, v in want.items()
+                  if not (torch.equal(v, got[name])
+                          if isinstance(v, torch.Tensor)
+                          else np.asarray(v).tobytes()
+                          == np.asarray(got[name]).tobytes())]
+        n_state = len(want)
+        tree = mgr.restore()
+        tree["rng"]["seed"] = seed + 1
+        step.restore_from_checkpoint(tree)
+        other, _ = train(step, xs[k:k + 1])
+        mgr.close()
+        del step, want, got, tree
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    x = torch.randn(B, S, cfg.hidden_size, device="cuda",
+                    dtype=torch.bfloat16)
+    port, lib = Dropout(0.1), torch.nn.Dropout(0.1)
+    port_ms, lib_ms = timed_ms(lambda: port(x), 20), timed_ms(
+        lambda: lib(x), 20)
+    smi = nvidia_smi_line()
+    print(f"[15] dropout 0.1, depth 2 ({smi}): run A {k} step, a save, "
+          f"{n} steps {' '.join(f'{t * 1e3:.1f}' for t in times_a)} ms; run "
+          f"B restored into other weights, {n} steps "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in times_b)} ms", flush=True)
+    print(f"    losses run A {more_a}, run B {losses_b}; tensors that "
+          f"differ: {len(differ)} of {n_state}; the save restored under seed "
+          f"{seed + 1}: first loss {other[0]}", flush=True)
+    print(f"    port Dropout(0.1) {port_ms:.4f} ms, torch.nn.Dropout(0.1) "
+          f"{lib_ms:.4f} ms on [{B}, {S}, {cfg.hidden_size}] bf16, CUDA "
+          f"events ({smi}); took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    check(all(math.isfinite(v) for v in more_a + losses_b + other),
+          "[15] dropout: a loss is not finite")
+    check(losses_b == more_a, f"[15] dropout: run B's losses {losses_b} "
+          f"are not run A's {more_a}")
+    check(not differ, f"[15] dropout: run B's state differs from run A's "
+          f"in {differ[:6]}")
+    check(other[0] != more_a[0], f"[15] dropout: seed {seed + 1} drew "
+          f"seed {seed}'s masks")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2326,12 +2648,17 @@ def main() -> int:
                     help="with --paged-shapes-of: the kernels whose device "
                     "time is summed, where DIR's differ from "
                     f"{' and '.join(PAGED_SYMBOLS.values())}")
+    ap.add_argument("--train-of", metavar="DIR", type=Path,
+                    help="only run phase 6's step and phase 8's recompute "
+                    "policies with the package in DIR (a checkout of "
+                    "another commit, or this one), and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the "
               "card only", file=sys.stderr)
         return 2
-    repo = (args.paged_shapes_of or Path(__file__).parent).resolve()
+    repo = (args.paged_shapes_of or args.train_of
+            or Path(__file__).parent).resolve()
     if not (repo / "paddle_tpu_torch" / "__init__.py").exists():
         print(f"chip_smoke: no paddle_tpu_torch package in {repo}",
               file=sys.stderr)
@@ -2350,6 +2677,21 @@ def main() -> int:
         check(all(sh["device_ms"] is not None for sh in shapes),
               f"the profiler did not see {' and '.join(symbols.values())}")
         print(json.dumps({"paged_shapes": shapes}), flush=True)
+        return 0
+    if args.train_of:
+        from paddle_tpu_torch import kernels as K
+        from paddle_tpu_torch.kernels import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[1] device: {nvidia_smi_line()}; training of {repo}",
+              flush=True)
+        print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
+        train_slice(K, args.seed, {name: {} for name in TRAINING_KERNELS})
+        t0 = time.perf_counter()
+        train_surface(K, args.seed)
+        print(f"    phase 8 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
         return 0
 
     # ---- 1. device
@@ -2612,7 +2954,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. training slice at full width; 7. training vs plain
-    train_slice(K, args.seed, rows)
+    step6_s = train_slice(K, args.seed, rows)
     train_vs_plain(K, args.seed)
 
     # ---- 8. training surface at full width; 9. surface vs plain;
@@ -2622,6 +2964,10 @@ def main() -> int:
     print(f"    phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     surface_vs_plain(K, args.seed)
     user_api_path(K, ops, rows)
+
+    # ---- 15. checkpoint, data and resume at full width; with dropout
+    ckpt_resume_slice(K, args.seed, rows, step6_s)
+    dropout_resume(args.seed)
 
     # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

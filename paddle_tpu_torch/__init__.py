@@ -13,8 +13,11 @@ it launches the kernel or raises.
 This package imports nothing of JAX and nothing of ``paddle_tpu``.
 """
 
-from . import distributed, kernels, models, nn, optimizer
+from . import (checkpoint, data, distributed, framework, io, kernels, models,
+               nn, optimizer)
 from .device import resolve_device, resolve_dtype
+from .framework import load, save
 
-__all__ = ["distributed", "kernels", "models", "nn", "optimizer",
-           "resolve_device", "resolve_dtype"]
+__all__ = ["checkpoint", "data", "distributed", "framework", "io", "kernels",
+           "models", "nn", "optimizer", "resolve_device", "resolve_dtype",
+           "load", "save"]

@@ -131,3 +131,6 @@ class GradScaler:
         self._scale = state.get("scale", self._scale)
         self._good_steps = state.get("incr_count", 0)
         self._bad_steps = state.get("decr_count", 0)
+
+    set_state_dict = load_state_dict
+

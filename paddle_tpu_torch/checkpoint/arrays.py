@@ -1,0 +1,365 @@
+"""Array-tree serialization (``paddle_tpu/checkpoint/arrays.py`` analog),
+one process.
+
+The on-disk format is the JAX package's, byte for byte, so either package
+restores what the other wrote: ``manifest.json`` (``format``
+``paddle_tpu.ckpt.v1``; per array its global shape, dtype string,
+``sharding`` and per-shard file, offset, shape, CRC32 and byte count; the
+tree's structure with array leaves as ``{"__array__": path}`` markers and
+JSON scalars inline) and one raw ``.bin`` per shard, named by the leaf's
+path and its shard's offsets. In one process each tensor is one shard at
+offset zero and ``sharding`` is null.
+
+Leaves are ``torch.Tensor`` (on any device: snapshotted to the host),
+numpy arrays or scalars, or JSON scalars (int, float, str, bool, None) in
+nested dicts, lists and tuples (tuples come back as lists). A tensor is
+written as its raw bytes under numpy's name for its dtype; ``bfloat16``
+(and the fp8 types, which numpy lacks) are written as their raw words
+under the name the JAX package's ``ml_dtypes`` arrays carry, so the bytes
+are the same on both sides. Restored arrays come back as CPU tensors
+(``torch.frombuffer`` over the validated bytes), whatever their dtype.
+
+Multi-process writes, ``merge_manifests``, restore-time resharding and
+``live_state`` belong to distribution (ROADMAP queue A item A5).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+MANIFEST_NAME = "manifest.json"
+FORMAT = "paddle_tpu.ckpt.v1"
+
+_SEP = "/"
+_ARRAY_KEY = "__array__"
+
+#: dtype names of the manifest <-> torch dtypes
+_TORCH_DTYPES = {
+    "float64": torch.float64, "float32": torch.float32,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int64": torch.int64, "int32": torch.int32, "int16": torch.int16,
+    "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
+    "uint16": torch.uint16, "uint32": torch.uint32, "uint64": torch.uint64,
+    "complex64": torch.complex64, "complex128": torch.complex128,
+    "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,
+}
+_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+_A5 = "ROADMAP queue A item A5, distribution"
+
+
+def map_files(fn: Callable, items) -> list:
+    """``[fn(item) for item in items]`` on up to 8 threads: file reads and
+    writes and zlib's CRC32 release the GIL, so one file's I/O overlaps
+    another's checksum."""
+    items = list(items)
+    if len(items) < 2:
+        return [fn(item) for item in items]
+    with ThreadPoolExecutor(min(8, len(items), os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
+
+
+def _world() -> tuple:
+    """(rank, world size) of ``torch.distributed`` when it is initialised,
+    else (0, 1)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _one_process(what: str):
+    if _world()[1] > 1:
+        raise NotImplementedError(f"{what} across processes is not ported "
+                                  f"yet ({_A5})")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise TypeError(f"checkpoint dtype {name!r} has no torch "
+                        "counterpart") from None
+
+
+def _is_array_leaf(v) -> bool:
+    return isinstance(v, (torch.Tensor, np.ndarray, np.generic))
+
+
+def flatten_tree(state) -> Dict[str, Any]:
+    """Nested containers -> {path: leaf} with '/'-joined string paths."""
+    out: Dict[str, Any] = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                k = str(k)
+                if _SEP in k:
+                    raise ValueError(f"state key may not contain '{_SEP}': "
+                                     f"{k!r}")
+                walk(f"{prefix}{_SEP}{k}" if prefix else k, v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}{_SEP}{i}" if prefix else str(i), v)
+        else:
+            out[prefix] = node
+
+    walk("", state)
+    return out
+
+
+def _structure(state, arrays: Dict[str, Any], prefix: str = ""):
+    """Nesting skeleton for the manifest: array leaves become
+    {"__array__": path} markers, scalars stay inline JSON."""
+    if isinstance(state, dict):
+        return {str(k): _structure(v, arrays,
+                                   f"{prefix}{_SEP}{k}" if prefix else str(k))
+                for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [_structure(v, arrays,
+                           f"{prefix}{_SEP}{i}" if prefix else str(i))
+                for i, v in enumerate(state)]
+    if _is_array_leaf(state):
+        return {_ARRAY_KEY: prefix}
+    if state is None or isinstance(state, (bool, int, float, str)):
+        return state
+    raise TypeError(
+        f"unsupported checkpoint leaf at {prefix!r}: {type(state).__name__} "
+        "(tensors, arrays, numbers, strings, bools, None, and nested "
+        "dict/list/tuple containers are checkpointable)")
+
+
+def _unstructure(node, resolve_array):
+    if isinstance(node, dict):
+        if _ARRAY_KEY in node and len(node) == 1:
+            return resolve_array(node[_ARRAY_KEY])
+        return {k: _unstructure(v, resolve_array) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_unstructure(v, resolve_array) for v in node]
+    return node
+
+
+def _file_name(path: str, offsets) -> str:
+    """Shard file name: the leaf's path with '/' as '__', then its global
+    offsets (``.scalar.bin`` for a 0-d array)."""
+    base = path.replace(_SEP, "__")
+    if not offsets:
+        return f"{base}.scalar.bin"
+    return f"{base}.o{'_'.join(str(o) for o in offsets)}.bin"
+
+
+def snapshot_array(arr) -> dict:
+    """Host snapshot of one leaf, the only step-blocking part of a save:
+    ``{"global_shape", "dtype", "sharding", "shards": [(offsets, host)]}``
+    with ``host`` a CPU tensor (or a numpy array) that the training step
+    can no longer change; ``write_snapshot`` writes it later. A CUDA
+    tensor is copied to the host here."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach()
+        if t.dtype not in _DTYPE_NAMES:
+            raise TypeError(f"no checkpoint dtype name for {t.dtype}")
+        # a CPU tensor may still be written to by its owner: copy it too
+        host = t.to("cpu", copy=True).contiguous()
+        shape, dtype = tuple(host.shape), _DTYPE_NAMES[t.dtype]
+    else:
+        a = np.asarray(arr)
+        # ascontiguousarray promotes 0-d to (1,); keep the true shape
+        host = np.ascontiguousarray(a).reshape(a.shape).copy()
+        shape, dtype = host.shape, str(host.dtype)
+    return {"global_shape": [int(d) for d in shape], "dtype": dtype,
+            "sharding": None, "shards": [([0] * len(shape), host)]}
+
+
+def _raw(host) -> np.ndarray:
+    """The leaf's bytes as a flat uint8 view (no copy): the file write and
+    the CRC32 read it in place."""
+    if isinstance(host, torch.Tensor):
+        return host.reshape(-1).view(torch.uint8).numpy()
+    return host.reshape(-1).view(np.uint8)
+
+
+def write_snapshot(directory: str, path: str, snap: dict) -> dict:
+    """Write one snapshotted array's shard files; return its manifest
+    entry (with ``_bytes_written``, which the caller strips)."""
+    entries = []
+    total = 0
+    for offsets, data in snap["shards"]:
+        fname = _file_name(path, offsets)
+        raw = _raw(data)
+        with open(os.path.join(directory, fname), "wb") as f:
+            f.write(raw)
+        total += raw.nbytes
+        entries.append({
+            "file": fname,
+            "offset": offsets,
+            "shape": [int(d) for d in data.shape],
+            "crc32": zlib.crc32(raw) & 0xFFFFFFFF,
+            "bytes": raw.nbytes,
+        })
+    return {
+        "global_shape": snap["global_shape"],
+        "dtype": snap["dtype"],
+        "sharding": snap["sharding"],
+        "shards": entries,
+        "_bytes_written": total,
+    }
+
+
+def save_array(directory: str, path: str, arr) -> dict:
+    """Snapshot + write in one call (the synchronous path)."""
+    return write_snapshot(directory, path, snapshot_array(arr))
+
+
+def save_tree(directory: str, state, step: Optional[int] = None,
+              manifest_name: str = MANIFEST_NAME) -> dict:
+    """Write every array leaf of ``state`` under ``directory`` and return
+    the manifest dict, published under ``manifest_name`` unless that is
+    empty (the manager publishes its own, then COMMIT)."""
+    _one_process("save_tree")
+    os.makedirs(directory, exist_ok=True)
+    leaves = [(path, leaf) for path, leaf in flatten_tree(state).items()
+              if _is_array_leaf(leaf)]
+    arrays = dict(zip((path for path, _ in leaves), map_files(
+        lambda pl: save_array(directory, *pl), leaves)))
+    total = sum(e.pop("_bytes_written") for e in arrays.values())
+    manifest = {
+        "format": FORMAT,
+        "step": step,
+        "structure": _structure(state, arrays),
+        "arrays": arrays,
+        "bytes_written": total,
+    }
+    if manifest_name:
+        write_manifest(directory, manifest, manifest_name)
+    return manifest
+
+
+def write_manifest(directory: str, manifest: dict,
+                   manifest_name: str = MANIFEST_NAME):
+    tmp = os.path.join(directory, manifest_name + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    os.replace(tmp, os.path.join(directory, manifest_name))
+
+
+def read_manifest(directory: str, manifest_name: str = MANIFEST_NAME) -> dict:
+    with open(os.path.join(directory, manifest_name)) as f:
+        m = json.load(f)
+    if m.get("format") != FORMAT:
+        raise ValueError(f"{directory}: not a {FORMAT} checkpoint "
+                         f"(format={m.get('format')!r})")
+    return m
+
+
+# transient-I/O policy for restore reads: a flaky network filesystem fails
+# reads that succeed moments later; exhaustion re-raises with the shard's
+# path. Tests monkeypatch these.
+RESTORE_READ_RETRIES = 2         # extra attempts after the first failure
+RESTORE_RETRY_BACKOFF_S = 0.05   # doubles per attempt
+
+
+class _ShardReader:
+    """Checksum-validating access to one array's saved shards: each shard
+    file is read once into a buffer, its CRC32 checked, and viewed as a CPU
+    tensor of the entry's dtype."""
+
+    def __init__(self, directory: str, path: str, entry: dict,
+                 validate: bool = True):
+        self.directory = directory
+        self.path = path
+        self.entry = entry
+        self.validate = validate
+        self.dtype = torch_dtype(entry["dtype"])
+        self.global_shape = tuple(entry["global_shape"])
+
+    def _read_validated(self, fpath: str, shard: dict) -> bytearray:
+        with open(fpath, "rb") as f:
+            raw = bytearray(os.fstat(f.fileno()).st_size)
+            f.readinto(raw)
+        if self.validate:
+            crc = zlib.crc32(raw) & 0xFFFFFFFF
+            if crc != shard["crc32"]:
+                raise IOError(
+                    f"checksum mismatch for {self.path!r} shard "
+                    f"{shard['file']}: manifest {shard['crc32']:#x}, "
+                    f"file {crc:#x} — checkpoint is corrupt")
+        return raw
+
+    def _load(self, shard: dict) -> torch.Tensor:
+        fpath = os.path.join(self.directory, shard["file"])
+        retries = max(0, int(RESTORE_READ_RETRIES))
+        for attempt in range(retries + 1):
+            try:
+                raw = self._read_validated(fpath, shard)
+                break
+            except (OSError, IOError) as e:
+                # the syscall failing or a checksum mismatch (a torn
+                # page-cache read heals the same way)
+                if attempt == retries:
+                    raise IOError(
+                        f"restore of {self.path!r} failed after "
+                        f"{retries + 1} attempt(s) on shard file {fpath}: "
+                        f"{e}") from e
+                time.sleep(RESTORE_RETRY_BACKOFF_S * (2.0 ** attempt))
+        shape = tuple(shard["shape"])
+        if not raw:
+            return torch.empty(shape, dtype=self.dtype)
+        return torch.frombuffer(raw, dtype=self.dtype).reshape(shape)
+
+    def read_full(self) -> torch.Tensor:
+        shards = self.entry["shards"]
+        whole = [s for s in shards if not any(s["offset"])
+                 and tuple(s["shape"]) == self.global_shape]
+        if whole:
+            return self._load(whole[0])
+        out = torch.empty(self.global_shape, dtype=self.dtype)
+        filled = torch.zeros(self.global_shape, dtype=torch.bool)
+        for shard in shards:
+            dst = tuple(slice(o, o + n)
+                        for o, n in zip(shard["offset"], shard["shape"]))
+            out[dst] = self._load(shard)
+            filled[dst] = True
+        if not bool(filled.all()):
+            raise IOError(f"checkpoint for {self.path!r} is missing shard "
+                          "data (torn or foreign-topology save without a "
+                          "merged manifest?)")
+        return out
+
+
+def restore_array(directory: str, path: str, entry: dict, sharding=None,
+                  validate: bool = True) -> torch.Tensor:
+    """One array back, as a CPU tensor (assembled from its shards when a
+    multi-process save wrote several). ``sharding`` (a device layout) waits
+    for distribution and raises."""
+    if sharding is not None:
+        raise NotImplementedError(f"restore with shardings is not ported "
+                                  f"yet ({_A5})")
+    return _ShardReader(directory, path, entry, validate=validate).read_full()
+
+
+def load_tree(directory: str, shardings=None, validate: bool = True,
+              manifest: Optional[dict] = None, live_state=None):
+    """Restore the full state tree: array leaves as CPU tensors, JSON
+    scalars as they were. ``shardings`` and ``live_state`` (restore onto a
+    mesh, device to device) wait for distribution and raise."""
+    if shardings or live_state is not None:
+        raise NotImplementedError(f"load_tree(shardings=, live_state=) is "
+                                  f"not ported yet ({_A5})")
+    m = manifest if manifest is not None else read_manifest(directory)
+    paths = []
+    _unstructure(m["structure"], paths.append)
+    missing = [p for p in paths if p not in m["arrays"]]
+    if missing:
+        raise KeyError(f"array {missing[0]!r} not present in checkpoint")
+    arrays = dict(zip(paths, map_files(
+        lambda p: restore_array(directory, p, m["arrays"][p],
+                                validate=validate), paths)))
+    return _unstructure(m["structure"], arrays.__getitem__)

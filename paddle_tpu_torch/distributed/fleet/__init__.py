@@ -1,6 +1,7 @@
 from . import meta_parallel
-from .recompute import recompute
+from .recompute import recompute, recompute_hybrid, recompute_sequential
 from .utils import ShardedTrainStep, make_sharded_train_step
 
-__all__ = ["meta_parallel", "recompute", "ShardedTrainStep",
+__all__ = ["meta_parallel", "recompute", "recompute_sequential",
+           "recompute_hybrid", "ShardedTrainStep",
            "make_sharded_train_step"]

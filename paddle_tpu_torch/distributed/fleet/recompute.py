@@ -48,16 +48,43 @@ def _policy(saved, ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def recompute(function, *args, policy=None, **kwargs):
+def recompute(function, *args, use_reentrant: bool = True,
+              preserve_rng_state: bool = True, policy=None, **kwargs):
     """Checkpoint ``function(*args, **kwargs)``: keep its inputs and what
-    ``policy`` saves, replay the rest of its forward in the backward."""
+    ``policy`` saves, replay the rest of its forward in the backward.
+
+    ``use_reentrant`` is paddle's choice between its two implementations,
+    which compute the same values and gradients; the port always runs
+    PyTorch's non-reentrant checkpoint (the one that takes a policy and
+    inputs that need no gradient), as the JAX package always runs
+    ``jax.checkpoint``. ``preserve_rng_state`` passes through: when True
+    (the default) the RNG state is stashed and restored for the replay, so
+    dropout masks replay identically."""
     if policy not in POLICIES:
         raise ValueError(f"unknown recompute policy {policy!r}; one of "
                          f"{[p for p in POLICIES if p]}")
     if policy in _SAVED:
-        context_fn = functools.partial(
+        kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts,
             functools.partial(_policy, _SAVED[policy]))
-        return checkpoint(function, *args, use_reentrant=False,
-                          context_fn=context_fn, **kwargs)
-    return checkpoint(function, *args, use_reentrant=False, **kwargs)
+    return checkpoint(function, *args, use_reentrant=False,
+                      preserve_rng_state=preserve_rng_state, **kwargs)
+
+
+def recompute_sequential(ctx, functions, *args, **kwargs):
+    """``paddle.incubate.distributed.fleet.recompute_sequential``: each of
+    ``functions`` in turn under ``recompute`` (``kwargs`` go to each), the
+    output of one the input of the next. ``ctx`` (paddle's segment
+    settings) is not read, as in the JAX package: every function is its
+    own segment."""
+    out = args
+    for fn in functions:
+        out = (recompute(fn, *out, **kwargs),)
+    return out[0]
+
+
+def recompute_hybrid(ctx, function, *args, **kwargs):
+    """The mp-aware variant: on one device it is ``recompute`` (``ctx``,
+    paddle's mp group and offload settings, is not read, as in the JAX
+    package)."""
+    return recompute(function, *args, **kwargs)

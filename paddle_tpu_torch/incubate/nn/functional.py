@@ -10,7 +10,7 @@ from ...nn.functional import rms_norm
 
 
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
-                   begin_norm_axis=-1):
+                   begin_norm_axis=-1, name=None):
     """RMSNorm over ALL trailing axes from ``begin_norm_axis`` (the
     LayerNorm-style contract). Over the last axis alone it is
     ``nn.functional.rms_norm`` (the fused kernel); over more axes the fp32

@@ -134,7 +134,22 @@ def paged_attention_ref(q, k_pool, v_pool, page_table, positions):
                          paged_gather(v_pool, page_table), positions)
 
 
-def paged_attention(q, k_pool, v_pool, page_table, positions):
+def no_tpu_tier(what: str, impl):
+    """The JAX package picks its paged attend among TPU tiers ('oracle',
+    'interpret', 'pallas'); the port has one path per device, so only
+    None (or a False ``interpret``) is accepted."""
+    if impl is None or impl is False:
+        return
+    raise ValueError(
+        f"{what}={impl!r}: the JAX package's TPU tiers ('oracle', "
+        "'interpret', 'pallas') have no counterpart in the port, whose paged "
+        "decode takes the 'vector' or 'scalar' CUDA route by shape "
+        "(kernels.paged_attention.plan) and runs its plain version on CPU "
+        "tensors; pass None")
+
+
+def paged_attention(q, k_pool, v_pool, page_table, positions,
+                    interpret=False):
     """Ragged paged-decode attention over block-paged KV pools.
 
     q            ``[B, H_q, 1, D]`` — one query token per slot
@@ -144,7 +159,9 @@ def paged_attention(q, k_pool, v_pool, page_table, positions):
 
     Returns ``[B, H_q, 1, D]`` in v's dtype. CPU tensors run
     ``paged_attention_ref``; CUDA tensors launch the kernels (split, then
-    combine) on the route ``plan`` picks, or raise."""
+    combine) on the route ``plan`` picks, or raise. ``interpret`` (the
+    Pallas interpreter in the JAX package) must be False."""
+    no_tpu_tier("interpret", interpret)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, positions)
     if q.device.type != "cuda":

@@ -48,6 +48,8 @@ class GPTConfig:
     dropout: float = 0.0
     layer_norm_eps: float = 1e-5
     tie_word_embeddings: bool = True
+    sequence_parallel: bool = False
+    context_parallel: str = "ring"  # attention scheme under a sep axis
     use_recompute: bool = False
     recompute_policy: str = None  # None/'full', 'dots_saveable',
     #                               'dots_with_no_batch_dims_saveable',
@@ -56,8 +58,24 @@ class GPTConfig:
     loss_chunk: int = 0           # CE in sequence chunks of this size (0 =
     #                               off): no [B, S, V] fp32 logits
     initializer_range: float = 0.02
+    # GPT-MoE: the reference's defaults; ``moe_num_experts`` 0 is the dense
+    # FFN everywhere, and the other fields act only with experts
+    moe_num_experts: int = 0
+    moe_every_k: int = 2
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_dispatch: str = "dense"
 
     def __post_init__(self):
+        for what, on, item in (
+                ("sequence_parallel", self.sequence_parallel, "A5.7"),
+                ("context_parallel", self.context_parallel != "ring", "A5.7"),
+                ("moe_num_experts", self.moe_num_experts, "A5.1")):
+            if on:
+                raise NotImplementedError(
+                    f"GPTConfig.{what}={getattr(self, what)!r} is not ported "
+                    f"yet (ROADMAP queue A item {item})")
         if self.intermediate_size is None:
             self.intermediate_size = 4 * self.hidden_size
         if self.hidden_size % self.num_heads:
@@ -80,7 +98,7 @@ GPT_TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
@@ -159,7 +177,7 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.fc1 = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size,
                                         gather_output=False, device=device,
@@ -174,15 +192,20 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, use_moe: bool = False, *, device=None,
+                 dtype=None):
         super().__init__()
+        if use_moe:
+            raise NotImplementedError("GPTBlock(use_moe=True): the MoE FFN is "
+                                      "not ported yet (ROADMAP queue A item "
+                                      "A5.1)")
         self.cfg = cfg
         self.ln1 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                              device=device, dtype=dtype)
-        self.attn = GPTAttention(cfg, device, dtype)
+        self.attn = GPTAttention(cfg, device=device, dtype=dtype)
         self.ln2 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                              device=device, dtype=dtype)
-        self.mlp = GPTMLP(cfg, device, dtype)
+        self.mlp = GPTMLP(cfg, device=device, dtype=dtype)
 
     def forward(self, x, kv_cache=None, cache_positions=None,
                 return_kv=False):
@@ -197,7 +220,7 @@ class GPTBlock(nn.Module):
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         self.word_embeddings = VocabParallelEmbedding(
@@ -218,11 +241,11 @@ class GPTEmbeddings(nn.Module):
 class GPTModel(nn.Module):
     """Transformer trunk: embeddings -> blocks -> final LN."""
 
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = GPTEmbeddings(cfg, device, dtype)
-        self.layers = nn.ModuleList(GPTBlock(cfg, device, dtype)
+        self.embeddings = GPTEmbeddings(cfg, device=device, dtype=dtype)
+        self.layers = nn.ModuleList(GPTBlock(cfg, device=device, dtype=dtype)
                                     for _ in range(cfg.num_layers))
         self.final_ln = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                                   device=device, dtype=dtype)
@@ -268,13 +291,13 @@ class GPTForCausalLM(nn.Module):
     float32. Weights are drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; seed 0 when omitted) with the JAX package's init."""
 
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None,
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=None,
                  generator: torch.Generator = None):
         super().__init__()
         device = resolve_device(device)
         dtype = resolve_dtype(dtype)
         self.cfg = cfg
-        self.gpt = GPTModel(cfg, device, dtype)
+        self.gpt = GPTModel(cfg, device=device, dtype=dtype)
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(
                 cfg.hidden_size, cfg.vocab_size, has_bias=False,
@@ -392,7 +415,7 @@ class GPTForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,
-                 top_k: int = 0, eos_token_id=None,
+                 top_k: int = 0, eos_token_id=None, *,
                  generator: torch.Generator = None):
         """Autoregressive decoding (PaddleNLP ``GenerationMixin.generate``'s
         greedy/sampling core) of ``input_ids`` ``[B, S]``: one prefill and

@@ -55,7 +55,8 @@ def _sdpa_ref(q, k, v, mask=None, dropout_p=0.0, causal=False, scale=None,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True, name=None, *,
+                                 generator=None):
     if attn_mask is None and dropout_p == 0.0:
         return flash_attention(query, key, value, causal=is_causal)
     return _sdpa_ref(query, key, value, mask=attn_mask,

@@ -16,7 +16,7 @@ import torch
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
+                  use_softmax=True, label_smoothing=0.0, name=None):
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
     axis = axis % input.dim()

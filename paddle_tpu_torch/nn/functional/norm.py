@@ -13,7 +13,8 @@ import torch
 from ...kernels.norms import fused_layer_norm, fused_rms_norm
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     nshape = ((normalized_shape,) if isinstance(normalized_shape, int)
               else tuple(normalized_shape))
     if len(nshape) == 1 and weight is not None and bias is not None:
@@ -30,7 +31,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out.to(x.dtype)
 
 
-def rms_norm(x, weight=None, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """``x * rsqrt(mean(x^2, -1) + epsilon) * weight`` in fp32, cast to x's
     dtype."""
     if weight is not None:

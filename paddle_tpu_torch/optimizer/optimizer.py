@@ -17,6 +17,18 @@ decay. The JAX package's plain Adam arithmetic stays only for ``amsgrad``
 (the kernel keeps no running maximum) and for other dtypes.
 ``beta1_pow``/``beta2_pow`` are fp32 scalars multiplied in fp32 on the
 host, as the JAX state multiplies them, so trajectories match.
+
+``state_dict()`` / ``set_state_dict()`` (``set_dict``) use the JAX
+package's keys: ``f"{name}_{slot}"`` for every parameter's state,
+``global_step`` (the eager ``step()`` calls) and ``LR_Scheduler``. The
+state's tensors are returned as they live (no copy); ``set_state_dict``
+copies into them in place and restores the step powers to the same fp32
+bits.
+
+``lazy_mode`` (paddle: update only the rows a sparse gradient touches) and
+``use_multi_tensor`` (paddle: one fused launch over many tensors) change no
+value with the dense gradients the port makes, in paddle as here; they are
+kept on the optimizer. ``name`` is accepted and unused, as in paddle.
 """
 
 from __future__ import annotations
@@ -26,11 +38,26 @@ import torch
 
 from ..device import resolve_dtype
 from ..kernels.fused_optim import fused_adamw_update
+from ..weights import to_torch
 from .lr import LRScheduler
 
 _F32 = np.float32
 _LOW = (torch.bfloat16, torch.float16)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _load_slot(cur, v, key):
+    """``v`` into the slot ``cur``: a tensor slot is copied into in place
+    (shape must match), a host step power becomes an fp32 scalar."""
+    if isinstance(cur, torch.Tensor):
+        src = v if isinstance(v, torch.Tensor) else to_torch(np.asarray(v))
+        if tuple(src.shape) != tuple(cur.shape):
+            raise ValueError(f"set_state_dict: {key} is "
+                             f"{tuple(src.shape)}, the state holds "
+                             f"{tuple(cur.shape)}")
+        cur.copy_(src)
+        return cur
+    return _F32(float(v))
 
 
 def _named(parameters) -> dict:
@@ -57,7 +84,8 @@ class Optimizer:
     each step reads; the caller advances the scheduler."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
         if isinstance(learning_rate, bool) or not isinstance(
                 learning_rate, (int, float, LRScheduler)):
             raise TypeError(f"learning_rate must be a float or an "
@@ -70,6 +98,7 @@ class Optimizer:
         self._multi_precision = multi_precision
         #: per-parameter state by name: moments, step powers, master weight
         self.state = {}
+        self._step_count = 0  # eager step() calls (``global_step``)
 
     def get_lr(self) -> float:
         if isinstance(self._lr, LRScheduler):
@@ -91,6 +120,7 @@ class Optimizer:
                              "parameters=model.named_parameters()")
         if self._grad_clip is not None:
             self._grad_clip.clip_([p.grad for p in self._params.values()])
+        self._step_count += 1
         self.apply_gradients(self._params)
 
     def clear_grad(self, set_to_zero: bool = False):
@@ -99,6 +129,38 @@ class Optimizer:
                 p.grad.zero_()
             else:
                 p.grad = None
+
+    # ---- checkpointing ----
+    def state_dict(self) -> dict:
+        """``{f"{name}_{slot}": value}`` for every parameter that has
+        state, ``global_step``, and ``LR_Scheduler`` when the learning rate
+        is a scheduler (the JAX package's keys)."""
+        out = {f"{name}_{k}": v for name, s in self.state.items()
+               for k, v in s.items()}
+        out["global_step"] = self._step_count
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict):
+        """Load what ``state_dict`` gave (or the JAX package's, numpy or
+        tensors): each slot of the parameters given at construction (and of
+        any with state already) is copied into its tensor in place; the
+        step powers are restored as fp32 host scalars."""
+        if "global_step" in state_dict:
+            self._step_count = int(state_dict["global_step"])
+        if "LR_Scheduler" in state_dict and isinstance(self._lr,
+                                                       LRScheduler):
+            self._lr.set_state_dict(state_dict["LR_Scheduler"])
+        self.init_state(self._params)
+        for name, s in self.state.items():
+            for k in list(s):
+                key = f"{name}_{k}"
+                if key in state_dict:
+                    s[k] = _load_slot(s[k], state_dict[key], key)
+
+    set_dict = set_state_dict
 
     # ---- state ----
     def _init_state(self, value) -> dict:
@@ -163,10 +225,13 @@ class Optimizer:
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, amsgrad=False,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None, amsgrad=False,
                  moment_dtype=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         name, multi_precision)
+        self._lazy_mode = bool(lazy_mode)
+        self._use_multi_tensor = bool(use_multi_tensor)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._amsgrad = amsgrad
         # moment_dtype='bfloat16' halves the moments' memory; the update
@@ -246,9 +311,11 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False, amsgrad=False, moment_dtype=None):
+                 lazy_mode=False, multi_precision=False, name=None,
+                 amsgrad=False, moment_dtype=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision, amsgrad=amsgrad,
+                         None, grad_clip, lazy_mode, multi_precision,
+                         name=name, amsgrad=amsgrad,
                          moment_dtype=moment_dtype)
         self._wd_coeff = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun

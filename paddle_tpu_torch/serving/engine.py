@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.paged_attention import no_tpu_tier
 from . import graphs as _graphs
 from . import sampling as _sampling
 from .kv_cache import PAGE_SENTINEL, KVCache, PagedKVCache
@@ -181,10 +182,17 @@ class EngineConfig:
     max_seq_len: int = 128       # per-slot prompt + generation budget (S_max)
     prefill_buckets: Optional[Tuple[int, ...]] = None  # default: pow2 <= S_max
     cache_dtype: Optional[str] = None  # default: the model's param dtype
+    # request traces and SLO monitoring wait for the observability layer
+    # (ROADMAP queue A item A6): set, they raise
     request_trace_dir: Optional[str] = None
+    trace_sample_every: int = 1
+    slo: Optional[object] = None
     kv_layout: str = "paged"
     page_size: int = 16          # tokens per KV page (shrunk to divide S_max)
     kv_pages: Optional[int] = None  # pool size; default = full budget + trash
+    # the JAX package's paged-attend tier ("oracle"|"interpret"|"pallas");
+    # the port has one path per device, so only None is accepted
+    paged_attention_impl: Optional[str] = None
     # radix prefix cache (prefix_cache.py): finished prompts' full KV
     # blocks stay indexed by content, and a prompt that shares a
     # block-aligned prefix maps the same pages and prefills its suffix only
@@ -197,11 +205,15 @@ class EngineConfig:
         if self.kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout {self.kv_layout!r}; "
                              "want 'paged' or 'dense'")
-        if self.request_trace_dir:
-            raise NotImplementedError(
-                "EngineConfig.request_trace_dir is not ported yet (ROADMAP "
-                "queue A item A6: request traces with the observability "
-                "layer)")
+        for what, on in (("request_trace_dir", self.request_trace_dir),
+                         ("slo", self.slo is not None),
+                         ("trace_sample_every", self.trace_sample_every != 1)):
+            if on:
+                raise NotImplementedError(
+                    f"EngineConfig.{what} is not ported yet (ROADMAP queue A "
+                    "item A6: request traces and SLOs with the "
+                    "observability layer)")
+        no_tpu_tier("paged_attention_impl", self.paged_attention_impl)
         if isinstance(self.speculative, bool):
             self.speculative = SpeculativeConfig() if self.speculative \
                 else None
@@ -251,7 +263,7 @@ class Engine:
     outputs are valid until the engine replays any program.
     """
 
-    def __init__(self, model, config: Optional[EngineConfig] = None,
+    def __init__(self, model, config: Optional[EngineConfig] = None, *,
                  device=None, generator: Optional[torch.Generator] = None,
                  **kw):
         self.device = resolve_device(device)
@@ -307,13 +319,20 @@ class Engine:
 
     # -- weight management --
     @torch.no_grad()
-    def load_weights(self, params, allow_missing: bool = False):
+    def load_weights(self, params, shardings=None,
+                     allow_missing: bool = False):
         """Swap in serving weights: ``params`` maps the model's
         ``state_dict`` names (as ``weights.from_paddle_tpu`` makes them) to
         tensors or numpy arrays. Each is copied into the existing parameter
         in place, so the captured steps go on reading the same addresses.
         Shapes and dtypes must match exactly; a missing name raises unless
-        ``allow_missing``. Nothing is copied unless every entry passes."""
+        ``allow_missing``. Nothing is copied unless every entry passes.
+        ``shardings`` (a serving layout per parameter) waits for
+        distribution (ROADMAP queue A item A5): anything but None raises."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "Engine.load_weights(shardings=...) is not ported yet "
+                "(ROADMAP queue A item A5, distribution)")
         current = self.model.state_dict(keep_vars=True)
         missing = [k for k in current if k not in params]
         if missing and not allow_missing:

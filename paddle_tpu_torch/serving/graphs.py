@@ -119,7 +119,7 @@ def decode_program(model, cache, generator, bufs: StepBuffers):
     @torch.no_grad()
     def fn():
         caches = (cache.layer_caches() if bufs.table is None
-                  else cache.layer_caches(bufs.table))
+                  else cache.layer_caches(table=bufs.table))
         logits, _ = model.decode_step(bufs.tokens, caches, bufs.positions)
         return (sample_batched(logits, generator, bufs.temps, bufs.top_ks,
                                bufs.greedy), logits)
@@ -137,7 +137,7 @@ def verify_program(model, cache, generator, bufs: StepBuffers):
     @torch.no_grad()
     def fn():
         logits, _ = model.extend_step(bufs.tokens,
-                                      cache.layer_caches(bufs.table),
+                                      cache.layer_caches(table=bufs.table),
                                       bufs.positions)
         sampled0 = sample_batched(logits[:, 0], generator, bufs.temps,
                                   bufs.top_ks, bufs.greedy)
@@ -174,7 +174,7 @@ def extend_program(model, cache, bufs: PrefillBuffers, T: int):
 
     @torch.no_grad()
     def fn():
-        logits, _ = model.extend_step(bufs.ids, cache.layer_caches(bufs.row),
+        logits, _ = model.extend_step(bufs.ids, cache.layer_caches(table=bufs.row),
                                       bufs.start)
         last = (bufs.length - 1).clamp(0, T - 1)
         return (logits[0].index_select(0, last),)

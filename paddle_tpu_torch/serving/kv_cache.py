@@ -29,8 +29,8 @@ import torch
 
 from ..device import resolve_device, resolve_dtype
 from ..kernels.paged_attention import (NEG_INF, decode_attend,
-                                       paged_attention, paged_gather,
-                                       prescale_q)
+                                       no_tpu_tier, paged_attention,
+                                       paged_gather, prescale_q)
 
 #: page-table entry marking an unallocated block. Device code never branches
 #: on it: lookups clamp sentinels to page 0, the reserved trash page the
@@ -89,10 +89,13 @@ def paged_write_kv(pool, new, page_table, positions):
     return pool
 
 
-def paged_decode_attend(q, k_pool, v_pool, page_table, positions):
+def paged_decode_attend(q, k_pool, v_pool, page_table, positions,
+                        impl=None):
     """Single-position cached attention over block-paged pools through the
     ragged paged-decode kernel (its wrapper runs the plain gather +
-    ``decode_attend`` version on CPU tensors)."""
+    ``decode_attend`` version on CPU tensors). ``impl`` must be None: the
+    JAX package's TPU tiers raise (``no_tpu_tier``)."""
+    no_tpu_tier("impl", impl)
     return paged_attention(q, k_pool, v_pool, page_table, positions)
 
 
@@ -117,10 +120,12 @@ def extend_attend(q, k_cache, v_cache, positions):
         .to(v.dtype)
 
 
-def paged_extend_attend(q, k_pool, v_pool, page_table, positions):
+def paged_extend_attend(q, k_pool, v_pool, page_table, positions,
+                        impl=None):
     """``extend_attend`` over block-paged pools: the dense view of each
     slot's table (``paged_gather``), then the two products. Plain PyTorch
-    on every device, as in the JAX package."""
+    on every device, as in the JAX package. ``impl`` must be None."""
+    no_tpu_tier("impl", impl)
     return extend_attend(q, paged_gather(k_pool, page_table),
                          paged_gather(v_pool, page_table), positions)
 
@@ -164,7 +169,7 @@ class KVCache(_Slots):
 
     def __init__(self, num_layers: int, max_batch_size: int,
                  num_kv_heads: int, max_seq_len: int, head_dim: int,
-                 dtype="float32", device=None):
+                 dtype="float32", *, device=None):
         self.device = resolve_device(device)
         self.num_layers = num_layers
         self.max_batch_size = max_batch_size
@@ -188,11 +193,13 @@ class KVCache(_Slots):
                           (self.v, torch.stack([v for _, v in kvs]))):
             pool[:, slots, :, :T] = new
 
-    def layer_caches(self):
+    def layer_caches(self, k=None, v=None):
         """Per-layer ``(k, v)`` views ``[B_max, H_kv, S_max, D]`` of the
-        buffers, as ``decode_step`` takes them; a step's writes land in
-        the buffers."""
-        return [(self.k[l], self.v[l]) for l in range(self.num_layers)]
+        buffers (or of the stacked ``k``/``v`` given), as ``decode_step``
+        takes them; a step's writes land in the buffers."""
+        k = self.k if k is None else k
+        v = self.v if v is None else v
+        return [(k[l], v[l]) for l in range(self.num_layers)]
 
 
 class PagedKVCache(_Slots):
@@ -209,7 +216,7 @@ class PagedKVCache(_Slots):
     def __init__(self, num_layers: int, max_batch_size: int,
                  num_kv_heads: int, max_seq_len: int, head_dim: int,
                  dtype="float32", page_size: int = 16,
-                 num_pages: Optional[int] = None, device=None):
+                 num_pages: Optional[int] = None, *, device=None):
         if max_seq_len % page_size:
             raise ValueError(
                 f"max_seq_len {max_seq_len} not divisible by page_size "
@@ -289,10 +296,14 @@ class PagedKVCache(_Slots):
         self.page_table[slot, :] = PAGE_SENTINEL
         return pages
 
-    def layer_caches(self, table: Optional[torch.Tensor] = None):
+    def layer_caches(self, k=None, v=None,
+                     table: Optional[torch.Tensor] = None):
         """Per-layer ``(k_pool, v_pool, page_table)`` triples — views into
-        the pools, so a step's writes land in them. ``table`` is a device
-        table (``[B, num_blocks]`` int32); default ``table_device()``."""
+        the pools (or into the stacked ``k``/``v`` given), so a step's
+        writes land in them. ``table`` is a device table (``[B,
+        num_blocks]`` int32); default ``table_device()``."""
+        k = self.k if k is None else k
+        v = self.v if v is None else v
         if table is None:
             table = self.table_device()
-        return [(self.k[l], self.v[l], table) for l in range(self.num_layers)]
+        return [(k[l], v[l], table) for l in range(self.num_layers)]

@@ -48,22 +48,25 @@ def _top_k_filter(logits, k):
     return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
 
 
-def sample_static(logits, generator, *, do_sample: bool, temperature: float,
+def sample_static(logits, key, do_sample: bool, temperature: float,
                   top_k: int):
-    """[B, V] logits -> [B] token ids with call-wide scalar params."""
+    """[B, V] logits -> [B] token ids with call-wide scalar params. ``key``
+    is the ``torch.Generator`` the draws come from (where the JAX package
+    takes a PRNG key)."""
     if not do_sample:
         return logits.argmax(dim=-1)
     lf = logits.float() / max(float(temperature), 1e-6)
-    return _categorical(_top_k_filter(lf, top_k), generator)
+    return _categorical(_top_k_filter(lf, top_k), key)
 
 
-def sample_batched(logits, generator, temperatures, top_ks, greedy):
+def sample_batched(logits, key, temperatures, top_ks, greedy):
     """[B, V] logits -> [B] token ids with per-row parameter tensors:
     ``temperatures`` [B] f32, ``top_ks`` [B] int (0 = off), ``greedy`` [B]
     bool. As in the JAX decode program, every row is drawn and greedy rows
     take their argmax by ``torch.where``: nothing is read on the host, so
     a CUDA graph can capture the call, and each call advances the
-    generator whatever the batch holds."""
+    generator ``key`` (the JAX package's PRNG key) whatever the batch
+    holds."""
     lf = logits.float()
     V = lf.shape[-1]
     scaled = lf / temperatures.float().clamp(min=1e-6)[:, None]
@@ -74,4 +77,4 @@ def sample_batched(logits, generator, temperatures, top_ks, greedy):
     filtered = torch.where(filter_on[:, None] & (scaled < kth),
                            torch.full_like(scaled, NEG_INF), scaled)
     return torch.where(greedy, lf.argmax(dim=-1),
-                       _categorical(filtered, generator))
+                       _categorical(filtered, key))

@@ -24,7 +24,9 @@ _HEAD = "lm_head.weight"
 _LAYER_RE = re.compile(r"^gpt\.layers\.(\d+)\.")
 
 
-def _to_torch(a: np.ndarray) -> torch.Tensor:
+def to_torch(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor copy of ``a``; an ``ml_dtypes`` bfloat16 array (as the
+    JAX package makes them) is read through its 2-byte words."""
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from JAX
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -55,4 +57,4 @@ def from_paddle_tpu(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     if missing or extra:
         raise KeyError(f"from_paddle_tpu: missing {missing[:6]}, "
                        f"unexpected {extra[:6]}")
-    return {name: _to_torch(np.asarray(params[name])) for name in want}
+    return {name: to_torch(np.asarray(params[name])) for name in want}

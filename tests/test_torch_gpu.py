@@ -1151,3 +1151,73 @@ def test_programs_share_one_pool_and_each_prefill_is_sampled_first(cuda,
         step.buffers.write(ids=ids, length=np.array([n]),
                            row=eng._slot_row(req.slot))
         assert req.output_ids[0] == int(step.fn()[0].argmax(dim=-1)[0])
+
+
+# ---------------- checkpoint and data on the card --------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_prefetcher_side_stream_copies_equal_a_blocking_copy(cuda, depth):
+    """Pinned host buffers copied on a side stream, the consumer's stream
+    waiting on each copy's event: every batch equals a blocking copy of the
+    same host batch, also while the consumer's stream is busy and the
+    pinned ring is reused many times over."""
+    from paddle_tpu_torch.io import DevicePrefetcher
+
+    rng = np.random.default_rng(depth)
+    host = [{"tokens": rng.integers(0, 50304, (16, 2048)).astype(np.int32),
+             "pos": rng.integers(0, 2048, (16, 2048)).astype(np.int32),
+             "scale": np.float32(i)} for i in range(12)]
+    big = torch.randn(4096, 4096, device=cuda)
+    seen = 0
+    for i, batch in enumerate(DevicePrefetcher(host, depth=depth,
+                                               device=cuda)):
+        big = big @ big.T / 4096.0  # keep the consumer's stream busy
+        want = {k: torch.from_numpy(v).to(cuda)
+                for k, v in host[i].items() if k != "scale"}
+        assert batch["tokens"].device.type == "cuda"
+        assert torch.equal(batch["tokens"] + 0, want["tokens"])
+        assert torch.equal(batch["pos"] + 0, want["pos"])
+        assert batch["scale"] == host[i]["scale"]
+        seen += 1
+    assert seen == len(host)
+
+
+@pytest.mark.gpu
+def test_restored_state_on_the_card_equals_the_saved_one(cuda, tmp_path):
+    """A bf16 model with fp32 masters and bf16 moments on the card: its
+    train step's state, saved and restored into a step built from other
+    weights, equals the saved one bit for bit on the card."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPT_TINY, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build(seed):
+        # head_dim 64: a width the card's flash kernels are built for
+        cfg = GPTConfig(**{**GPT_TINY, "hidden_size": 128, "num_heads": 2})
+        m = GPTForCausalLM(cfg, device=cuda,
+                           dtype=torch.bfloat16,
+                           generator=torch.Generator(cuda).manual_seed(seed))
+        opt = AdamW(learning_rate=1e-3, parameters=m.named_parameters(),
+                    multi_precision=True, moment_dtype="bfloat16")
+        return make_sharded_train_step(m, opt, device=cuda)
+
+    a = build(0)
+    x = torch.randint(0, 128, (2, 64), device=cuda)
+    for _ in range(2):
+        a(x, torch.roll(x, -1, 1))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, a.state_for_checkpoint().to_tree())
+    b = build(1)
+    b.restore_from_checkpoint(mgr.restore())
+    for name, p in a.params.items():
+        assert torch.equal(p, b.params[name]), name
+    for name, slots in a.optimizer.state.items():
+        for k, v in slots.items():
+            w = b.optimizer.state[name][k]
+            if isinstance(v, torch.Tensor):
+                assert w.device.type == "cuda" and w.dtype == v.dtype
+                assert torch.equal(v, w), (name, k)
+            else:
+                assert v.tobytes() == w.tobytes(), (name, k)
+    mgr.close()

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of ``paddle_tpu``, no silent CPU.
 
 ``paddle_tpu_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor
-``paddle_tpu`` (they run on a machine with no JAX), and the port's entry
-points default to CUDA: without a card they raise instead of running on
-the CPU.
+``paddle_tpu`` nor ``ml_dtypes`` (they run on a machine with none of
+them), and the port's entry points default to CUDA: without a card they
+raise instead of running on the CPU.
 """
 
 import ast
@@ -19,7 +19,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(p for p in (REPO / "paddle_tpu_torch").rglob("*.py")
                     if "_build" not in p.parts) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -91,6 +91,22 @@ def test_train_step_refuses_to_run_on_cpu_without_being_asked(monkeypatch):
         make_sharded_train_step(model, opt)
     step = make_sharded_train_step(model, opt, device="cpu")
     assert step.device.type == "cpu"
+
+
+def test_data_feed_refuses_to_run_on_cpu_without_being_asked(monkeypatch,
+                                                            tmp_path):
+    from paddle_tpu_torch.data import GlobalBatchFeeder, build_pretrain_pipeline
+    from paddle_tpu_torch.io import DevicePrefetcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "a.bin").write_bytes(bytes(64))
+    for make in (lambda: DevicePrefetcher([]),
+                 lambda: GlobalBatchFeeder(iter([])),
+                 lambda: build_pretrain_pipeline(str(tmp_path / "a.bin"), 1,
+                                                 8, chunk_len=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert DevicePrefetcher([], device="cpu") is not None
 
 
 def test_chip_smoke_fails_without_card_or_package(tmp_path):

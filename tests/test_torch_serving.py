@@ -193,10 +193,30 @@ def test_page_allocator_invariants():
 
 @pytest.mark.parametrize("kw", [dict(kv_layout="dense",
                                      request_trace_dir="traces"),
-                                dict(request_trace_dir="traces")])
+                                dict(request_trace_dir="traces"),
+                                dict(slo=object()),
+                                dict(kv_layout="dense", slo=object()),
+                                dict(trace_sample_every=4)])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**kw)
+
+
+def test_engine_config_has_the_reference_fields_in_order():
+    """A positional construction written for the JAX package's
+    ``EngineConfig`` lands every value in its field; the reference's TPU
+    tiers of ``paged_attention_impl`` raise, naming the port's routes."""
+    args = (2, 64, (16, 64), "float32", None, 1, None, "dense", 8, None,
+            None, False, None)
+    got, want = EngineConfig(*args), JEngineConfig(*args)
+    for f in ("max_batch_size", "max_seq_len", "prefill_buckets",
+              "cache_dtype", "trace_sample_every", "slo", "kv_layout",
+              "page_size", "kv_pages", "paged_attention_impl",
+              "prefix_cache", "speculative"):
+        assert getattr(got, f) == getattr(want, f), f
+    for impl in ("oracle", "interpret", "pallas"):
+        with pytest.raises(ValueError, match="vector"):
+            EngineConfig(paged_attention_impl=impl)
 
 
 def test_engine_config_page_size_and_buckets():

@@ -391,6 +391,30 @@ def test_load_weights_copies_in_place_and_checks(models):
     assert eng.generate(prompts, sp) == fresh.generate(prompts, sp)
 
 
+def test_load_weights_takes_the_reference_signature(models):
+    """``load_weights(params, shardings=None, allow_missing=False)``: a
+    reference-style positional ``load_weights(params, shardings)`` raises,
+    naming A5, and copies nothing (the dict must not be read as
+    ``allow_missing``); ``load_weights(params, None, True)`` loads."""
+    jm, tm, params = models
+    model = _port_model(params)
+    eng = Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64),
+                 device="cpu")
+    before = {n: p.clone() for n, p in model.state_dict().items()}
+    sd = from_paddle_tpu(_random_params(jm, 1))
+    missing = {k: v for k, v in sd.items() if k != "gpt.final_ln.bias"}
+    with pytest.raises(NotImplementedError, match="A5"):
+        eng.load_weights(missing, {"gpt.final_ln.bias": None})
+    with pytest.raises(NotImplementedError, match="A5"):
+        eng.load_weights(sd, shardings={})
+    assert all(torch.equal(before[n], p)
+               for n, p in model.state_dict().items())
+    eng.load_weights(missing, None, True)
+    got = model.state_dict()
+    assert torch.equal(got["gpt.final_ln.bias"], before["gpt.final_ln.bias"])
+    assert all(torch.equal(got[k], v) for k, v in missing.items())
+
+
 def test_engine_config_speculative_forms(models):
     assert EngineConfig(speculative=True).speculative.k == 3
     assert EngineConfig(speculative=5).speculative.k == 5

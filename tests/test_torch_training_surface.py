@@ -506,3 +506,240 @@ def test_recompute_policy_matches_jax_model():
     want = dict(jm.named_parameters())[name].grad.numpy()
     got = dict(tm.named_parameters())[name].grad.numpy()
     assert np.abs(want - got).max() <= 1e-5
+
+
+# ---------------- recompute's keywords (ROADMAP C3) -------------------------
+@pytest.mark.parametrize("kw", [dict(use_reentrant=False),
+                                dict(use_reentrant=True),
+                                dict(preserve_rng_state=False),
+                                dict(use_reentrant=False,
+                                     preserve_rng_state=True,
+                                     policy="dots_saveable")])
+def test_recompute_takes_the_reference_keywords(kw):
+    """``recompute(block, x, use_reentrant=..., preserve_rng_state=...)``
+    as paddle model code calls it: the same output and gradients as the
+    block run plainly, bit for bit on the CPU; ``recompute_sequential``
+    and ``recompute_hybrid`` take the same keywords."""
+    from paddle_tpu_torch.distributed.fleet import (recompute_hybrid,
+                                                    recompute_sequential)
+
+    _, tm = _build()
+    block = tm.gpt.layers[0]
+    x = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (B, S, GPT_TINY["hidden_size"])).astype(np.float32))
+    outs = []
+    for run in (lambda h: block(h), lambda h: recompute(block, h, **kw),
+                lambda h: recompute_hybrid({}, block, h, **kw),
+                lambda h: recompute_sequential({}, [block], h, **kw)):
+        h = x.clone().requires_grad_(True)
+        tm.zero_grad()
+        out = run(h)
+        out.square().sum().backward()
+        outs.append((out.detach(), h.grad, block.mlp.fc1.weight.grad.clone()))
+    for got in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], got))
+
+
+# ---------------- the reference's signatures (ROADMAP C4) -------------------
+def _signature_cases():
+    """One case per public callable of ``paddle_tpu_torch`` whose module's
+    counterpart in ``paddle_tpu`` defines the same name (classes by their
+    constructor and by each public method both define), deduplicated over
+    re-exports."""
+    import inspect
+    import pkgutil
+
+    import paddle_tpu_torch
+
+    cases, seen = [], set()
+    mods = [paddle_tpu_torch.__name__] + [
+        m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                              "paddle_tpu_torch.")
+        if "._" not in m.name]
+    for modname in mods:
+        port = importlib.import_module(modname)
+        try:
+            ref = importlib.import_module(
+                "paddle_tpu" + modname[len("paddle_tpu_torch"):])
+        except ImportError:
+            continue
+        names = getattr(port, "__all__", None) or [
+            n for n, v in vars(port).items() if not n.startswith("_")
+            and getattr(v, "__module__", None) == modname]
+        for n in names:
+            obj, robj = getattr(port, n, None), getattr(ref, n, None)
+            if (not callable(obj) or not callable(robj)
+                    or inspect.ismodule(obj)
+                    or not getattr(obj, "__module__", "").startswith(
+                        "paddle_tpu_torch")):
+                continue
+            pairs = [(None, obj, robj)]
+            if inspect.isclass(obj) and inspect.isclass(robj):
+                pairs += [(a, v, getattr(robj, a)) for a, v in vars(obj).items()
+                          if not a.startswith("_") and inspect.isfunction(v)
+                          and callable(getattr(robj, a, None))]
+            for attr, p, r in pairs:
+                key = (id(p), id(r))
+                if key in seen:
+                    continue
+                seen.add(key)
+                label = f"{obj.__module__}.{n}" + (f".{attr}" if attr else "")
+                cases.append(pytest.param(obj, robj, attr, id=label))
+    return cases
+
+
+#: the one exception: the JAX package's functional ``apply_gradients(params,
+#: grads, state, lr, step_count)`` became in-place updates of the named
+#: parameters, ``apply_gradients(named_params, lr)``
+SIGNATURE_EXCEPTIONS = {"paddle_tpu_torch.optimizer.optimizer.Optimizer"
+                        ".apply_gradients": ("self", "named_params", "lr")}
+
+
+@pytest.mark.parametrize("obj,robj,attr", _signature_cases())
+def test_port_takes_the_reference_parameters_first(obj, robj, attr, request):
+    """The reference's parameters are the port's first ones, by name and in
+    order, each positional where the reference's is; whatever the port adds
+    (``device``, ``dtype``, ``generator``) is keyword-only after them, so a
+    call written for ``paddle_tpu`` lands every argument where it meant."""
+    import inspect
+
+    p = getattr(obj, attr) if attr else obj
+    r = getattr(robj, attr) if attr else robj
+    label = request.node.callspec.id
+    try:
+        ref = list(inspect.signature(r).parameters.values())
+    except ValueError:  # a builtin's signature (an exception class's)
+        with pytest.raises(ValueError):
+            inspect.signature(p)
+        return
+    port = list(inspect.signature(p).parameters.values())
+    if label in SIGNATURE_EXCEPTIONS:
+        assert tuple(q.name for q in port) == SIGNATURE_EXCEPTIONS[label]
+        return
+    var = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+    rnamed = [q for q in ref if q.kind not in var]
+    pnamed = [q for q in port if q.kind not in var]
+    assert [q.name for q in pnamed[:len(rnamed)]] == [q.name for q in rnamed]
+    for rq, pq in zip(rnamed, pnamed):
+        if rq.kind != inspect.Parameter.KEYWORD_ONLY:
+            assert pq.kind == rq.kind, (rq.name, pq.kind)
+    assert all(q.kind == inspect.Parameter.KEYWORD_ONLY
+               for q in pnamed[len(rnamed):]), pnamed[len(rnamed):]
+    for kind in var:
+        if any(q.kind == kind for q in ref):
+            assert any(q.kind == kind for q in port), kind
+
+
+def test_embedding_padding_idx_matches_jax():
+    """``Embedding(num, dim, padding_idx)``: the row is zeroed at
+    construction, its lookups return zeros and it gets no gradient, as in
+    the JAX package (a negative index counts from the end)."""
+    from paddle_tpu_torch.nn import Embedding
+
+    for pad in (0, -2):
+        jemb = paddle.nn.Embedding(10, 4, pad)
+        temb = Embedding(10, 4, pad, device="cpu")
+        row = pad % 10
+        assert temb.padding_idx == jemb.padding_idx == row
+        assert not temb.weight[row].any()
+        w = np.random.default_rng(3).standard_normal((10, 4)) \
+            .astype(np.float32)
+        jemb.weight.set_value(paddle.to_tensor(w))
+        with torch.no_grad():
+            temb.weight.copy_(torch.from_numpy(w))
+        ids = np.array([[row, 1, 2], [3, row, 9]])
+        want = jemb(paddle.to_tensor(ids)).numpy()
+        got = temb(torch.from_numpy(ids))
+        assert np.array_equal(want, got.detach().numpy())
+        got.sum().backward()
+        assert not temb.weight.grad[row].any()
+        assert temb.weight.grad[1].all()
+    with pytest.raises(NotImplementedError, match="A8"):
+        Embedding(10, 4, sparse=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        Embedding(10, 4, weight_attr=object(), device="cpu")
+
+
+def test_norm_attrs_and_positional_parallel_linear():
+    """``LayerNorm(bias_attr=False)`` builds no bias and computes the JAX
+    package's value; ``ColumnParallelLinear(h, n, None, True, False)``
+    (paddle's positional order) has a bias; ``fuse_matmul_bias`` is
+    stored and changes no value, as in the JAX package; ``mp_group``
+    raises."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    from paddle_tpu_torch.nn import LayerNorm
+
+    x = np.random.default_rng(4).standard_normal((3, 8)).astype(np.float32)
+    jln = paddle.nn.LayerNorm(8, 1e-5, None, False)
+    tln = LayerNorm(8, 1e-5, None, False, device="cpu")
+    assert tln.bias is None and LayerNorm(8, weight_attr=False,
+                                          device="cpu").weight is None
+    want = jln(paddle.to_tensor(x)).numpy()
+    got = tln(torch.from_numpy(x)).detach().numpy()
+    assert np.abs(want - got).max() <= 1e-6
+    col = ColumnParallelLinear(8, 24, None, True, False, device="cpu")
+    assert col.bias is not None and col.gather_output is False
+    fused = ColumnParallelLinear(8, 24, fuse_matmul_bias=True, device="cpu")
+    assert fused.fuse_matmul_bias is True
+    fused.load_state_dict(col.state_dict())
+    with torch.no_grad():
+        col.bias.normal_()
+        fused.bias.copy_(col.bias)
+        xt = torch.from_numpy(x)[None]
+        assert torch.equal(col(xt), fused(xt))
+    assert RowParallelLinear(24, 8, None, False, device="cpu").bias is None
+    for make in (lambda: ColumnParallelLinear(8, 8, mp_group=object()),
+                 lambda: VocabParallelEmbedding(8, 4, mp_group=object())):
+        with pytest.raises(NotImplementedError, match="A5"):
+            make()
+
+
+@pytest.mark.parametrize("mode", ["upscale_in_train", "downscale_in_infer"])
+def test_dropout_layer_takes_paddles_arguments(mode):
+    """``Dropout(p, axis, mode)``: kept entries scaled as ``mode`` says,
+    the mask shared along the axes not named by ``axis``, and evaluation
+    the identity (upscale) or a scale by 1 - p (downscale)."""
+    from paddle_tpu_torch.nn import Dropout
+
+    x = torch.ones(64, 32)
+    drop = Dropout(0.25, 0, mode)
+    torch.manual_seed(0)
+    y = drop(x)
+    keep = float(np.float32(1 / 0.75)) if mode == "upscale_in_train" \
+        else 1.0
+    assert set(torch.unique(y).tolist()) <= {0.0, keep}
+    assert (y == y[:, :1]).all()  # one draw per row, shared along axis 1
+    assert 0 < int((y[:, 0] == 0).sum()) < 64
+    y = Dropout(0.25, None, mode)(x)  # one draw per element
+    assert set(torch.unique(y).tolist()) == {0.0, keep}
+    drop.eval()
+    want = x if mode == "upscale_in_train" else x * 0.75
+    assert torch.equal(drop(x), want)
+    with pytest.raises(ValueError, match="mode"):
+        Dropout(0.5, mode="scale")
+
+
+def test_unported_model_options_raise():
+    from paddle_tpu_torch.models.gpt import GPTBlock
+
+    for over in (dict(sequence_parallel=True),
+                 dict(context_parallel="ulysses"), dict(moe_num_experts=4)):
+        with pytest.raises(NotImplementedError, match="A5"):
+            GPTConfig(**GPT_TINY, **over)
+    with pytest.raises(NotImplementedError, match="A5"):
+        GPTBlock(GPTConfig(**GPT_TINY), True, device="cpu")
+    _, tm = _build()
+    opt = AdamW(parameters=tm.named_parameters())
+    for kw in (dict(batch_spec=object()), dict(pp_remat=False),
+               dict(virtual_pp_degree=2), dict(pp_schedule="gpipe")):
+        with pytest.raises(NotImplementedError, match="A5"):
+            make_sharded_train_step(tm, opt, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A7"):
+        make_sharded_train_step(tm, opt, autoshard_fixed_mesh=True,
+                                device="cpu")
+    from paddle_tpu_torch.distributed.fleet import ShardedTrainStep
+
+    step = ShardedTrainStep(tm, opt, None, None, None, False, 5,
+                            device="cpu")
+    assert step._seed == 5 and step._donate is False
