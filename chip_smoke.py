@@ -22,16 +22,17 @@ Phases, each of which exits non-zero on failure:
    the serving and training slices' shapes (the primitives at the 1.3B's
    hidden-state shapes and at ragged ones), in bf16 and fp32, with the
    stated tolerance (LayerNorm and RMSNorm forward and backward at 1 to
-   32768 rows of H 7 to 2050, on both routes, with two backward calls
-   bitwise equal; the flash forward and backward also at the
+   32768 rows of H 7 to 2050, on both routes, and at GPT-MoE's rows of H
+   1024, with two backward calls bitwise equal; the flash forward and
+   backward also at GPT-MoE's D 64 shapes ([16], [17]) and at the
    edges of their 64-row tiles, with GQA 16/1, and on the fused qkv
    projection's column slices, each call on its dtype's route; the forward
    also on a view TMA cannot read, which is copied first; two bf16 calls
    at the training shape bitwise equal; paged decode on its vector route,
-   two calls bitwise equal, timed at four shapes: the serving slice's
-   decode batch, every slot and one slot at a 2048-token context, and the
-   GQA serving config); then timed with CUDA events and
-   the profiler beside the plain version, a library yardstick the port
+   two calls bitwise equal (also at GPT-MoE's H 16/16 D 64), timed at
+   four shapes: the serving slice's decode batch, every slot and one slot
+   at a 2048-token context, and the GQA serving config); then timed with
+   CUDA events and the profiler beside the plain version, a library yardstick the port
    never calls, and the H100 bound (a flash, norm or paged kernel the
    profiler does not see fails the run; others print "not seen");
 4. serving slice at full width: GPT-3 1.3B (24 layers, bf16, random
@@ -140,7 +141,35 @@ Phases, each of which exits non-zero on failure:
    plain: the flash kernels have no dropout), run A 1 step, a save and 2
    steps, run B restored into other weights bitwise equal to run A, the
    save restored under another seed drawing other masks; and the port's
-   ``Dropout`` timed against ``torch.nn.Dropout`` on a block's output.
+   ``Dropout`` timed against ``torch.nn.Dropout`` on a block's output;
+16. GPT-MoE training at full width: BASELINE config 5 (``bench.py``'s
+   ``gpt_moe``: vocab 32768, hidden 1024, 8 layers, 16 heads, 8 experts in
+   every 2nd block, top-2 GShard at capacity factor 1.25, aux weight
+   0.01, recompute every block; bf16, random weights from the seed)
+   through ``make_sharded_train_step`` with AdamW at lr 1e-4, bf16
+   moments and no master weights, batch 8 x 1024: one warm-up step (the
+   aux loss and each MoE block's share of choices dropped at capacity),
+   five timed steps (step ms, tokens/s, MFU by ``bench.py``'s
+   activated-parameter count, peak memory, each kernel's launches per
+   step held to what the code gives, every flash launch on wgmma) and
+   one profiled step (device busy, idle share, device time by group: the
+   experts' products, their bias and GELU, the routing, flash,
+   LayerNorm, AdamW, the rest); the loss must fall, and two steps from
+   one state must be bitwise equal. Then depth 2 (one dense block, one
+   MoE block) in fp32: 3 AdamW steps on the card and on the CPU; the
+   first forward's routing identical (or a tie, reported), losses,
+   gradients and updates agree;
+17. GPT-MoE serving at [16]'s width (bf16, 8 layers): ``generate`` on 8
+   prompts of 512 tokens, 64 new greedy tokens (the second call replays,
+   tokens/s), then the paged ``Engine`` (8 slots, S_max 1024, page 16) on
+   [4]'s request shape after one warm-up per bucket (tokens/s, TTFT and
+   TPOT p50, one capture per program; the wrappers' launches counted
+   from the warm-up on, apart from ``generate``'s), the kernels a decode
+   and a prefill replay run on the card (the profiler: 2L + 1 LayerNorms
+   and L paged decodes; 2L + 1 LayerNorms and L flash forwards), the
+   decode step's dropped share (T = 8 slots, capacity 1); then depth 2 in fp32:
+   the greedy tokens of ``generate`` and of the paged engine equal on the
+   card and on the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -230,8 +259,23 @@ FP32_FWD_SYMBOL = "flash_fwd_kernel"
 SERVING_SYMBOLS = {"fused_layer_norm": (NORM_SYMBOLS["fwd"],),
                    "flash_attention_fwd": (FWD_SYMBOL,),
                    "paged_attention": tuple(PAGED_SYMBOLS.values())}
+# the kernels that open every profiler window (``torch.cuda._sleep``'s)
+LEAD_IN, LEAD_SYMBOL = 64, "spin_kernel"
 FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv")
+# the shapes GPT-MoE ([16], [17]; H 1024, 16 heads of 64) gives the flash
+# kernels, as (B, S, Hq, Hkv, D, causal): the training batch, generate's
+# prefill, the engine's prefill buckets, and the depth-2 fp32 runs' training
+# batch and generate prefill
+MOE_FLASH = [(8, 1024, 16, 16, 64, True), (8, 512, 16, 16, 64, True),
+             (1, 128, 16, 16, 64, True), (1, 512, 16, 16, 64, True),
+             (1, 1024, 16, 16, 64, True), (2, 256, 16, 16, 64, True),
+             (4, 64, 16, 16, 64, True)]
+# ... and the LayerNorm: the training rows, decode, a prefill bucket's rows,
+# generate's prefill, the depth-2 runs' training batch and generate prefill
+MOE_NORM = [(8192, 1024), (8, 1, 1024), (1, 128, 1024), (1, 512, 1024),
+            (1, 1024, 1024), (8, 512, 1024), (2, 256, 1024), (4, 64, 1024),
+            (2, 1, 1024)]
 ALL_KERNELS = ("fused_layer_norm", "layer_norm_bwd", "flash_attention_fwd",
                "paged_attention", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv", "fused_adamw_update") \
@@ -384,9 +428,9 @@ def kernel_checks(K, gen):
 
     # -- flash forward: the serving shapes (prefill B=1, H=16, D=128,
     #    causal; a ragged S, GQA 16/4, D 64; the engine's captured prefill
-    #    buckets S 128 and 512 and generate's B 8 S 512) on both routes
-    #    (bf16 on the
-    #    tensor cores, fp32 on the CUDA cores); then, in bf16, the edges of
+    #    buckets S 128 and 512 and generate's B 8 S 512; GPT-MoE's D 64
+    #    at MOE_FLASH) on both routes (bf16 on the tensor cores, fp32 on the
+    #    CUDA cores); then, in bf16, the edges of
     #    the 64-row tiles (S 1, 63, 64, 65, 200), GQA 16/1 and D 64, q/k/v
     #    as the fused qkv projection's column slices read in place by TMA,
     #    and slices TMA cannot read, which are copied first. Each call must
@@ -398,7 +442,7 @@ def kernel_checks(K, gen):
     cases = [(1, 1024, 16, 16, 128, True), (1, 200, 16, 16, 128, True),
              (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True),
              (8, 512, 16, 16, 128, True), (1, 512, 16, 16, 128, True),
-             (1, 128, 16, 16, 128, True)]
+             (1, 128, 16, 16, 128, True)] + MOE_FLASH
     edges = [(1, 1, 16, 16, 128, True), (1, 63, 16, 16, 128, True),
              (1, 64, 16, 16, 128, False), (2, 65, 16, 16, 128, True),
              (1, 200, 16, 1, 128, True), (2, 65, 16, 4, 64, True),
@@ -464,14 +508,16 @@ def kernel_checks(K, gen):
         bound_by=by, library_ms=lib)
 
     # -- paged decode: the slice's shapes (B 8, H 16/16, D 128, ps 16,
-    #    S_max 2048) and the repo's GQA serving config (H 16/4, D 64, S_max
-    #    1024); ragged positions, sentinel tails, and one empty slot; every
-    #    call on the vector route, two calls bitwise equal
+    #    S_max 2048), the repo's GQA serving config (H 16/4, D 64, S_max
+    #    1024) and GPT-MoE's paged engine (H 16/16, D 64, S_max 1024);
+    #    ragged positions, sentinel tails, and one empty slot; every call
+    #    on the vector route, two calls bitwise equal
     PAGED = K.paged_attention
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, Hq, Hkv, D, S_max in ((8, 16, 16, 128, 2048),
-                                     (8, 16, 4, 64, 1024)):
+                                     (8, 16, 4, 64, 1024),
+                                     (8, 16, 16, 64, 1024)):
             args = paged_case(gen, B, Hq, Hkv, D, 16, S_max, dtype, 1,
                               S_max - 1)
             want = PAGED.route_launches["vector"] + 2
@@ -625,13 +671,14 @@ def norm_checks(K, gen, rows):
     #    slices' leading shapes (decode [8, 1], prefill [1, 1024], the
     #    verify step's [8, k+1] = [8, 4] rows, the prefix hits' suffix
     #    buckets [1, 64 / 128 / 256], the prefill bucket [1, 512] and
-    #    generate's prefill [8, 512]); one forward and one backward launch
+    #    generate's prefill [8, 512]) and GPT-MoE's at H 1024 (MOE_NORM);
+    #    one forward and one backward launch
     #    per call on the expected route (warp: H a multiple of the 16-byte
     #    vector and at most 2048; else block)
     shapes = [(R, Hc) for R in (1, 3, 8, 32, 231, 32768)
               for Hc in (7, 100, 768, 2048, 2050)] + [
         (8, 1, H), (1, 1024, H), (3, 77, H), (8, 4, H), (1, 64, H),
-        (1, 128, H), (1, 256, H), (1, 512, H), (8, 512, H)]
+        (1, 128, H), (1, 256, H), (1, 512, H), (8, 512, H)] + MOE_NORM
     for norm, (fwd, bwd, fwd_ref, bwd_ref, eps) in norms.items():
         for dtype in (f32, bf16):
             dn = str(dtype).split(".")[1]
@@ -786,11 +833,13 @@ def train_kernel_checks(K, gen, rows):
     # -- flash backward: dq, dk, dv vs flash_attention_bwd_ref, from the
     #    forward kernel's O and LSE; ragged S, GQA 16/4 (dk/dv summed over
     #    each KV head's query heads) and D 64 in both dtypes (bf16 on the
-    #    tensor cores, fp32 on the CUDA cores); then, in bf16, the edges of
+    #    tensor cores, fp32 on the CUDA cores), and GPT-MoE's D 64 at
+    #    MOE_FLASH; then, in bf16, the edges of
     #    the 64-row tiles (S 1, 63, 65, 200), GQA 16/1, D 64, and q/k/v as
     #    the column slices of a fused qkv projection, read in place by TMA
     cases = [(1, 1024, 16, 16, 128, True), (1, 200, 16, 16, 128, True),
-             (2, 130, 16, 4, 128, False), (1, 256, 16, 16, 64, True)]
+             (2, 130, 16, 4, 128, False),
+             (1, 256, 16, 16, 64, True)] + MOE_FLASH
     edges = [(1, 1, 16, 16, 128, True), (1, 63, 16, 16, 128, True),
              (2, 65, 16, 4, 128, False), (1, 200, 16, 1, 128, True),
              (2, 65, 16, 16, 64, True), (2, 63, 16, 1, 64, False)]
@@ -1123,19 +1172,29 @@ def primitive_checks(P, ops, gen, rows):
 def profile_launches(fn):
     """Run ``fn`` under ``torch.profiler``; returns [(kernel name, device
     seconds, launches)] summed by name, largest time first. A kernel a
-    CUDA graph replay runs is an event of its own, as an eager launch is."""
+    CUDA graph replay runs is an event of its own, as an eager launch is.
+    The window opens with ``LEAD_IN`` spin kernels, left out of what it
+    returns: late in this script's process a window has come back without
+    its first ~23 kernel records (643 of a decode replay's 666; a short
+    process kept them all), and the lead-in absorbs that loss."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
         fn()
         torch.cuda.synchronize()
     kernels = [(e.key, e.self_device_time_total * 1e-6, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    return sorted(kernels, key=lambda kv: -kv[1])
+    check(any(LEAD_SYMBOL in name for name, _, _ in kernels),
+          f"the profiler saw none of the lead-in's {LEAD_SYMBOL}s: "
+          f"{[name for name, _, _ in kernels][:4]}")
+    return sorted([k for k in kernels if LEAD_SYMBOL not in k[0]],
+                  key=lambda kv: -kv[1])
 
 
 def profile_kernels(fn):
@@ -2637,6 +2696,571 @@ def dropout_resume(seed: int):
           f"seed {seed}'s masks")
 
 
+# --------------------------------------------------------------- phase 16
+# BASELINE config 5 (bench.py:650-655, its TPU branch): GPT-MoE, 8 experts
+# in every 2nd block, top-2 GShard, capacity factor 1.25, aux weight 0.01
+MOE5 = dict(vocab_size=32768, hidden_size=1024, num_layers=8, num_heads=16,
+            max_seq_len=1024, dropout=0.0, moe_num_experts=8, moe_every_k=2,
+            use_recompute=True, recompute_interval=1)
+# the profiled step's device time by group: the port's kernels by their
+# symbols; then the kernels of the MoE FFN's ranges (chip_smoke wraps
+# moe_route and GPTMoEMLP._experts in them for the profiled step; a
+# backward kernel takes the range of the forward op that made its
+# autograd node); the rest is the remainder of the busy time
+MOE_KERNEL_GROUPS = (("flash", ("flash_",)),
+                     ("LayerNorm", tuple(NORM_SYMBOLS.values())),
+                     ("AdamW", ("fused_adamw_kernel",)))
+MOE_GROUPS = [g for g, _ in MOE_KERNEL_GROUPS] + [
+    "experts: products", "experts: bias, GELU", "routing", "the rest"]
+
+
+def moe_parts(model):
+    """(dense blocks, MoE blocks, the MoE FFNs by block index)."""
+    from paddle_tpu_torch.models.gpt import GPTMoEMLP
+
+    mlps = {i: b.mlp for i, b in enumerate(model.gpt.layers)
+            if isinstance(b.mlp, GPTMoEMLP)}
+    return len(model.gpt.layers) - len(mlps), len(mlps), mlps
+
+
+def moe_active_flops(model, B, S):
+    """bench.py:672-683's count: activated parameters (an expert stack
+    counts top_k / E of its size) and (6 N_active + 12 L H S) B S FLOP."""
+    cfg = model.cfg
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    n_active = sum(p.numel() * k // E
+                   if ".mlp.w" in name or ".mlp.b" in name else p.numel()
+                   for name, p in model.named_parameters())
+    return n_active, (6 * n_active + 12 * cfg.num_layers * cfg.hidden_size
+                      * S) * B * S
+
+
+class MoEInputs:
+    """Keeps each MoE FFN's input of the forwards run inside the ``with``
+    (forward hooks; the last forward's wins)."""
+
+    def __init__(self, model):
+        self.mlps = moe_parts(model)[2]
+        self.seen = {}
+
+    def __enter__(self):
+        self.hooks = [m.register_forward_hook(
+            lambda mod, args, out, i=i: self.seen.__setitem__(
+                i, args[0].detach())) for i, m in self.mlps.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+    def routing(self):
+        """{block: (slots, fp32 logits, dropped share)}: each MoE FFN's
+        last input routed again as ``moe_route`` routes it."""
+        from paddle_tpu_torch.incubate.distributed.models.moe.gate import \
+            _route
+
+        out = {}
+        for i, x in sorted(self.seen.items()):
+            mlp, cfg = self.mlps[i], self.mlps[i].cfg
+            xt = x.reshape(-1, x.shape[-1])
+            E = cfg.moe_num_experts
+            C = max(1, int(cfg.moe_capacity_factor * xt.shape[0] / E))
+            with torch.no_grad():
+                logits = xt @ mlp.gate_weight
+                slots = _route(logits, C, cfg.moe_top_k)[0]
+            out[i] = (slots, logits.float(),
+                      (slots == E * C).float().mean().item())
+        return out
+
+
+def scoped(fn, label):
+    """``fn`` inside a profiler range named ``label``."""
+    from torch.profiler import record_function
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def moe_breakdown(step_fn):
+    """Device ms of one call of ``step_fn`` by ``MOE_GROUPS``, each
+    range's and the rest's kernels by name, the busy total and the number
+    of kernels. A kernel's launching op and its
+    enclosing ranges come from the profiler's event tree; a backward op
+    (``autograd::engine::evaluate_function``) takes the range of the
+    forward op with its (thread, sequence number)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    saved = moe_layer.moe_route, gpt_mod.GPTMoEMLP._experts
+    moe_layer.moe_route = scoped(saved[0], "moe::routing")
+    gpt_mod.GPTMoEMLP._experts = scoped(saved[1], "moe::experts")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn()
+            torch.cuda.synchronize()
+    finally:
+        moe_layer.moe_route, gpt_mod.GPTMoEMLP._experts = saved
+    events = prof.events()
+
+    def scope_of(e):
+        while e is not None:
+            if e.name.startswith("moe::"):
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    fwd = {}
+    for e in events:
+        s = scope_of(e)
+        if s is not None and e.sequence_nr >= 0:
+            fwd.setdefault((e.thread, e.sequence_nr), s)
+
+    def backward_scope(e):
+        while e is not None:
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return fwd.get((e.fwd_thread, e.sequence_nr))
+            e = e.cpu_parent
+        return None
+
+    def by_symbol(name):
+        return next((g for g, syms in MOE_KERNEL_GROUPS
+                     if any(sym in name for sym in syms)), None)
+
+    ms, rest, busy, n = {g: 0.0 for g in MOE_GROUPS}, {}, 0.0, 0
+    for e in events:  # every kernel, linked to an op or not (ctypes);
+        # not the ranges' own spans on the device timeline
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("moe::") \
+                and not getattr(e, "is_user_annotation", False):
+            t = (e.time_range.end - e.time_range.start) * 1e-3
+            busy, n = busy + t, n + 1
+            if by_symbol(e.name):
+                ms[by_symbol(e.name)] += t
+    for e in events:  # the kernels each op launched
+        for kern in e.kernels:
+            if by_symbol(kern.name):
+                continue
+            scope = scope_of(e) or backward_scope(e)
+            group = ("routing" if scope == "moe::routing" else
+                     None if scope != "moe::experts" else
+                     "experts: products" if e.name == "aten::bmm" else
+                     "experts: bias, GELU")
+            t = kern.duration * 1e-3
+            if group:
+                ms[group] += t
+            names = rest.setdefault(group or "the rest", {})
+            names[kern.name] = names.get(kern.name, 0.0) + t
+    ms["the rest"] = busy - sum(ms.values())
+    return ms, {g: sorted(k.items(), key=lambda kv: -kv[1])
+                for g, k in rest.items()}, busy, n
+
+
+def moe_snapshot(step):
+    """A deep copy of the train step's state (``TrainState``)."""
+    ts = step.state_for_checkpoint()
+    ts.params = {k: v.detach().clone() for k, v in ts.params.items()}
+    ts.opt_state = {n: {k: v.clone() if torch.is_tensor(v) else v
+                        for k, v in s.items()}
+                    for n, s in ts.opt_state.items()}
+    return ts
+
+
+def moe_train_slice(K, seed: int, rows):
+    """[16]: BASELINE config 5 at full width on the card (see the module
+    docstring); fills the training kernels' MoE launch counts into
+    ``rows``."""
+    import math
+
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    smi = nvidia_smi_line()
+    cfg = GPTConfig(**MOE5)
+    B, S, timed = 8, 1024, 5
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(seed + 16))
+    model.train()
+    step = make_sharded_train_step(model, AdamW(
+        learning_rate=1e-4, parameters=model.named_parameters(),
+        moment_dtype="bfloat16"))
+    n = sum(p.numel() for p in model.parameters())
+    n_tensors = sum(1 for _ in model.parameters())
+    n_active, flops = moe_active_flops(model, B, S)
+    L_dense, L_moe, mlps = moe_parts(model)
+    E = cfg.moe_num_experts
+    C = max(1, int(cfg.moe_capacity_factor * B * S / E))
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    x = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+    y = torch.roll(x, -1, dims=1)
+    print(f"[16] GPT-MoE, BASELINE config 5 ({n / 1e6:.1f} M params in "
+          f"{n_tensors} tensors, {n_active / 1e6:.1f} M active per token; "
+          f"{cfg.num_layers} layers, {L_moe} with {E} experts, top-2 GShard, "
+          f"capacity {C} of {B * S} tokens; bf16, bf16 moments, no master "
+          f"weights, recompute every dense block), batch {B} x {S} ({smi})",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with MoEInputs(model) as seen:
+        losses = [step(x, y)]
+    torch.cuda.synchronize()
+    routed = seen.routing()
+    aux = float(model.gpt.moe_aux_loss.detach())
+    print(f"    warm-up step {time.perf_counter() - t0:.2f} s; aux loss "
+          f"(sum over {L_moe} MoE blocks) {aux:.4f}; choices dropped at "
+          f"capacity by block: "
+          f"{ {i: round(d, 4) for i, (_, _, d) in routed.items()} } ({smi})",
+          flush=True)
+    # the host launches ~1200 kernels a step: a full collection first, so
+    # no earlier phase's garbage is traversed inside the timed steps
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    K.reset_launch_counts()
+
+    def timed_steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            losses.append(step(x, y))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / timed
+
+    step_s = timed_steps()
+    counts = K.launch_counts()
+    routes = check_flash_routes(K, "wgmma", "[16]")
+    peak = torch.cuda.max_memory_allocated()
+    ms, rest, busy, n_kernels = moe_breakdown(
+        lambda: losses.append(step(x, y)))
+    # the same steps once the profiler has run in this process (its
+    # callbacks may stay subscribed and cost every launch)
+    after_s = timed_steps()
+    tokens = B * S
+    print(f"    step {step_s * 1e3:.1f} ms host clock over {timed} steps = "
+          f"{tokens / step_s:.1f} tokens/s; MFU {flops / step_s / PEAK_BF16:.4f}"
+          f" ({flops:.4e} FLOP/step by bench.py's activated-parameter count, "
+          f"recompute not counted, vs 989 TFLOP/s); max memory allocated "
+          f"{peak / 2**30:.2f} GiB ({smi}); {len(gc.get_objects())} "
+          f"objects tracked by gc, a full collection before the timed "
+          f"steps {gc_ms:.1f} ms", flush=True)
+    print(f"    profiled step: {n_kernels} kernels, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / (step_s * 1e3):.4f} "
+          f"(against the timed steps' mean); "
+          f"by group (ms): { {k: round(v, 2) for k, v in ms.items()} } "
+          f"({smi})", flush=True)
+    for group, n in (("routing", 6), ("the rest", 8)):
+        for name, t in rest.get(group, [])[:n]:
+            print(f"     {group}: {t:8.3f} ms  {name[:90]}", flush=True)
+    print(f"    {timed} more steps after the profiled one: "
+          f"{after_s * 1e3:.1f} ms a step ({smi})", flush=True)
+    losses = [float(v) for v in losses]
+    print(f"    losses {' '.join(f'{v:.4f}' for v in losses)} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}); kernel launches over the "
+          f"{timed} timed steps: {counts}; flash kernels by route: {routes}",
+          flush=True)
+    # recompute replays each dense block's forward (flash and its two
+    # LayerNorms twice); MoE blocks run outside recompute
+    want = {"flash_attention_fwd": 2 * L_dense + L_moe,
+            "flash_attention_bwd_dq": L_dense + L_moe,
+            "flash_attention_bwd_dkv": L_dense + L_moe,
+            "fused_layer_norm": 4 * L_dense + 2 * L_moe + 1,
+            "layer_norm_bwd": 2 * (L_dense + L_moe) + 1,
+            "fused_adamw_update": n_tensors}
+    got = {k: counts[k] / timed for k in want}
+    print(f"    launches per step {got}, as the code gives {want}",
+          flush=True)
+    check(got == want, f"[16]: launches per step {got}, not {want}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"[16]: the loss did not fall: {losses}")
+    check(all(v > 0 for v in ms.values()),
+          f"[16]: a group of the breakdown saw no device time: {ms}")
+    for name in TRAINING_KERNELS:
+        rows[name]["launches_moe_train"] = counts[name]
+    # two steps from one state, bit for bit (no atomics in the route's sums)
+    snap = moe_snapshot(step)
+    la = step(x, y)
+    after = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step.restore_from_checkpoint(snap)
+    lb = step(x, y)
+    same = torch.equal(la, lb) and all(
+        torch.equal(after[k], v) for k, v in model.named_parameters())
+    print(f"    two steps from one state: losses {float(la):.6f} / "
+          f"{float(lb):.6f}, every parameter bitwise equal: {same}",
+          flush=True)
+    check(same, "[16]: two steps from the same state differ")
+    del model, step, snap, after, seen
+    torch.cuda.empty_cache()
+    print(f"    phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return step_s
+
+
+def route_ties(card, cpu, what):
+    """Holds the first forward's routing on the card to the CPU's, block
+    by block: slots equal, or every token whose expert choice differs a
+    tie within twice the two sides' largest logit difference (its two
+    experts' gate logits that close), reported as [13] reports its."""
+    for i in sorted(cpu):
+        s_g, lg, d_g = card[i]
+        s_c, lc, d_c = cpu[i]
+        err = max_err(lg.cpu(), lc)
+        same = torch.equal(s_g.cpu(), s_c)
+        pick = [torch.topk(t.cpu(), 2, dim=-1).indices for t in (lg, lc)]
+        diff = (pick[0] != pick[1]).any(dim=-1).nonzero()[:, 0].tolist()
+        # at each differing rank, the gap between the two sides' experts
+        gaps = [max(abs(lc[t, pick[0][t, j]] - lc[t, pick[1][t, j]]).item()
+                    for j in range(2) if pick[0][t, j] != pick[1][t, j])
+                for t in diff]
+        print(f"    {what} block {i}: slots equal {same}; dropped "
+              f"{d_g:.4f} / {d_c:.4f}; gate logits max_abs_err {err:.3e}; "
+              f"tokens whose choice differs {diff[:8]} (gaps "
+              f"{[round(v, 7) for v in gaps[:8]]})", flush=True)
+        check(same or (diff and all(v <= 2 * err for v in gaps)),
+              f"{what}: block {i}'s routing differs beyond a tie")
+
+
+def moe_train_vs_plain(K, seed: int):
+    """[16], depth 2 (one dense block, one MoE block) in fp32 at full
+    width: 3 AdamW steps on the card (kernels; flash on the CUDA cores)
+    and on the CPU (plain versions) from the same weights and batches."""
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig(**{**MOE5, "num_layers": 2})
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(seed + 16))
+    gpu = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    p0 = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+    lr = 1e-3
+    steps = {}
+    for side, dev, m in (("card", "cuda", gpu), ("cpu", "cpu", cpu)):
+        m.train()
+        steps[side] = make_sharded_train_step(
+            m, AdamW(learning_rate=lr, parameters=m.named_parameters()),
+            device=dev)
+    rng = torch.Generator().manual_seed(seed + 18)
+    K.reset_launch_counts()
+    for i in range(3):
+        x = torch.randint(0, cfg.vocab_size, (2, 256), generator=rng)
+        y = torch.roll(x, -1, dims=1)
+        with MoEInputs(gpu) as hg, MoEInputs(cpu) as hc:
+            lg = float(steps["card"](x, y))
+            lc = float(steps["cpu"](x, y))
+        print(f"[16] depth-2 fp32 step {i + 1}: loss card {lg:.6f} CPU "
+              f"{lc:.6f} (|diff| {abs(lg - lc):.2e}, tol 1e-4)", flush=True)
+        if i == 0:
+            route_ties(hg.routing(), hc.routing(), "[16] depth 2")
+        check(abs(lg - lc) <= 1e-4, f"step {i + 1} losses differ: {lg} {lc}")
+        if i == 0:
+            missing = [k for k, p in gpu.named_parameters() if p.grad is None]
+            check(not missing, f"parameters without a gradient on the card: "
+                  f"{missing}")
+            errs = {k: max_err(p.grad.cpu(), q.grad)
+                    / max(q.grad.abs().max().item(), 1e-30)
+                    for (k, p), q in zip(gpu.named_parameters(),
+                                         cpu.parameters())}
+            worst = max((v, k) for k, v in errs.items())
+            moe = {k.split(".mlp.")[1]: f"{v:.1e}" for k, v in errs.items()
+                   if ".mlp." in k and "fc" not in k}
+            print(f"    step 1 gradients: max|diff| / max|grad| worst "
+                  f"{worst[0]:.2e} ({worst[1]}), the MoE FFN's {moe} (tol "
+                  f"1e-3)", flush=True)
+            check(worst[0] <= 1e-3, f"gradients differ: {worst}")
+    counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+          f"kernels not used on the card: {counts}")
+    check_flash_routes(K, "cuda_cores", "[16] depth 2")
+    compare_updates(cfg, p0, gpu, cpu, 3, lr)
+    print(f"    phase 16 depth 2 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+# --------------------------------------------------------------- phase 17
+def moe_serve_slice(K, seed: int, rows):
+    """[17]: [16]'s model (bf16, 8 layers) behind ``generate`` and the
+    paged ``Engine`` (see the module docstring)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**MOE5)
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(seed + 16))
+    model.eval()
+    L, new = cfg.num_layers, 64
+    rng = torch.Generator().manual_seed(seed + 19)
+    # generate: 8 prompts of 512 tokens, 64 new greedy tokens
+    ids = torch.randint(0, cfg.vocab_size, (8, 512), generator=rng).cuda()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    state = model._generate_state
+    t0 = time.perf_counter()
+    again = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    caps = (state.prefill.captures, state.decode.captures)
+    print(f"[17] GPT-MoE (config 5's model, bf16) generate, 8 prompts x 512, "
+          f"{new} new greedy: first call (captures) {first_s:.3f} s, second "
+          f"(replays) {wall:.3f} s = {8 * new / wall:.1f} tokens/s; captures "
+          f"prefill/decode {caps}; wrapper launches (the captures) {counts} "
+          f"({smi})", flush=True)
+    check(out.shape == (8, 512 + new) and torch.equal(out, again)
+          and caps == (1, 1) and model._generate_state is state,
+          f"[17]: generate {tuple(out.shape)}, replay equal "
+          f"{torch.equal(out, again)}, captures {caps}")
+    check(counts["fused_layer_norm"] > 0 and counts["flash_attention_fwd"] > 0,
+          f"[17]: generate never launched a kernel of its path: {counts}")
+    check_flash_routes(K, "wgmma", "[17] generate")
+    for name in ("fused_layer_norm", "flash_attention_fwd"):
+        rows[name]["launches_moe_generate"] = counts[name]
+    model._generate_state = None
+    torch.cuda.empty_cache()
+    # the paged engine: [4]'s request shape
+    eng = Engine(model, EngineConfig(max_batch_size=8, max_seq_len=1024,
+                                     page_size=16), device="cuda")
+    lengths = [128 if i % 2 == 0 else
+               int(torch.randint(300, 701, (1,), generator=rng))
+               for i in range(16)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in lengths]
+    sp = SamplingParams(max_new_tokens=32)
+    # one warm-up request per prefill bucket captures its program (the
+    # first also the decode step)
+    warm = {eng._bucket(len(p)): p for p in prompts}
+    buckets = sorted(warm)
+    K.reset_launch_counts()
+    eng.generate([warm[T] for T in buckets], SamplingParams(max_new_tokens=4))
+
+    def serve():
+        reqs = [eng.add_request(p, sp) for p in prompts]
+        while eng.has_unfinished:
+            eng.step()
+        torch.cuda.synchronize()
+        return reqs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = serve()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    outs = [r.output_ids for r in reqs]
+    n_tok = sum(len(o) for o in outs)
+    ttft, tpot = request_latencies(reqs)
+    captures = {name: st.captures for name, st in eng.steps.items()}
+    print(f"    paged Engine (8 slots, S_max 1024, page 16), 16 requests "
+          f"(prompts {lengths}): {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s; TTFT p50 {ttft:.1f} ms, TPOT p50 "
+          f"{tpot:.2f} ms; captures per program {captures} ({smi})",
+          flush=True)
+    check(all(len(o) == 32 for o in outs) and set(captures)
+          == {"decode", *(f"prefill:{T}" for T in buckets)}
+          and set(captures.values()) == {1}, f"[17]: captures {captures}")
+    check(all(counts[k] > 0 for k in SERVING_KERNELS),
+          f"[17]: a kernel of the path was never launched: {counts}")
+    check_flash_routes(K, "wgmma", "[17] paged engine")
+    for name in SERVING_KERNELS:
+        rows[name]["launches_moe_serve"] = counts[name]
+    # what a replay runs on the card, by the profiler (no request is live:
+    # the replays write only free pages)
+    syms = (NORM_SYMBOLS["fwd"], FWD_SYMBOL, *PAGED_SYMBOLS.values())
+    checks = {"decode": (4, {NORM_SYMBOLS["fwd"]: 2 * L + 1,
+                             **{s: L for s in PAGED_SYMBOLS.values()}}),
+              f"prefill:{buckets[0]}": (1, {NORM_SYMBOLS["fwd"]: 2 * L + 1,
+                                            FWD_SYMBOL: L})}
+    for name, (n, each) in checks.items():
+        st = eng.steps[name]
+        w, busy, _ = replay_clock(st, n)
+        print(f"    {name} alone (graph replay): {w:.2f} ms host clock, "
+              f"device busy {busy:.2f} ms ({smi})", flush=True)
+        got = launches_of(profile_launches(
+            lambda: [st.replay() for _ in range(n)]), syms)
+        want = {s: n * each.get(s, 0) for s in syms}
+        print(f"    {name}: {n} replay(s) launched on the card (profiler) "
+              f"{got}", flush=True)
+        check(got == want, f"[17]: {name} replays launched {got}, not {want}")
+    # the decode step's dropped share (its T is the 8 slots, so C = 1),
+    # from its eager call on the same buffers, every slot live
+    for p in prompts[:8]:
+        eng.add_request(p, SamplingParams(max_new_tokens=8))
+    for _ in range(3):
+        eng.step()
+    with MoEInputs(model) as seen:
+        eng.steps["decode"].fn()
+    torch.cuda.synchronize()
+    dropped = {i: round(d, 4) for i, (_, _, d) in seen.routing().items()}
+    print(f"    the decode step (T 8, capacity 1): choices dropped by MoE "
+          f"block {dropped} ({smi})", flush=True)
+    while eng.has_unfinished:
+        eng.step()
+    del eng, model
+    torch.cuda.empty_cache()
+    print(f"    phase 17 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def moe_serve_vs_plain(K, seed: int):
+    """[17] at depth 2 in fp32, full width: ``generate`` and the paged
+    engine on the card and on the CPU from the same weights; tokens must
+    be equal."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig(**{**MOE5, "num_layers": 2})
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(seed + 17))
+    gpu = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.eval()
+    gpu.eval()
+    rng = torch.Generator().manual_seed(seed + 20)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=rng)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (17, 100, 45, 70)]
+    sp = SamplingParams(max_new_tokens=8)
+    small = dict(max_batch_size=2, max_seq_len=1024, page_size=16)
+    K.reset_launch_counts()
+    got = {}
+    for side, dev, m in (("card", "cuda", gpu), ("cpu", "cpu", cpu)):
+        got[side] = (m.generate(ids.to(dev), max_new_tokens=8).cpu(),
+                     Engine(m, EngineConfig(**small),
+                            device=dev).generate(prompts, sp))
+    counts = K.launch_counts()
+    print(f"[17] depth-2 fp32: generate card {got['card'][0][:, 64:].tolist()}"
+          f"\n                     CPU  {got['cpu'][0][:, 64:].tolist()}\n"
+          f"    paged engine card {got['card'][1]}\n"
+          f"                 CPU  {got['cpu'][1]}", flush=True)
+    check(torch.equal(got["card"][0], got["cpu"][0])
+          and got["card"][1] == got["cpu"][1],
+          "[17]: greedy tokens differ between the card and the CPU")
+    check(all(counts[k] > 0 for k in SERVING_KERNELS),
+          f"[17] depth 2: kernels not used: {counts}")
+    check_flash_routes(K, "cuda_cores", "[17] depth 2")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    print(f"    phase 17 depth 2 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2968,6 +3592,12 @@ def main() -> int:
     # ---- 15. checkpoint, data and resume at full width; with dropout
     ckpt_resume_slice(K, args.seed, rows, step6_s)
     dropout_resume(args.seed)
+
+    # ---- 16. GPT-MoE training (config 5); 17. GPT-MoE serving
+    moe_train_slice(K, args.seed, rows)
+    moe_train_vs_plain(K, args.seed)
+    moe_serve_slice(K, args.seed, rows)
+    moe_serve_vs_plain(K, args.seed)
 
     # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

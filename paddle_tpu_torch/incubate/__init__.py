@@ -1,5 +1,6 @@
-"""``paddle_tpu.incubate`` analog: so far only ``nn.functional.fused_rms_norm``."""
+"""``paddle_tpu.incubate`` analog: so far ``nn.functional.fused_rms_norm``
+and ``distributed.models.moe`` (the MoE gates and layer)."""
 
-from . import nn
+from . import distributed, nn
 
-__all__ = ["nn"]
+__all__ = ["distributed", "nn"]

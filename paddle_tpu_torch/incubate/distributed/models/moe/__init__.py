@@ -1,0 +1,8 @@
+"""Mixture of experts (``paddle_tpu.incubate.distributed.models.moe``
+analog): the GShard/Switch gates and ``MoELayer`` on one device."""
+
+from .gate import GShardGate, SwitchGate, gshard_gating, switch_gating
+from .moe_layer import ExpertMLP, MoELayer, global_gather, global_scatter
+
+__all__ = ["GShardGate", "SwitchGate", "gshard_gating", "switch_gating",
+           "ExpertMLP", "MoELayer", "global_gather", "global_scatter"]

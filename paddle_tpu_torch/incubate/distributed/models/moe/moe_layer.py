@@ -1,0 +1,272 @@
+"""MoELayer (``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``
+analog), one device.
+
+``moe_route`` is the shared routing core of ``MoELayer`` and
+``models.gpt.GPTMoEMLP``: the gate product, the gate (``gate._route``:
+each token's slots and fp32 combine weights), the experts' input
+``[E, C, d]`` as a gather of token rows (empty slots zero), the experts,
+and each token's output as the fp32 weighted sum of its at most two slots,
+cast to the experts' dtype. These are the values of the JAX package's
+``tec,td->ecd`` and ``tec,ecd->td`` fp32 einsums against its one-hot
+``[T, E, C]`` tensors, which the port never builds. Nothing is read on the
+host, so a CUDA graph can capture the route. The dispatch and the combine
+are gathers forward and backward (no atomic adds: the same bits every
+run); the dispatch's backward sums each token's two slot gradients in
+fp32, as the einsum's transpose does.
+
+Expert parallelism (the ``ep`` mesh axis, ``global_scatter`` /
+``global_gather`` beyond one rank, the ``quant`` dispatch's int8
+exchanges) needs a process group, which the port does not have yet
+(ROADMAP queue A item A5): on one device the ``quant`` mode has no
+exchange to compress and routes as ``dense`` does, as the JAX package's
+``plan_quant_dispatch`` returns None without an ``ep`` axis.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .....distributed.fleet.meta_parallel.mp_layers import _Linear
+from .....nn import functional as F
+from .gate import _route
+
+_A5 = "ROADMAP queue A item A5 (distribution)"
+
+
+def _slot_choices(slots, n_slots: int):
+    """The inverse of ``slots`` ``[T, k]``: for each of the ``n_slots``
+    slots, the flat index ``t * k + j`` of the choice routed there, or
+    ``T * k`` where none is. Dropped choices all point at the extra slot
+    ``n_slots``, which is cut off (a scatter with no sum: no atomics)."""
+    T, k = slots.shape
+    src = torch.full((n_slots + 1,), T * k, dtype=torch.long,
+                     device=slots.device)
+    src.scatter_(0, slots.reshape(-1), torch.arange(T * k,
+                                                    device=slots.device))
+    return src[:n_slots]
+
+
+def _pad_row(t):
+    """``t`` with one zero row (or element) appended along dim 0."""
+    return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+
+
+class _Dispatch(torch.autograd.Function):
+    """``[T, d]`` token rows -> ``[E * C, d]`` expert slots: slot ``s``
+    holds the row of the token routed there, or zeros. The backward
+    gathers each token's slot gradients and sums them in fp32."""
+
+    @staticmethod
+    def forward(ctx, xt, slots, choice):
+        k = slots.shape[1]
+        ctx.save_for_backward(slots)
+        token = torch.div(choice, k, rounding_mode="floor")  # T: none
+        return _pad_row(xt).index_select(0, token)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slots,) = ctx.saved_tensors
+        T, k = slots.shape
+        rows = _pad_row(g).index_select(0, slots.reshape(-1)).view(
+            T, k, g.shape[-1])
+        if k == 1:
+            return rows[:, 0], None, None
+        return rows.float().sum(dim=1).to(g.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``[E * C, d']`` expert outputs -> ``[T, d']``: each token's slots
+    weighted in fp32 and summed, cast to the outputs' dtype; a dropped
+    choice reads the zero row past the last slot. The backward is
+    gathers as well: a slot's gradient is its one token's output gradient
+    times its weight, a weight's the product of the two rows."""
+
+    @staticmethod
+    def forward(ctx, eout, weights, slots, choice):
+        T, k = slots.shape
+        rows = _pad_row(eout).index_select(0, slots.reshape(-1)).view(
+            T, k, eout.shape[-1])
+        ctx.save_for_backward(rows, weights, slots, choice)
+        return (weights[..., None] * rows.float()).sum(dim=1).to(eout.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, weights, slots, choice = ctx.saved_tensors
+        k = slots.shape[1]
+        gf = g.float()
+        d_weights = (gf[:, None, :] * rows.float()).sum(dim=-1)
+        token = torch.div(choice, k, rounding_mode="floor")
+        w = _pad_row(weights.reshape(-1)).index_select(0, choice)
+        d_eout = (w[:, None] * _pad_row(gf).index_select(0, token)).to(
+            g.dtype)
+        return d_eout, d_weights, None, None
+
+
+def moe_route(xt, gate_weight, gate_type: str, capacity: int, run_experts,
+              dispatch_mode: str = "dense", quant_block: int = 128):
+    """Shared routing core (GShard/Switch): gate -> dispatch ->
+    ``run_experts([E, C, d] -> [E, C, d'])`` -> combine. Returns
+    ``(out [T, d'], aux)``. ``gate_type`` ``"gshard"`` is top-2, anything
+    else top-1 (Switch). ``dispatch_mode`` ``"quant"`` routes as
+    ``"dense"`` on one device (no exchange to compress; ``quant_block``
+    is then unused)."""
+    if dispatch_mode not in ("dense", "quant"):
+        raise ValueError(
+            f"dispatch_mode must be 'dense' or 'quant', got {dispatch_mode!r}")
+    E = gate_weight.shape[-1]
+    logits = torch.matmul(xt, gate_weight)  # [T, E]
+    slots, weights, aux = _route(logits, capacity,
+                                 2 if gate_type == "gshard" else 1)
+    choice = _slot_choices(slots, E * capacity)
+    ein = _Dispatch.apply(xt, slots, choice)
+    eout = run_experts(ein.view(E, capacity, xt.shape[-1]))
+    out = _Combine.apply(eout.reshape(E * capacity, -1), weights, slots,
+                         choice)
+    return out, aux
+
+
+#: the activations the batched expert product takes (paddle's gelu is
+#: exact, not the tanh form)
+_FUSED_ACTS = {"gelu": lambda x: F.gelu(x, approximate=False),
+               "relu": torch.relu, "silu": torch.nn.functional.silu,
+               "sigmoid": torch.sigmoid, "tanh": torch.tanh}
+
+
+class MoELayer(nn.Module):
+    """Mixture of experts over ``experts`` (a list of modules, each
+    ``[n, d_model] -> [n, d']``).
+
+    Capacity follows the reference: ``max(1, int(capacity_factor * T /
+    E))`` slots per expert; a choice past it is dropped and its token gets
+    nothing from that expert (the residual path carries it). ``aux_loss``
+    holds the gate's load-balancing term of the last forward. When every
+    expert is an ``ExpertMLP`` of one shape and activation, the experts
+    run as one batched fp32 product over their stacked weights; otherwise
+    one by one. ``group`` (an expert-parallel group) raises, naming A5.
+    ``gate_weight [d_model, E]`` is drawn Xavier-uniform."""
+
+    def __init__(self, d_model: int, experts: Sequence[nn.Module],
+                 gate="gshard", top_k: Optional[int] = None,
+                 capacity_factor: float = 1.25, group=None,
+                 recompute_interval: int = 0, dispatch: str = "dense",
+                 name=None, *, device=None, dtype=None):
+        super().__init__()
+        if group is not None:
+            raise NotImplementedError(f"MoELayer(group=...): expert-parallel "
+                                      f"groups are not ported yet ({_A5})")
+        self.dispatch_mode = dispatch
+        self.d_model = d_model
+        self.num_experts = len(experts)
+        self.experts = list(experts)
+        for i, e in enumerate(self.experts):
+            self.add_module(f"expert_{i}", e)
+        self.capacity_factor = capacity_factor
+        self.recompute_interval = recompute_interval
+        if top_k is not None:
+            if top_k not in (1, 2):
+                raise ValueError(
+                    f"top_k must be 1 (switch) or 2 (gshard), got {top_k}")
+            self.gate_type = "switch" if top_k == 1 else "gshard"
+        elif isinstance(gate, str):
+            self.gate_type = gate
+        else:
+            self.gate_type = ("gshard" if getattr(gate, "top_k", 2) == 2
+                              else "switch")
+        self.top_k = 1 if self.gate_type == "switch" else 2
+        self.gate_weight = nn.Parameter(torch.empty(
+            d_model, self.num_experts, device=device, dtype=dtype))
+        nn.init.xavier_uniform_(self.gate_weight)
+        self.aux_loss = None
+
+    def _fused_experts(self):
+        """``run_experts`` over the stacked weights when every expert is a
+        same-shaped ``ExpertMLP`` with a batched activation, else None."""
+        e0 = self.experts[0]
+        if not all(type(e) is ExpertMLP for e in self.experts):
+            return None
+        shapes = (e0.fc1.weight.shape, e0.fc2.weight.shape)
+        if not all((e.fc1.weight.shape, e.fc2.weight.shape) == shapes
+                   and e._act_name == e0._act_name for e in self.experts):
+            return None
+        act = _FUSED_ACTS.get(e0._act_name)
+        if act is None:
+            return None
+        w1, b1, w2, b2 = (torch.stack([getattr(getattr(e, fc), p)
+                                       for e in self.experts])
+                          for fc, p in (("fc1", "weight"), ("fc1", "bias"),
+                                        ("fc2", "weight"), ("fc2", "bias")))
+
+        def run_experts(ein):
+            h = act(torch.bmm(ein.float(), w1.float()) + b1.float()[:, None])
+            o = torch.bmm(h, w2.float()) + b2.float()[:, None]
+            return o.to(ein.dtype)
+
+        return run_experts
+
+    def forward(self, x):
+        shape = x.shape
+        xt = x.reshape(-1, shape[-1])  # [T, d]
+        T = xt.shape[0]
+        capacity = max(1, int(self.capacity_factor * T / self.num_experts))
+        run_experts = self._fused_experts()
+        if run_experts is None:
+            def run_experts(ein):
+                return torch.stack([e(ein[i])
+                                    for i, e in enumerate(self.experts)])
+        out, aux = moe_route(xt, self.gate_weight, self.gate_type, capacity,
+                             run_experts, dispatch_mode=self.dispatch_mode)
+        self.aux_loss = aux
+        return out.reshape(*shape[:-1], out.shape[-1])
+
+
+class ExpertMLP(nn.Module):
+    """Default FFN expert (the reference's ExpertLayer): ``fc2(act(fc1(x)))``
+    with ``fc1 [d_model, d_hidden]`` and ``fc2 [d_hidden, d_model]``
+    (weights ``[in, out]``, Xavier-normal; biases zero). ``activation`` is
+    one of ``gelu`` (exact), ``relu``, ``silu``, ``sigmoid``, ``tanh``;
+    other names wait for the rest of ``nn.functional`` (ROADMAP queue A
+    item A8) and raise."""
+
+    def __init__(self, d_model: int, d_hidden: int, activation: str = "gelu",
+                 *, device=None, dtype=None):
+        super().__init__()
+        if activation not in _FUSED_ACTS:
+            raise NotImplementedError(
+                f"ExpertMLP(activation={activation!r}): only "
+                f"{sorted(_FUSED_ACTS)} are ported (ROADMAP queue A item A8)")
+        self.fc1 = _Linear(d_model, d_hidden, None, True, False, None,
+                           device, dtype)
+        self.fc2 = _Linear(d_hidden, d_model, None, True, False, None,
+                           device, dtype)
+        self._act_name = activation
+        self.act = _FUSED_ACTS[activation]
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
+
+
+def _check_world(what: str, group):
+    if group is not None or (torch.distributed.is_available()
+                             and torch.distributed.is_initialized()
+                             and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            f"{what} across ranks is not ported yet ({_A5}); on one rank "
+            "it is the identity")
+
+
+def global_scatter(x, local_count, global_count, group=None):
+    """Count-routed token exchange (``global_scatter_op`` analog). On one
+    rank the identity, as in the reference; across ranks it raises,
+    naming A5."""
+    _check_world("global_scatter", group)
+    return x
+
+
+def global_gather(x, local_count, global_count, group=None):
+    """Inverse of ``global_scatter``: the identity on one rank; across
+    ranks it raises, naming A5."""
+    _check_world("global_gather", group)
+    return x

@@ -1,3 +1,5 @@
-from .gpt import GPT3_1p3B, GPT_TINY, GPTConfig, GPTForCausalLM
+from .gpt import (GPT3_1p3B, GPT_TINY, GPTConfig, GPTForCausalLM, GPTModel,
+                  GPTMoEMLP, gpt_moe_tiny, gpt_tiny)
 
-__all__ = ["GPT3_1p3B", "GPT_TINY", "GPTConfig", "GPTForCausalLM"]
+__all__ = ["GPT3_1p3B", "GPT_TINY", "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "GPTMoEMLP", "gpt_moe_tiny", "gpt_tiny"]

@@ -14,8 +14,10 @@ Ported: the training path (``forward`` with per-block recompute,
 ``loss`` and the chunked ``forward_with_loss``), the serving protocol over
 both KV layouts (``prefill_with_cache``, ``decode_step``, and on the paged
 layout the multi-token ``extend_step`` of prefix-cache suffix prefills and
-speculative verify) and ``generate``. MoE and sharding belong to a later
-slice (ROADMAP queue A item A5).
+speculative verify), ``generate``, and GPT-MoE on one device
+(``GPTMoEMLP`` in every ``moe_every_k``-th block, routed by
+``incubate.distributed.models.moe.moe_route``). Sharding belongs to a
+later slice (ROADMAP queue A item A5).
 """
 
 from __future__ import annotations
@@ -70,8 +72,7 @@ class GPTConfig:
     def __post_init__(self):
         for what, on, item in (
                 ("sequence_parallel", self.sequence_parallel, "A5.7"),
-                ("context_parallel", self.context_parallel != "ring", "A5.7"),
-                ("moe_num_experts", self.moe_num_experts, "A5.1")):
+                ("context_parallel", self.context_parallel != "ring", "A5.7")):
             if on:
                 raise NotImplementedError(
                     f"GPTConfig.{what}={getattr(self, what)!r} is not ported "
@@ -191,21 +192,65 @@ class GPTMLP(nn.Module):
         return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate=True)))
 
 
+class GPTMoEMLP(nn.Module):
+    """The GPT-MoE block's FFN: ``moe_num_experts`` experts as stacked
+    parameters (``w1 [E, d, f]``, ``b1 [E, f]``, ``w2 [E, f, d]``,
+    ``b2 [E, d]``) behind a gate ``gate_weight [d, E]``, routed by
+    ``moe_route`` (GShard when ``moe_top_k`` is 2, else Switch) at
+    capacity ``max(1, int(moe_capacity_factor * T / E))`` for the ``T``
+    tokens of the call. The experts run in the activation dtype: two
+    batched products with the tanh GELU between them. ``aux_loss`` holds
+    the gate's load-balancing term of the last forward."""
+
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        E, d, f = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.cfg = cfg
+
+        def param(*shape):
+            return nn.Parameter(torch.zeros(shape, device=device,
+                                            dtype=dtype))
+
+        self.gate_weight = param(d, E)
+        self.w1, self.b1 = param(E, d, f), param(E, f)
+        self.w2, self.b2 = param(E, f, d), param(E, d)
+        self.dropout = Dropout(cfg.dropout)
+        self.aux_loss = None
+
+    def _experts(self, ein):
+        """``[E, C, d]`` -> ``[E, C, d]``, every expert at once."""
+        dt = ein.dtype
+        h = torch.bmm(ein, self.w1.to(dt)) + self.b1.to(dt)[:, None]
+        h = F.gelu(h, approximate=True)
+        return torch.bmm(h, self.w2.to(dt)) + self.b2.to(dt)[:, None]
+
+    def forward(self, x):
+        from ..incubate.distributed.models.moe.moe_layer import moe_route
+
+        cfg = self.cfg
+        B, S, d = x.shape
+        xt = x.reshape(-1, d)
+        capacity = max(1, int(cfg.moe_capacity_factor * xt.shape[0]
+                              / cfg.moe_num_experts))
+        out, aux = moe_route(
+            xt, self.gate_weight, "gshard" if cfg.moe_top_k == 2 else "switch",
+            capacity, self._experts, dispatch_mode=cfg.moe_dispatch)
+        self.aux_loss = aux
+        return self.dropout(out.reshape(B, S, d))
+
+
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, use_moe: bool = False, *, device=None,
                  dtype=None):
         super().__init__()
-        if use_moe:
-            raise NotImplementedError("GPTBlock(use_moe=True): the MoE FFN is "
-                                      "not ported yet (ROADMAP queue A item "
-                                      "A5.1)")
         self.cfg = cfg
         self.ln1 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                              device=device, dtype=dtype)
         self.attn = GPTAttention(cfg, device=device, dtype=dtype)
         self.ln2 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                              device=device, dtype=dtype)
-        self.mlp = GPTMLP(cfg, device=device, dtype=dtype)
+        self.mlp = (GPTMoEMLP if use_moe else GPTMLP)(cfg, device=device,
+                                                       dtype=dtype)
 
     def forward(self, x, kv_cache=None, cache_positions=None,
                 return_kv=False):
@@ -245,14 +290,19 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = GPTEmbeddings(cfg, device=device, dtype=dtype)
-        self.layers = nn.ModuleList(GPTBlock(cfg, device=device, dtype=dtype)
-                                    for _ in range(cfg.num_layers))
+        k = max(cfg.moe_every_k, 1)
+        self.layers = nn.ModuleList(
+            GPTBlock(cfg, use_moe=cfg.moe_num_experts > 0 and i % k == k - 1,
+                     device=device, dtype=dtype)
+            for i in range(cfg.num_layers))
         self.final_ln = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                                   device=device, dtype=dtype)
+        self.moe_aux_loss = None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        """The JAX package's init: every matrix from N(0, std), biases zero,
+        """The JAX package's init: every tensor of rank 2 or more (the MoE
+        FFN's stacked biases included) from N(0, std), biases zero,
         LayerNorm weights one."""
         std = self.cfg.initializer_range
         for name, p in self.named_parameters():
@@ -276,11 +326,20 @@ class GPTModel(nn.Module):
                 kvs.append(kv)
             return self.final_ln(h), kvs
         interval = max(self.cfg.recompute_interval, 1)
+        aux = None
         for i, block in enumerate(self.layers):
-            if self.cfg.use_recompute and self.training and i % interval == 0:
+            moe = isinstance(block.mlp, GPTMoEMLP)
+            # MoE blocks run outside recompute, as in the JAX package
+            # (their aux loss is read by the loss of this forward)
+            if self.cfg.use_recompute and self.training \
+                    and i % interval == 0 and not moe:
                 h = recompute(block, h, policy=self.cfg.recompute_policy)
             else:
                 h = block(h)
+            if moe and block.mlp.aux_loss is not None:
+                aux = block.mlp.aux_loss if aux is None \
+                    else aux + block.mlp.aux_loss
+        self.moe_aux_loss = aux
         return self.final_ln(h)
 
 
@@ -326,8 +385,16 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None):
         return self._logits(self.gpt(input_ids, position_ids))
 
+    def _moe_aux(self):
+        """The weighted MoE load-balancing term of the last trunk forward
+        (None for a dense model)."""
+        aux = self.gpt.moe_aux_loss
+        return None if aux is None else aux * self.cfg.moe_aux_weight
+
     def loss(self, logits, labels):
-        """Next-token CE, labels already shifted by the data pipeline."""
+        """Next-token CE, labels already shifted by the data pipeline. A
+        MoE model's aux term is added by ``forward_with_loss``; this method
+        sees only logits."""
         V = logits.shape[-1]
         return F.cross_entropy(logits.reshape(-1, V),
                                labels.reshape(-1)).mean()
@@ -337,11 +404,14 @@ class GPTForCausalLM(nn.Module):
         the LM head and the fp32 cross-entropy run per sequence chunk under
         ``recompute``, so the ``[B, S, V]`` fp32 logits never
         exist; the loss is the sum over chunks over ``B*S``. Otherwise it
-        is ``loss(forward(input_ids), labels)``."""
+        is ``loss(forward(input_ids), labels)``. A MoE model adds
+        ``moe_aux_weight`` times the blocks' summed aux loss either way."""
         chunk = self.cfg.loss_chunk
         B, S = input_ids.shape
         if not chunk or S % chunk:
-            return self.loss(self.forward(input_ids), labels)
+            loss = self.loss(self.forward(input_ids), labels)
+            aux = self._moe_aux()
+            return loss if aux is None else loss + aux
         h = self.gpt(input_ids)
         W = (self.gpt.embeddings.word_embeddings.weight
              if self.cfg.tie_word_embeddings else self.lm_head.weight)
@@ -349,12 +419,21 @@ class GPTForCausalLM(nn.Module):
         for c in range(0, S, chunk):
             total = total + recompute(self._chunk_ce, h[:, c:c + chunk],
                                       labels[:, c:c + chunk], W)
-        return total / (B * S)
+        aux = self._moe_aux()
+        return total / (B * S) if aux is None else total / (B * S) + aux
 
     def _chunk_ce(self, h_c, y_c, W):
         logits = (h_c @ (W.t() if self.cfg.tie_word_embeddings else W)).float()
         gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
         return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+    def pipeline_spec(self):
+        """The pipeline-parallel partition of the JAX package's
+        ``make_sharded_train_step`` under a ``pp`` axis; raises until the
+        port has a mesh."""
+        raise NotImplementedError("GPTForCausalLM.pipeline_spec: pipeline "
+                                  "parallelism is not ported yet (ROADMAP "
+                                  "queue A item A5.6)")
 
     # ---- serving decode protocol (paddle_tpu_torch/serving engine) ----
     def prefill_with_cache(self, input_ids, lengths=None, position_ids=None):
@@ -435,3 +514,21 @@ class GPTForCausalLM(nn.Module):
             self, input_ids, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_k=top_k,
             eos_token_id=eos_token_id, generator=generator)
+
+
+def gpt_tiny(*, device=None, dtype=None, generator: torch.Generator = None,
+             **overrides) -> GPTForCausalLM:
+    """The JAX package's tiny GPT fixture (``GPT_TINY`` with
+    ``overrides``)."""
+    return GPTForCausalLM(GPTConfig(**{**GPT_TINY, **overrides}),
+                          device=device, dtype=dtype, generator=generator)
+
+
+def gpt_moe_tiny(*, device=None, dtype=None,
+                 generator: torch.Generator = None,
+                 **overrides) -> GPTForCausalLM:
+    """Tiny GPT-MoE fixture: 4 experts, the MoE FFN in every 2nd block."""
+    cfg = {**GPT_TINY, "num_layers": 2, "moe_num_experts": 4,
+           "moe_every_k": 2, **overrides}
+    return GPTForCausalLM(GPTConfig(**cfg), device=device, dtype=dtype,
+                          generator=generator)

@@ -1221,3 +1221,133 @@ def test_restored_state_on_the_card_equals_the_saved_one(cuda, tmp_path):
             else:
                 assert v.tobytes() == w.tobytes(), (name, k)
     mgr.close()
+
+
+# ---------------- GPT-MoE (one device) -------------------------------------
+def _moe_gpt(device, dtype=torch.float32, seed=0, **over):
+    """A small GPT-MoE (4 experts in block 1, std 0.2 weights) built on
+    the CPU and moved, so the card and the CPU hold the same weights."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**{**dict(vocab_size=128, hidden_size=256, num_layers=2,
+                              num_heads=4, num_kv_heads=2, max_seq_len=64,
+                              initializer_range=0.2, moe_num_experts=4),
+                       **over})
+    m = GPTForCausalLM(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    return m.to(device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_train_step_gives_every_parameter_a_gradient(cuda, dtype):
+    """A MoE train step on the card (recompute on: the dense block through
+    it, the MoE block outside) reaches every parameter, the gate and the
+    stacked experts included; the loss is finite, and in fp32 it agrees
+    with the CPU's to 1e-4."""
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rng = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 128, (2, 64), generator=rng)
+    y = torch.roll(x, -1, dims=1)
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = _moe_gpt(dev, dtype if dev.type == "cuda" else torch.float32,
+                     use_recompute=True)
+        m.train()
+        step = make_sharded_train_step(
+            m, AdamW(learning_rate=1e-3, parameters=m.named_parameters()),
+            device=dev)
+        losses[dev.type] = float(step(x, y))
+        missing = [k for k, p in m.named_parameters()
+                   if p.grad is None or not torch.isfinite(p.grad).all()
+                   or not p.grad.abs().max() > 0]
+        assert not missing, (dev, missing)
+        if dtype == torch.bfloat16:
+            break
+    if dtype == torch.float32:
+        assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4, losses
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_graph_equals_the_eager_step(cuda, dtype):
+    """Mid-run, a replay of a MoE engine's captured decode step and its
+    eager function on the same buffers: tokens, logits and every written
+    page bitwise equal (the route reads nothing on the host, so it
+    captures whole)."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    eng = _engine(_moe_gpt(cuda, dtype), cuda)
+    for p in _shared_prefix_prompts(1)[:2]:
+        eng.add_request(p, SamplingParams(max_new_tokens=40))
+    for _ in range(3):
+        eng.step()
+    step = eng.steps["decode"]
+    assert step.captures == 1
+    step.replay()
+    g_tok, g_logits = (t.clone() for t in step.outputs)
+    g_pools = _pools(eng)
+    e_tok, e_logits = step.fn()
+    torch.cuda.synchronize()
+    assert torch.equal(g_tok, e_tok)
+    assert torch.equal(g_logits, e_logits)
+    assert all(torch.equal(a, b) for a, b in zip(g_pools, _pools(eng)))
+
+
+@pytest.mark.gpu
+def test_moe_route_at_config5_makes_no_tec_tensor(cuda):
+    """``moe_route`` at BASELINE config 5's T 8192, E 8, C 1280, d 1024 in
+    bf16 (experts a scale, so the route alone is measured): forward and
+    backward make no tensor of T * E * C elements, and their peak memory
+    above the inputs stays under one fp32 [T, E, C] tensor (335 MB), where
+    the dense routing holds two; the gradients are finite and the route
+    deterministic."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import \
+        moe_route
+
+    T, E, d = 8192, 8, 1024
+    C = max(1, int(1.25 * T / E))
+    tec = T * E * C
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x0 = torch.randn(T, d, generator=g, device=cuda).to(torch.bfloat16)
+    w0 = (0.05 * torch.randn(d, E, generator=g, device=cuda)).to(
+        torch.bfloat16)
+
+    class Sizes(TorchDispatchMode):
+        numels = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor):
+                    self.numels.append(o.numel())
+            return out
+
+    def run(record=False):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mode = Sizes() if record else None
+        if mode:
+            mode.__enter__()
+        out, aux = moe_route(x, w, "gshard", C, lambda e: e * 2)
+        (out.float().square().sum() + aux).backward()
+        if mode:
+            mode.__exit__(None, None, None)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base, out.detach(),
+                x.grad, w.grad, mode)
+
+    peak, out, gx, gw, _ = run()
+    assert peak < 4 * tec, (peak, 4 * tec)
+    assert torch.isfinite(gx).all() and torch.isfinite(gw).all()
+    _, out2, gx2, gw2, mode = run(record=True)
+    assert tec not in mode.numels
+    assert torch.equal(out, out2) and torch.equal(gx, gx2) \
+        and torch.equal(gw, gw2)

@@ -724,12 +724,15 @@ def test_unported_model_options_raise():
     from paddle_tpu_torch.models.gpt import GPTBlock
 
     for over in (dict(sequence_parallel=True),
-                 dict(context_parallel="ulysses"), dict(moe_num_experts=4)):
+                 dict(context_parallel="ulysses")):
         with pytest.raises(NotImplementedError, match="A5"):
             GPTConfig(**GPT_TINY, **over)
-    with pytest.raises(NotImplementedError, match="A5"):
-        GPTBlock(GPTConfig(**GPT_TINY), True, device="cpu")
+    # MoE is ported (A5.1): a MoE block builds; pipelining still raises
+    assert type(GPTBlock(GPTConfig(**GPT_TINY, moe_num_experts=4), True,
+                         device="cpu").mlp).__name__ == "GPTMoEMLP"
     _, tm = _build()
+    with pytest.raises(NotImplementedError, match="A5"):
+        tm.pipeline_spec()
     opt = AdamW(parameters=tm.named_parameters())
     for kw in (dict(batch_spec=object()), dict(pp_remat=False),
                dict(virtual_pp_degree=2), dict(pp_schedule="gpipe")):
