@@ -6,6 +6,8 @@
         # another checkout's paged decode at [3]'s four shapes
     python3 chip_smoke.py --train-of DIR
         # a checkout's training step ([6]) and recompute policies ([8])
+    python3 chip_smoke.py --dp-worker DIR
+        # one rank of [18b]; the port's launcher starts two
 
 Phases, each of which exits non-zero on failure:
 
@@ -169,7 +171,23 @@ Phases, each of which exits non-zero on failure:
    and L paged decodes; 2L + 1 LayerNorms and L flash forwards), the
    decode step's dropped share (T = 8 slots, capacity 1); then depth 2 in fp32:
    the greedy tokens of ``generate`` and of the paged engine equal on the
-   card and on the CPU.
+   card and on the CPU;
+18. data parallelism: [18a] 6's model, optimizer and batch through
+   ``fleet.init`` (a file-store master) and ``make_sharded_train_step(
+   mesh=)`` over an NCCL group of one rank: two steps bitwise equal to the
+   step without a mesh (losses and every parameter), then 3 timed steps
+   (host clock against 6's, each kernel's launches per step, which must
+   be 6's) and one profiled (its NCCL kernels), and the gradients'
+   all-reduce alone (bytes, CUDA-event ms, its kernels); the group is
+   destroyed after. [18b] two ranks on the one card, started by the
+   port's launcher (``--dp-worker``) over gloo: GPT-3 1.3B's width at
+   depth 2 in fp32, half of a 4 x 512 batch each, 3 AdamW steps; every
+   parameter on the card, the replicas bitwise equal after every step
+   (rank 0's parameters broadcast to rank 1), an async checkpoint saved
+   by both ranks (rank 0 merges and commits); against one process on the
+   whole batch on the card within the CPU tests' trajectory tolerances,
+   and the one-process restore of the checkpoint bitwise equal to rank
+   0's state. The launcher's and each rank's exit code fail the phase.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -259,8 +277,9 @@ FP32_FWD_SYMBOL = "flash_fwd_kernel"
 SERVING_SYMBOLS = {"fused_layer_norm": (NORM_SYMBOLS["fwd"],),
                    "flash_attention_fwd": (FWD_SYMBOL,),
                    "paged_attention": tuple(PAGED_SYMBOLS.values())}
-# the kernels that open every profiler window (``torch.cuda._sleep``'s)
-LEAD_IN, LEAD_SYMBOL = 64, "spin_kernel"
+# the kernels that open every profiler window (``torch.cuda._sleep``'s),
+# launched LEAD_IN_WAIT seconds after it opens
+LEAD_IN, LEAD_SYMBOL, LEAD_IN_WAIT = 64, "spin_kernel", 0.1
 FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv")
 # the shapes GPT-MoE ([16], [17]; H 1024, 16 heads of 64) gives the flash
@@ -1176,13 +1195,21 @@ def profile_launches(fn):
     The window opens with ``LEAD_IN`` spin kernels, left out of what it
     returns: late in this script's process a window has come back without
     its first ~23 kernel records (643 of a decode replay's 666; a short
-    process kept them all), and the lead-in absorbs that loss."""
+    process kept them all), and the lead-in absorbs that loss. Windows
+    have also lost the whole lead-in (in [3] and [17], in two of four
+    whole-script runs). Kineto keeps only the activities timestamped
+    after the window's start on the host's clock, so the window waits
+    ``LEAD_IN_WAIT`` seconds before its lead-in, in case the device's
+    timestamps lag the host's; that cause is a guess, not verified, and
+    a window that still loses its lead-in fails with the first device
+    and host records' times against the window's start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(LEAD_IN_WAIT)
         for _ in range(LEAD_IN):
             torch.cuda._sleep(1)
         fn()
@@ -1190,9 +1217,15 @@ def profile_launches(fn):
     kernels = [(e.key, e.self_device_time_total * 1e-6, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    check(any(LEAD_SYMBOL in name for name, _, _ in kernels),
-          f"the profiler saw none of the lead-in's {LEAD_SYMBOL}s: "
-          f"{[name for name, _, _ in kernels][:4]}")
+    if not any(LEAD_SYMBOL in name for name, _, _ in kernels):
+        starts = {kind: sorted(e.time_range.start for e in prof.events()
+                               if e.device_type == kind)
+                  for kind in (DeviceType.CUDA, DeviceType.CPU)}
+        check(False, f"the profiler saw none of the lead-in's "
+              f"{LEAD_SYMBOL}s: {[name for name, _, _ in kernels][:4]}; "
+              + "; ".join(f"{len(t)} {kind.name} records, the first at "
+                          f"{t[:3]} us from the window's start"
+                          for kind, t in starts.items()))
     return sorted([k for k in kernels if LEAD_SYMBOL not in k[0]],
                   key=lambda kv: -kv[1])
 
@@ -1938,6 +1971,27 @@ def decode_logits(model, prompt, gen_tokens, device):
 
 
 # ---------------------------------------------------------------- phase 6
+def train_model(seed: int):
+    """[6]'s configuration (bench_gpt_dp's), its model on the card in bf16
+    from the seed, its AdamW (fp32 master weights, bf16 moments) and its
+    one fixed batch of 16 x 2048."""
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**GPT3_1p3B, dropout=0.0, use_recompute=True,
+                    recompute_interval=1, loss_chunk=128)
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                multi_precision=True, moment_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randint(0, cfg.vocab_size, (16, 2048), generator=g,
+                      device="cuda")
+    return cfg, model, opt, x, torch.roll(x, -1, dims=1)
+
+
 def train_slice(K, seed: int, rows):
     """GPT-3 1.3B train steps at full width (bench_gpt_dp's configuration
     at its batch of 16); fills the training kernels' launch counts into
@@ -1945,25 +1999,14 @@ def train_slice(K, seed: int, rows):
     import math
 
     from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
-    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
-    from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = GPTConfig(**GPT3_1p3B, dropout=0.0, use_recompute=True,
-                    recompute_interval=1, loss_chunk=128)
-    B, S, timed = 16, 2048, 5
+    timed = 5
     t_phase = t0 = time.perf_counter()
-    model = GPTForCausalLM(
-        cfg, device="cuda", dtype=torch.bfloat16,
-        generator=torch.Generator(device="cuda").manual_seed(seed))
-    model.train()
-    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
-                multi_precision=True, moment_dtype="bfloat16")
+    cfg, model, opt, x, y = train_model(seed)
+    B, S = x.shape
     step = make_sharded_train_step(model, opt)
     n = sum(p.numel() for p in model.parameters())
     n_tensors = sum(1 for _ in model.parameters())
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    x = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
-    y = torch.roll(x, -1, dims=1)
     torch.cuda.synchronize()
     print(f"[6] GPT-3 1.3B train step ({n / 1e9:.3f} B params in {n_tensors} "
           f"tensors, bf16, fp32 master weights, bf16 moments, recompute every "
@@ -3261,6 +3304,354 @@ def moe_serve_vs_plain(K, seed: int):
           flush=True)
 
 
+# --------------------------------------------------------------- phase 18
+# [18b]'s two ranks: GPT-3 1.3B's width at depth 2 in fp32, half of a
+# 4 x 512 batch each, 3 AdamW steps (epsilon 1e-6, as [9]); the CPU tests'
+# trajectory tolerances against one process on the whole batch
+DP_B, DP_S, DP_STEPS, DP_LR = 4, 512, 3, 1e-4
+DP_LOSS_TOL, DP_PARAM_TOL = 1e-5, 3e-5
+
+
+def dp_env(**values):
+    """Set (a value) or clear (None) the launcher's variables in this
+    process's environment; returns the previous values."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def dp_nccl_slice(K, seed: int, rows, step6_s):
+    """[18a]: [6]'s model and optimizer through ``fleet.init`` and
+    ``make_sharded_train_step(mesh=)`` over an NCCL group of one rank
+    (file-store master): two steps bitwise equal to the step without a
+    mesh, then the step's time and kernel launches against [6]'s, and the
+    gradients' all-reduce alone."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+
+    t_phase = time.perf_counter()
+    smi = f"{nvidia_smi_line()}, {torch.cuda.device_count()} card(s)"
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=CKPT_PARENT))
+    old = dp_env(PADDLE_MASTER=f"file://{work / 'store'}",
+                 PADDLE_TRAINERS_NUM="1", PADDLE_TRAINER_ID="0",
+                 PADDLE_DISTRI_BACKEND=None, MASTER_ADDR=None)
+    try:
+        cfg, model, opt, x, y = train_model(seed)
+        step = make_sharded_train_step(model, opt)
+        want = [step(x, y) for _ in range(2)]
+        ref = {k: p.detach().clone() for k, p in model.named_parameters()}
+        del model, opt, step
+        torch.cuda.empty_cache()
+        cfg, model, opt, x, y = train_model(seed)
+        st = fleet.DistributedStrategy()
+        st.hybrid_configs = {"dp_degree": 1}
+        fleet.init(is_collective=True, strategy=st)
+        hcg = fleet.get_hybrid_communicate_group()
+        step = make_sharded_train_step(
+            fleet.distributed_model(model), fleet.distributed_optimizer(opt),
+            mesh=hcg.get_mesh())
+        group = hcg.get_data_parallel_group()
+        print(f"[18a] GPT-3 1.3B ([6]'s model, optimizer and batch "
+              f"{x.shape[0]} x {x.shape[1]}) over fleet.init's dp mesh "
+              f"{hcg.get_mesh().shape}: backend {dist.get_backend()}, dp "
+              f"group ranks {group.ranks} ({smi})", flush=True)
+        check(dist.get_backend() == "NCCL" and group.process_group is not None,
+              f"[18a]: not an NCCL group: {dist.get_backend()}")
+        got = [step(x, y) for _ in range(2)]
+        same_loss = all(torch.equal(a, b) for a, b in zip(want, got))
+        diff = [k for k, p in model.named_parameters()
+                if not torch.equal(ref[k], p)]
+        print(f"    two steps: losses {[float(v) for v in got]} against "
+              f"{[float(v) for v in want]} without a mesh, bitwise "
+              f"{same_loss}; parameters differing: {len(diff)} of "
+              f"{len(ref)}", flush=True)
+        check(same_loss and not diff, f"[18a]: the world-1 NCCL steps differ "
+              f"from the no-mesh steps: losses {same_loss}, {diff[:4]}")
+        del ref
+        timed, L = 3, cfg.num_layers
+        n_tensors = sum(1 for _ in model.parameters())
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step(x, y)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / timed
+        counts = K.launch_counts()
+        check_flash_routes(K, "wgmma", "[18a]")
+        kernels = profile_launches(lambda: step(x, y))
+        nccl = [(name[:60], f"{t * 1e3:.3f} ms", n)
+                for name, t, n in kernels if "nccl" in name.lower()]
+        bufs = step._grads
+        reduce_ms = timed_ms(bufs.reduce, 5)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            bufs.reduce()
+        torch.cuda.synchronize()
+        reduce_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        reduce_kernels = [(name[:60], f"{t * 1e3:.3f} ms", n) for name, t, n
+                          in profile_launches(bufs.reduce)[:4]]
+        one = torch.zeros((), device="cuda")
+        calls = 200
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            dist.all_reduce(one, group=group)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / calls * 1e3
+        print(f"    step {step_s * 1e3:.1f} ms host clock over {timed} steps "
+              f"([6]: {step6_s * 1e3:.1f} ms); launches per step "
+              f"{ {k: v / timed for k, v in counts.items() if v} } ({smi})",
+              flush=True)
+        print(f"    the profiled step's NCCL kernels: "
+              f"{nccl or 'none'}"
+              f" (an in-place SUM over one rank may launch none); the "
+              f"gradients' all-reduce alone: {bufs.nbytes / 1e9:.3f} GB "
+              f"of {bufs.buffers[0].dtype} in {len(bufs.params)} views of "
+              f"{len(bufs.buffers)} flat buffer(s), {len(bufs.buckets)} "
+              f"bucket(s), {reduce_ms:.3f} ms by CUDA events, "
+              f"{reduce_host_ms:.3f} ms host clock, its kernels "
+              f"{reduce_kernels}; one all-reduce of one value "
+              f"{call_ms:.4f} ms a call (host clock over {calls}) ({smi})",
+              flush=True)
+        check(counts["flash_attention_fwd"] == 2 * L * timed
+              and counts["flash_attention_bwd_dq"] == L * timed
+              and counts["flash_attention_bwd_dkv"] == L * timed
+              and counts["fused_layer_norm"] == (4 * L + 1) * timed
+              and counts["layer_norm_bwd"] == (2 * L + 1) * timed
+              and counts["fused_adamw_update"] == n_tensors * timed,
+              f"[18a]: launches per step differ from [6]'s: {counts}")
+        for name in TRAINING_KERNELS:
+            rows[name]["launches_dp"] = counts[name]
+        del model, opt, step, bufs
+    finally:
+        dist.destroy_process_group()
+        dp_env(**old)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"    phase 18a took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def dp_model(seed: int):
+    """[18b]'s model on the card from the seed, its AdamW and batches."""
+    from paddle_tpu_torch.models.gpt import (GPT3_1p3B, GPTConfig,
+                                             GPTForCausalLM)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**{**GPT3_1p3B, "num_layers": 2}, dropout=0.0)
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.train()
+    opt = AdamW(learning_rate=DP_LR, epsilon=1e-6, weight_decay=0.01,
+                parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    x = torch.randint(0, cfg.vocab_size, (DP_STEPS, DP_B, DP_S), generator=g,
+                      device="cuda")
+    return cfg, model, opt, x, torch.roll(x, -1, dims=2)
+
+
+def dp_worker(directory: Path, seed: int) -> int:
+    """One rank of [18b], started by the port's launcher: fleet.init at
+    dp 2, this rank's half of each batch, the replicas compared after every
+    step (rank 0's parameters broadcast to rank 1), an async save by both
+    ranks, and rank 0's state for the one-process restore to match."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": 2}
+    fleet.init(is_collective=True, strategy=st)
+    rank = fleet.worker_index()
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg, model, opt, x, y = dp_model(seed)
+    step = fleet.make_sharded_train_step(
+        fleet.distributed_model(model), fleet.distributed_optimizer(opt),
+        mesh=hcg.get_mesh())
+    rows = slice(rank * DP_B // 2, (rank + 1) * DP_B // 2)
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(torch.cuda.current_device()),
+           "on_cuda": all(p.is_cuda for p in model.parameters()),
+           "losses": [], "step_s": [], "replicas_equal": []}
+    K.reset_launch_counts()
+    for k in range(DP_STEPS):
+        t0 = time.perf_counter()
+        rec["losses"].append(step(x[k, rows], y[k, rows]).item())
+        rec["step_s"].append(time.perf_counter() - t0)
+        same = torch.ones((), device="cuda")
+        for p in model.parameters():
+            buf = p.detach().clone()
+            dist.broadcast(buf, src=0)
+            same *= float(torch.equal(buf, p))
+        dist.all_reduce(same, dist.ReduceOp.MIN)
+        rec["replicas_equal"].append(bool(same))
+    rec["launches"] = K.launch_counts()
+    rec["flash_routes"] = {w: dict(getattr(K, w).route_launches)
+                           for w in FLASH_WRAPPERS}
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(directory / "ck")
+    mgr.save(step.step_index, step.state_for_checkpoint().to_tree())
+    rec["save_blocking_s"] = mgr.last_save["blocking_s"]
+    mgr.wait_until_finished()
+    mgr.close()
+    rec["save_total_s"] = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({k: v.detach().cpu() if torch.is_tensor(v)
+                    else torch.as_tensor(np.asarray(v))
+                    for k, v in state_tensors(step).items()},
+                   directory / "rank0_state.pt")
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(K, seed: int, rows):
+    """[18b]: two ranks on the one card through the port's launcher over
+    gloo; each rank's result and kernel launches, one process on the whole
+    batch (whose launches each rank's must equal), and the one-process
+    restore of the ranks' checkpoint."""
+    import os
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+
+    t_phase = time.perf_counter()
+    smi = f"{nvidia_smi_line()}, {torch.cuda.device_count()} card(s)"
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dp2_", dir=CKPT_PARENT))
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PADDLE_DISTRI_BACKEND": "gloo",
+           "PYTHONPATH": str(repo)}
+    for k in ("PADDLE_MASTER", "MASTER_ADDR", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ID"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--log_dir", str(work / "log"),
+           str(Path(__file__).resolve()), "--seed", str(seed),
+           "--dp-worker", str(work)]
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=repo, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            out = proc.communicate(timeout=600)[0]
+        finally:
+            if proc.poll() is None:  # the launcher and its workers
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        codes = re.findall(r"worker exit codes \[[^\]]*\]", out or "")
+        print(f"[18b] two ranks on one card (GPT-3 1.3B width, depth 2, "
+              f"fp32; half of {DP_B} x {DP_S} each, {DP_STEPS} steps) "
+              f"through the port's launcher over gloo: launcher exit code "
+              f"{proc.returncode}, {codes} in "
+              f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+        if proc.returncode != 0:
+            for log in sorted((work / "log").glob("workerlog.*")):
+                print(f"    --- {log.name}\n{log.read_text()[-3000:]}",
+                      flush=True)
+        check(proc.returncode == 0, f"[18b]: the launcher exited with "
+              f"{proc.returncode}")
+        recs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(2)]
+        for rec in recs:
+            print(f"    rank {rec['rank']}: {rec['backend']} on cuda:"
+                  f"{rec['device']}, every parameter on cuda "
+                  f"{rec['on_cuda']}; losses {rec['losses']}; step s "
+                  f"{[round(t, 4) for t in rec['step_s']]} host clock "
+                  f"(the first builds); replicas "
+                  f"bitwise equal after each step {rec['replicas_equal']}; "
+                  f"save blocking {rec['save_blocking_s']:.3f} s, total "
+                  f"{rec['save_total_s']:.3f} s", flush=True)
+            check(rec["backend"] == "GLOO" and rec["on_cuda"]
+                  and all(rec["replicas_equal"])
+                  and rec["losses"] == recs[0]["losses"],
+                  f"[18b]: rank {rec['rank']}: {rec}")
+
+        cfg, model, opt, x, y = dp_model(seed)
+        step = make_sharded_train_step(model, opt)
+        K.reset_launch_counts()
+        one = [step(x[k], y[k]).item() for k in range(DP_STEPS)]
+        one_counts = K.launch_counts()
+        for rec in recs:
+            routes = rec["flash_routes"]
+            print(f"    rank {rec['rank']}'s launches over its {DP_STEPS} "
+                  f"steps: { {k: v for k, v in rec['launches'].items() if v} }"
+                  f", flash routes {routes}; one process on the whole "
+                  f"batch: { {k: v for k, v in one_counts.items() if v} }",
+                  flush=True)
+            check(all(rec["launches"][k] == one_counts[k] > 0
+                      for k in TRAINING_KERNELS)
+                  and all(r["cuda_cores"] == sum(r.values())
+                          == rec["launches"][w] for w, r in routes.items()),
+                  f"[18b]: rank {rec['rank']}'s launches differ from one "
+                  f"process's or left the fp32 flash route: "
+                  f"{rec['launches']}, {routes}, {one_counts}")
+        for name in TRAINING_KERNELS:
+            rows[name]["launches_dp2"] = recs[0]["launches"][name]
+        loss_err = max(abs(a - b) for a, b in zip(one, recs[0]["losses"]))
+        t0 = time.perf_counter()
+        restored = CheckpointManager(work / "ck").restore()
+        restore_s = time.perf_counter() - t0
+        rank0 = torch.load(work / "rank0_state.pt")
+        flat = dict(restored["params"])
+        for name, slots in restored["opt_state"].items():
+            flat.update({f"{name}/{k}": v for k, v in slots.items()})
+        differ = [k for k, v in rank0.items() if not (
+            flat[k].dtype == v.dtype and torch.equal(flat[k], v))]
+        k_part = slice(cfg.num_heads * cfg.head_dim,
+                       (cfg.num_heads + cfg.num_kv_heads) * cfg.head_dim)
+        worst, worst_k = 0.0, 0.0
+        for name, p in model.named_parameters():
+            d = (p.detach().cpu() - flat[name]).abs()
+            if name.endswith("attn.qkv.bias"):
+                worst_k = max(worst_k, float(d[k_part].max()))
+                d[k_part] = 0
+            worst = max(worst, float(d.max()))
+        print(f"    one process on the whole batch: losses {one}, max |diff| "
+              f"{loss_err:.3e} (tol {DP_LOSS_TOL:g}); parameters max |diff| "
+              f"{worst:.3e} (tol {DP_PARAM_TOL:g}), the qkv biases' K third "
+              f"{worst_k:.3e} (Adam's bound {2 * DP_STEPS * DP_LR:g})",
+              flush=True)
+        print(f"    one-process restore of the ranks' checkpoint "
+              f"({restore_s:.2f} s): {len(rank0) - len(differ)} of "
+              f"{len(rank0)} tensors bitwise equal to rank 0's state; "
+              f"manifest parts left: "
+              f"{len(list((work / 'ck').rglob('manifest.part*')))} ({smi})",
+              flush=True)
+        check(loss_err <= DP_LOSS_TOL and worst <= DP_PARAM_TOL
+              and worst_k <= 2 * DP_STEPS * DP_LR,
+              "[18b]: two ranks differ from one process beyond tolerance")
+        check(not differ and int(restored["step"]) == DP_STEPS,
+              f"[18b]: the restore differs from rank 0's state: {differ[:4]}")
+        check(not list((work / "ck").rglob("manifest.part*")),
+              "[18b]: manifest parts left behind")
+        del model, opt, step, restored, rank0, flat
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"    phase 18b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3272,6 +3663,9 @@ def main() -> int:
                     help="with --paged-shapes-of: the kernels whose device "
                     "time is summed, where DIR's differ from "
                     f"{' and '.join(PAGED_SYMBOLS.values())}")
+    ap.add_argument("--dp-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 18b (the port's launcher "
+                    "starts two), writing its results into DIR")
     ap.add_argument("--train-of", metavar="DIR", type=Path,
                     help="only run phase 6's step and phase 8's recompute "
                     "policies with the package in DIR (a checkout of "
@@ -3288,6 +3682,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
+    if args.dp_worker:
+        return dp_worker(args.dp_worker, args.seed)
     t_start = time.perf_counter()
     if args.paged_shapes_of:
         from paddle_tpu_torch import kernels as K
@@ -3598,6 +3994,10 @@ def main() -> int:
     moe_train_vs_plain(K, args.seed)
     moe_serve_slice(K, args.seed, rows)
     moe_serve_vs_plain(K, args.seed)
+
+    # ---- 18. data parallelism: NCCL at world size 1; two ranks on the card
+    dp_nccl_slice(K, args.seed, rows, step6_s)
+    dp_two_ranks(K, args.seed, rows)
 
     # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

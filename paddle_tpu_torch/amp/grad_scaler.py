@@ -28,9 +28,10 @@ def inverse(scale) -> float:
     return float(_F32(1.0) / _F32(scale))
 
 
-def unscale_grads(grads, scale) -> bool:
+def nonfinite_flag(grads, scale):
     """Multiply each gradient in place by ``1/scale`` (fp32 math, cast back
-    to its dtype); returns True when any is non-finite (one host read)."""
+    to its dtype); returns a device flag, 1.0 when any is non-finite (None
+    without gradients). Nothing is read on the host."""
     inv = inverse(scale)
     flags = []
     with torch.no_grad():
@@ -40,7 +41,14 @@ def unscale_grads(grads, scale) -> bool:
             g32 = g.float() * inv
             flags.append(torch.isfinite(g32).all())
             g.copy_(g32)
-    return bool(flags) and not bool(torch.stack(flags).all())
+    return (~torch.stack(flags).all()).float() if flags else None
+
+
+def unscale_grads(grads, scale) -> bool:
+    """``nonfinite_flag``, read on the host: True when any gradient is
+    non-finite (one synchronisation)."""
+    flag = nonfinite_flag(grads, scale)
+    return flag is not None and bool(flag)
 
 
 class GradScaler:

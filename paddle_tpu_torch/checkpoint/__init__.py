@@ -1,5 +1,6 @@
 """``paddle_tpu.checkpoint`` analog: checkpoints in the JAX package's
-on-disk format, one process.
+on-disk format, saved by one process or by every rank of a
+data-parallel job.
 
     from paddle_tpu_torch.checkpoint import CheckpointManager
 
@@ -13,7 +14,8 @@ A step either package saved restores in the other (``arrays.py``).
 """
 
 from . import arrays, async_writer, manager, train_state  # noqa: F401
-from .arrays import load_tree, restore_array, save_tree  # noqa: F401
+from .arrays import (load_tree, merge_manifests, restore_array,  # noqa: F401
+                     save_tree)
 from .async_writer import AsyncCheckpointError, AsyncWriter  # noqa: F401
 from .manager import CheckpointManager  # noqa: F401
 from .train_state import TrainState, is_train_state_tree  # noqa: F401
@@ -21,5 +23,5 @@ from .train_state import TrainState, is_train_state_tree  # noqa: F401
 __all__ = [
     "CheckpointManager", "TrainState", "is_train_state_tree",
     "AsyncWriter", "AsyncCheckpointError",
-    "save_tree", "load_tree", "restore_array",
+    "save_tree", "load_tree", "restore_array", "merge_manifests",
 ]

@@ -1,5 +1,4 @@
-"""Array-tree serialization (``paddle_tpu/checkpoint/arrays.py`` analog),
-one process.
+"""Array-tree serialization (``paddle_tpu/checkpoint/arrays.py`` analog).
 
 The on-disk format is the JAX package's, byte for byte, so either package
 restores what the other wrote: ``manifest.json`` (``format``
@@ -7,8 +6,8 @@ restores what the other wrote: ``manifest.json`` (``format``
 ``sharding`` and per-shard file, offset, shape, CRC32 and byte count; the
 tree's structure with array leaves as ``{"__array__": path}`` markers and
 JSON scalars inline) and one raw ``.bin`` per shard, named by the leaf's
-path and its shard's offsets. In one process each tensor is one shard at
-offset zero and ``sharding`` is null.
+path and its shard's offsets. Each tensor is one shard at offset zero and
+``sharding`` is null.
 
 Leaves are ``torch.Tensor`` (on any device: snapshotted to the host),
 numpy arrays or scalars, or JSON scalars (int, float, str, bool, None) in
@@ -19,8 +18,13 @@ under the name the JAX package's ``ml_dtypes`` arrays carry, so the bytes
 are the same on both sides. Restored arrays come back as CPU tensors
 (``torch.frombuffer`` over the validated bytes), whatever their dtype.
 
-Multi-process writes, ``merge_manifests``, restore-time resharding and
-``live_state`` belong to distribution (ROADMAP queue A item A5).
+Across the ranks of a data-parallel job every array is replicated, and
+the JAX package's replica-0 rule applies: rank 0 writes every shard, the
+other ranks none (their manifests list each array with no shards), and
+``merge_manifests`` unions the per-rank manifests. Every rank restores the
+whole array; a replicated ``NamedSharding`` in ``shardings`` is accepted as
+such. A sharded layout and ``live_state`` (restore onto a mesh, device to
+device) are ROADMAP queue A item A5.5 and raise.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ _TORCH_DTYPES = {
 }
 _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
-_A5 = "ROADMAP queue A item A5, distribution"
+_A55 = "ROADMAP queue A item A5.5 (resharding)"
 
 
 def map_files(fn: Callable, items) -> list:
@@ -74,12 +78,6 @@ def _world() -> tuple:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
-
-
-def _one_process(what: str):
-    if _world()[1] > 1:
-        raise NotImplementedError(f"{what} across processes is not ported "
-                                  f"yet ({_A5})")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -161,21 +159,26 @@ def snapshot_array(arr) -> dict:
     ``{"global_shape", "dtype", "sharding", "shards": [(offsets, host)]}``
     with ``host`` a CPU tensor (or a numpy array) that the training step
     can no longer change; ``write_snapshot`` writes it later. A CUDA
-    tensor is copied to the host here."""
+    tensor is copied to the host here. The leaf is replicated across the
+    ranks, so only rank 0 snapshots it (the replica-0 rule); the other
+    ranks' snapshots hold no shard."""
+    first = _world()[0] == 0
+    host = None
     if isinstance(arr, torch.Tensor):
         t = arr.detach()
         if t.dtype not in _DTYPE_NAMES:
             raise TypeError(f"no checkpoint dtype name for {t.dtype}")
-        # a CPU tensor may still be written to by its owner: copy it too
-        host = t.to("cpu", copy=True).contiguous()
-        shape, dtype = tuple(host.shape), _DTYPE_NAMES[t.dtype]
+        shape, dtype = tuple(t.shape), _DTYPE_NAMES[t.dtype]
+        if first:  # a CPU tensor may still be written to by its owner: copy
+            host = t.to("cpu", copy=True).contiguous()
     else:
         a = np.asarray(arr)
-        # ascontiguousarray promotes 0-d to (1,); keep the true shape
-        host = np.ascontiguousarray(a).reshape(a.shape).copy()
-        shape, dtype = host.shape, str(host.dtype)
+        shape, dtype = a.shape, str(a.dtype)
+        if first:  # ascontiguousarray promotes 0-d to (1,): keep the shape
+            host = np.ascontiguousarray(a).reshape(a.shape).copy()
+    shards = [([0] * len(shape), host)] if first else []
     return {"global_shape": [int(d) for d in shape], "dtype": dtype,
-            "sharding": None, "shards": [([0] * len(shape), host)]}
+            "sharding": None, "shards": shards}
 
 
 def _raw(host) -> np.ndarray:
@@ -222,8 +225,9 @@ def save_tree(directory: str, state, step: Optional[int] = None,
               manifest_name: str = MANIFEST_NAME) -> dict:
     """Write every array leaf of ``state`` under ``directory`` and return
     the manifest dict, published under ``manifest_name`` unless that is
-    empty (the manager publishes its own, then COMMIT)."""
-    _one_process("save_tree")
+    empty (the manager publishes its own, then COMMIT). Across ranks, rank
+    0 writes every file and the manifest; the others write nothing, so
+    they wait on a barrier before they read it."""
     os.makedirs(directory, exist_ok=True)
     leaves = [(path, leaf) for path, leaf in flatten_tree(state).items()
               if _is_array_leaf(leaf)]
@@ -237,7 +241,7 @@ def save_tree(directory: str, state, step: Optional[int] = None,
         "arrays": arrays,
         "bytes_written": total,
     }
-    if manifest_name:
+    if manifest_name and _world()[0] == 0:
         write_manifest(directory, manifest, manifest_name)
     return manifest
 
@@ -257,6 +261,38 @@ def read_manifest(directory: str, manifest_name: str = MANIFEST_NAME) -> dict:
         raise ValueError(f"{directory}: not a {FORMAT} checkpoint "
                          f"(format={m.get('format')!r})")
     return m
+
+
+def merge_manifests(parts) -> dict:
+    """Union per-rank manifests (same structure and metadata, disjoint
+    shard lists) into the publishable one."""
+    merged = None
+    for part in parts:
+        if merged is None:
+            merged = json.loads(json.dumps(part))
+            continue
+        merged["bytes_written"] += part.get("bytes_written", 0)
+        for path, entry in part["arrays"].items():
+            if path in merged["arrays"]:
+                have = {s["file"] for s in merged["arrays"][path]["shards"]}
+                merged["arrays"][path]["shards"] += [
+                    s for s in entry["shards"] if s["file"] not in have]
+            else:
+                merged["arrays"][path] = entry
+    return merged
+
+
+def _check_placement(path: str, sharding):
+    """A restore places every array whole on each rank: a replicated
+    ``NamedSharding`` (or None) is that; anything else waits for A5.5."""
+    from ..distributed.mesh import NamedSharding
+
+    if sharding is not None and not (isinstance(sharding, NamedSharding)
+                                     and sharding.is_replicated):
+        raise NotImplementedError(
+            f"restore of {path!r} onto {sharding!r}: only replicated "
+            f"placements are ported (data parallelism); sharded layouts "
+            f"are not yet ({_A55})")
 
 
 # transient-I/O policy for restore reads: a flaky network filesystem fails
@@ -336,23 +372,25 @@ class _ShardReader:
 
 def restore_array(directory: str, path: str, entry: dict, sharding=None,
                   validate: bool = True) -> torch.Tensor:
-    """One array back, as a CPU tensor (assembled from its shards when a
-    multi-process save wrote several). ``sharding`` (a device layout) waits
-    for distribution and raises."""
-    if sharding is not None:
-        raise NotImplementedError(f"restore with shardings is not ported "
-                                  f"yet ({_A5})")
+    """One array back, whole, as a CPU tensor (assembled from its shards
+    when a save wrote several). ``sharding`` may be None or a replicated
+    ``NamedSharding``; a sharded layout raises (A5.5)."""
+    _check_placement(path, sharding)
     return _ShardReader(directory, path, entry, validate=validate).read_full()
 
 
 def load_tree(directory: str, shardings=None, validate: bool = True,
               manifest: Optional[dict] = None, live_state=None):
-    """Restore the full state tree: array leaves as CPU tensors, JSON
-    scalars as they were. ``shardings`` and ``live_state`` (restore onto a
-    mesh, device to device) wait for distribution and raise."""
-    if shardings or live_state is not None:
-        raise NotImplementedError(f"load_tree(shardings=, live_state=) is "
-                                  f"not ported yet ({_A5})")
+    """Restore the full state tree: array leaves as whole CPU tensors,
+    JSON scalars as they were. ``shardings`` (a flat ``{path: sharding}``
+    dict or a tree mirroring the state, None leaves allowed) may hold
+    replicated placements only; ``live_state`` (restore onto a mesh,
+    device to device) raises (A5.5)."""
+    if live_state is not None:
+        raise NotImplementedError(f"load_tree(live_state=) is not ported "
+                                  f"yet ({_A55})")
+    for path, sh in flatten_tree(shardings or {}).items():
+        _check_placement(path, sh)
     m = manifest if manifest is not None else read_manifest(directory)
     paths = []
     _unstructure(m["structure"], paths.append)

@@ -1,5 +1,5 @@
 """CheckpointManager: step directories, atomic COMMIT, keep-last-N GC
-(``paddle_tpu/checkpoint/manager.py`` analog, one process).
+(``paddle_tpu/checkpoint/manager.py`` analog).
 
 Directory layout (one manager directory, many steps)::
 
@@ -21,9 +21,18 @@ manifest, COMMIT and the GC run on the ordered background writer, whose
 failures surface on the next ``save``/``wait_until_finished``. A
 restore reads and checks its files on up to 8 threads
 (``arrays.map_files``).
-``keep_last_n`` never deletes the newest committed step. Multi-process
-saves (a barrier, then process 0 merges the manifests) and restores onto
-a mesh belong to distribution (ROADMAP queue A item A5).
+``keep_last_n`` never deletes the newest committed step.
+
+Across the ranks of a ``torch.distributed`` job every rank constructs the
+manager and saves each step: each writes its files (rank 0 all of them at
+data parallelism, the arrays being replicated) and
+``manifest.part{r}.json``; after a barrier rank 0 merges the parts into
+the manifest, writes COMMIT and removes the parts; a last barrier ends the
+save on every rank. The barriers run on a gloo group of the manager's own,
+made at construction: the writer thread calls them while the training
+step's collectives run on the default group, and two threads issuing
+collectives on one NCCL communicator can deadlock. Restores onto a sharded
+layout or from live state are ROADMAP queue A item A5.5.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from typing import Dict, List, Optional
 
 from . import arrays as _arrays
 from .async_writer import AsyncWriter
+from ..distributed.collective import new_group
+from ..distributed.communication import barrier
 
 STEP_PREFIX = "step_"
 COMMIT_NAME = "COMMIT"
@@ -60,10 +71,11 @@ def is_committed(step_path: str) -> bool:
     return os.path.exists(os.path.join(step_path, COMMIT_NAME))
 
 
-def _sync_processes(tag: str):
-    """Cross-process barrier of a cooperative save: nothing to wait for in
-    one process (several raise, ROADMAP queue A item A5)."""
-    _arrays._one_process(f"checkpoint barrier {tag!r}")
+def _sync_processes(tag: str, group=None):
+    """Cross-process barrier of a cooperative save (``tag`` names it), on
+    ``group``; nothing to wait for in one process."""
+    if group is not None:
+        barrier(group)
 
 
 class CheckpointManager:
@@ -80,12 +92,16 @@ class CheckpointManager:
         self.keep_last_n = keep_last_n
         self.async_ = async_
         self.validate_on_restore = validate_on_restore
-        self._proc = _arrays._world()[0]
+        self._proc, self._nproc = _arrays._world()
+        # the barriers' own gloo group (collective: every rank builds one)
+        self._group = new_group(backend="gloo") if self._nproc > 1 else None
         self._writer = AsyncWriter(name=f"ckpt-writer:{self.directory}")
         self.last_save: Dict[str, float] = {}
         self.last_restore: Dict[str, float] = {}
         os.makedirs(self.directory, exist_ok=True)
         self._gc_uncommitted()
+        # no rank writes into a step directory before rank 0 has swept
+        _sync_processes("ckpt_init", self._group)
 
     # ---------------- step discovery ----------------
     def all_steps(self) -> List[int]:
@@ -120,7 +136,6 @@ class CheckpointManager:
         snapshot; the rest runs on the writer when ``async_``. Raises
         ``AsyncCheckpointError`` here if a previous background save
         failed."""
-        _arrays._one_process("CheckpointManager.save")
         self._writer._raise_pending()
         sdir = self.step_path(step)
         if is_committed(sdir):
@@ -129,7 +144,9 @@ class CheckpointManager:
                     f"step {step} already committed in {self.directory} "
                     "(pass force=True to overwrite)")
             self.wait_until_finished()
-            shutil.rmtree(sdir, ignore_errors=True)
+            if self._proc == 0:
+                shutil.rmtree(sdir, ignore_errors=True)
+            _sync_processes(f"ckpt_overwrite_{step}", self._group)
 
         t0 = time.perf_counter()
         flat = _arrays.flatten_tree(state)
@@ -154,8 +171,7 @@ class CheckpointManager:
                 "arrays": entries,
                 "bytes_written": total,
             }
-            _arrays.write_manifest(sdir, manifest)
-            self._write_commit(sdir, step)
+            self._publish(sdir, step, manifest)
             record.update(total_s=time.perf_counter() - t0, bytes=total)
             self._gc_old()
 
@@ -163,6 +179,28 @@ class CheckpointManager:
             self._writer.submit(write)
         else:
             self._writer.run_sync(write)
+
+    def _publish(self, sdir: str, step: int, manifest: dict) -> None:
+        """Every rank's files are on disk -> make the step visible
+        atomically. Across ranks: every rank writes its manifest part,
+        then, after the barrier, rank 0 merges the parts, writes the
+        manifest and COMMIT and removes the parts; a last barrier holds
+        the others until the step is committed."""
+        if self._nproc == 1:
+            _arrays.write_manifest(sdir, manifest)
+            self._write_commit(sdir, step)
+            return
+        _arrays.write_manifest(sdir, manifest,
+                               manifest_name=f"manifest.part{self._proc}.json")
+        _sync_processes(f"ckpt_commit_{step}", self._group)
+        if self._proc == 0:
+            parts = [f"manifest.part{p}.json" for p in range(self._nproc)]
+            _arrays.write_manifest(sdir, _arrays.merge_manifests(
+                [_arrays.read_manifest(sdir, name) for name in parts]))
+            for name in parts:
+                os.remove(os.path.join(sdir, name))
+            self._write_commit(sdir, step)
+        _sync_processes(f"ckpt_committed_{step}", self._group)
 
     def _write_commit(self, sdir: str, step: int) -> None:
         """The atomic publish: rename so a crash can never leave a partial
@@ -178,13 +216,10 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None, shardings=None,
                 live_state=None):
         """Restore a committed step (default: the latest) as a tree whose
-        arrays are CPU tensors. ``shardings`` and ``live_state`` (restore
-        onto a mesh) wait for distribution (ROADMAP queue A item A5) and
-        raise."""
-        if shardings is not None or live_state is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=, live_state=) is not "
-                "ported yet (ROADMAP queue A item A5, distribution)")
+        arrays are whole CPU tensors, on every rank. ``shardings`` (such as
+        the train step's ``checkpoint_shardings()``) may hold replicated
+        placements only; a sharded layout and ``live_state`` raise (ROADMAP
+        queue A item A5.5)."""
         self.wait_until_finished()
         steps = self.all_steps()
         if step is None:
@@ -198,9 +233,9 @@ class CheckpointManager:
                 f"{self.directory} (committed: {steps})")
         t0 = time.perf_counter()
         m = self.manifest(step)
-        tree = _arrays.load_tree(self.step_path(step),
+        tree = _arrays.load_tree(self.step_path(step), shardings=shardings,
                                  validate=self.validate_on_restore,
-                                 manifest=m)
+                                 manifest=m, live_state=live_state)
         self.last_restore = {"seconds": time.perf_counter() - t0,
                              "bytes": m["bytes_written"]}
         return tree

@@ -1,5 +1,5 @@
-"""``paddle_tpu.data`` analog: the deterministic input pipeline, one
-process.
+"""``paddle_tpu.data`` analog: the deterministic input pipeline, one per
+process (each rank of a data-parallel job reads its own files).
 
 Stages, each a checkpointable iterator (``get_state``/``set_state``):
 
@@ -7,8 +7,9 @@ Stages, each a checkpointable iterator (``get_state``/``set_state``):
             file-shard readers with epoch-seeded deterministic shuffling
   packing   SequencePacker — greedy pack of ragged documents into static
             [B, S] token/segment-id/position buffers
-  feed      GlobalBatchFeeder — batches on the device, copied ahead of use
-            through io.prefetch.DevicePrefetcher
+  feed      GlobalBatchFeeder — batches (a rank's local rows) on the
+            device, copied ahead of use through io.prefetch.DevicePrefetcher;
+            batch_sharding — the batch's placement over a rank mesh
   pipeline  DataPipeline / build_pretrain_pipeline — composition whose
             single state dict plugs into TrainState.data_position for
             exact mid-epoch resume

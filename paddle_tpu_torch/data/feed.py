@@ -1,5 +1,5 @@
 """Batch feeding onto the device, with exact checkpoint positioning
-(``paddle_tpu/data/feed.py`` analog, one device).
+(``paddle_tpu/data/feed.py`` analog).
 
 ``GlobalBatchFeeder`` turns the packer's host batches into torch tensors
 on the device through ``io.prefetch.DevicePrefetcher``: a producer thread
@@ -13,8 +13,10 @@ snapshots the pipeline state right after producing each batch, and the
 feeder hands each snapshot over with its batch. The state read after
 consuming batch k resumes at batch k+1, whatever the prefetch depth.
 
-A global batch assembled over a mesh (``sharding``, ``batch_sharding``)
-belongs to distribution (ROADMAP queue A item A5).
+Over a mesh (``sharding``, from ``batch_sharding``), each rank's pipeline
+reads its own files and the feeder yields the rank's *local* rows on its
+device: the train step takes local rows, so nothing is assembled (the JAX
+package assembles the global array from the same local rows).
 """
 
 from __future__ import annotations
@@ -26,13 +28,19 @@ from typing import Callable, Iterator, Optional
 from ..device import resolve_device
 from .protocol import CheckpointableIterator, iterator_state, restore_iterator
 
-_A5 = "ROADMAP queue A item A5, distribution"
-
 
 def batch_sharding(mesh, batch_axes="dp"):
-    """The JAX package's batch layout over a mesh's data axes; the port
-    has no mesh yet."""
-    raise NotImplementedError(f"batch_sharding is not ported yet ({_A5})")
+    """``NamedSharding`` placing dim 0 of each batch field over the mesh's
+    data axes (an axis name or a tuple of names, e.g. ``("dp",
+    "sharding")``)."""
+    from ..distributed.mesh import NamedSharding, PartitionSpec
+
+    if isinstance(batch_axes, str):
+        batch_axes = (batch_axes,)
+    missing = [a for a in batch_axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"mesh {mesh.axis_names} has no axes {missing}")
+    return NamedSharding(mesh, PartitionSpec(tuple(batch_axes)))
 
 
 class GlobalBatchFeeder(CheckpointableIterator):
@@ -43,17 +51,23 @@ class GlobalBatchFeeder(CheckpointableIterator):
     iterator of numpy or tensor trees works). ``device`` defaults to
     ``cuda``. ``state_of``/``restore_to`` default to the upstream's own
     protocol methods and may be overridden to snapshot a larger pipeline.
+    ``sharding`` (``batch_sharding``'s) records that the batches are this
+    rank's rows of a batch split over its data axes; a split along another
+    dimension raises (ROADMAP queue A item A5.7).
     """
 
     def __init__(self, upstream: Iterator, sharding=None,
                  prefetch_depth: int = 2,
                  state_of: Optional[Callable] = None,
                  restore_to: Optional[Callable] = None, *, device=None):
-        if sharding is not None:
-            raise NotImplementedError(f"GlobalBatchFeeder(sharding=) is not "
-                                      f"ported yet ({_A5})")
+        if sharding is not None and any(e is not None
+                                        for e in sharding.spec[1:]):
+            raise NotImplementedError(
+                f"GlobalBatchFeeder(sharding={sharding!r}): a batch split "
+                "along another dimension than its rows is context "
+                "parallelism, not ported yet (ROADMAP queue A item A5.7)")
         self.upstream = upstream
-        self.sharding = None
+        self.sharding = sharding
         self.device = resolve_device(device)
         self.prefetch_depth = max(1, int(prefetch_depth))
         self._state_of = state_of or (lambda: iterator_state(self.upstream))

@@ -14,15 +14,17 @@ packed-batch sequence from step k+1.
 ``build_pretrain_pipeline`` is the one-call constructor for the GPT
 pretraining path: token shards -> per-process assignment -> packed
 [B, S] -> batches on the device (``cuda`` unless ``device`` says
-otherwise). A mesh-global batch (``mesh=``) belongs to distribution
-(ROADMAP queue A item A5).
+otherwise). In a data-parallel job each rank builds its own pipeline: the
+files are dealt by the rank's dp index and world (the defaults of
+``process_index``/``process_count`` once a group is initialised), and with
+``mesh=`` the feeder records ``batch_sharding(mesh, batch_axes)``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from .feed import GlobalBatchFeeder
+from .feed import GlobalBatchFeeder, batch_sharding
 from .packing import SequencePacker
 from .protocol import CheckpointableIterator, iterator_state, restore_iterator
 from .sources import JsonlSource, TokenBinSource
@@ -144,13 +146,10 @@ def build_pretrain_pipeline(
         device_feed: bool = True, device=None) -> DataPipeline:
     """Token shards -> packed, device-fed pipeline in one call.
 
-    ``batch_size`` is the per-process batch. Set ``device_feed=False``
-    for a host-only pipeline (numpy batches).
+    ``batch_size`` is the per-process batch: with a mesh over several
+    ranks the global batch is ``batch_size`` times the dp world. Set
+    ``device_feed=False`` for a host-only pipeline (numpy batches).
     """
-    if mesh is not None:
-        raise NotImplementedError("build_pretrain_pipeline(mesh=) is not "
-                                  "ported yet (ROADMAP queue A item A5, "
-                                  "distribution)")
     if source_format == "bin":
         source = TokenBinSource(
             files, dtype=dtype, eos_id=eos_id, chunk_len=chunk_len,
@@ -169,6 +168,9 @@ def build_pretrain_pipeline(
                             split_long_docs=split_long_docs)
     feeder = None
     if device_feed:
-        feeder = GlobalBatchFeeder(packer, prefetch_depth=prefetch_depth,
+        sharding = batch_sharding(mesh, batch_axes) if mesh is not None \
+            else None
+        feeder = GlobalBatchFeeder(packer, sharding=sharding,
+                                   prefetch_depth=prefetch_depth,
                                    device=device)
     return DataPipeline(source, packer, feeder)

@@ -32,10 +32,17 @@ _STATE_VERSION = 1
 
 
 def _default_process() -> tuple:
-    """(process_index, process_count) from ``torch.distributed`` when it
-    is initialised, else (0, 1)."""
+    """(process_index, process_count): the dp rank and world of the
+    ``fleet.init`` topology, else ``torch.distributed``'s rank and world
+    when it is initialised, else (0, 1)."""
     import torch.distributed as dist
 
+    from ..distributed.topology import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None:
+        return (hcg.get_data_parallel_rank(),
+                hcg.get_data_parallel_world_size())
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), max(dist.get_world_size(), 1)
     return 0, 1

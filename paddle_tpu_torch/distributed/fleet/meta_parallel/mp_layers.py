@@ -4,8 +4,8 @@
 The names and the weight layout are paddle's: linear weights are
 ``[in_features, out_features]`` and ``y = x @ W + b``, so converted
 ``paddle_tpu`` parameters load name for name with no transposes. Sharding
-over an ``mp`` group arrives with the distributed slice of the port; on one
-device these layers compute exactly what their JAX counterparts compute
+over an ``mp`` group is ROADMAP queue A item A5.3; on one device these
+layers compute exactly what their JAX counterparts compute
 with no mesh.
 """
 
@@ -21,7 +21,7 @@ def _check_group(mp_group):
     if mp_group is not None:
         raise NotImplementedError(
             "mp_group: tensor-parallel groups are not ported yet (ROADMAP "
-            "queue A item A5, distribution)")
+            "queue A item A5.3, tensor parallelism)")
 
 
 class _Linear(nn.Module):

@@ -163,8 +163,8 @@ def save_sharded(state: dict, directory: str):
 
 def load_sharded(directory: str, shardings: dict = None) -> dict:
     """``save_sharded``'s (or the JAX package's) arrays back as CPU
-    tensors; ``shardings`` (a layout per array) waits for distribution
-    (ROADMAP queue A item A5) and raises."""
+    tensors; ``shardings`` (a layout per array) may hold replicated
+    placements only (a sharded layout is ROADMAP queue A item A5.5)."""
     from ..checkpoint import arrays as _ckpt_arrays
 
     return _ckpt_arrays.load_tree(os.path.abspath(directory),

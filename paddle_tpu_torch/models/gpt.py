@@ -16,8 +16,9 @@ both KV layouts (``prefill_with_cache``, ``decode_step``, and on the paged
 layout the multi-token ``extend_step`` of prefix-cache suffix prefills and
 speculative verify), ``generate``, and GPT-MoE on one device
 (``GPTMoEMLP`` in every ``moe_every_k``-th block, routed by
-``incubate.distributed.models.moe.moe_route``). Sharding belongs to a
-later slice (ROADMAP queue A item A5).
+``incubate.distributed.models.moe.moe_route``). Data parallelism is the
+train step's; sharding the model belongs to later slices (ROADMAP queue A
+items A5.3, A5.6, A5.7).
 """
 
 from __future__ import annotations

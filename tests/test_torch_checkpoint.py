@@ -36,6 +36,8 @@ from paddle_tpu_torch.checkpoint import (AsyncCheckpointError, AsyncWriter,
                                          is_train_state_tree, load_tree,
                                          save_tree)
 from paddle_tpu_torch.checkpoint import arrays as ckpt_arrays
+from paddle_tpu_torch.distributed import (DeviceMesh, NamedSharding,
+                                          PartitionSpec)
 from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
 from paddle_tpu_torch.framework import io as tfio
 from paddle_tpu_torch.models.gpt import GPT_TINY, GPTConfig, GPTForCausalLM
@@ -174,8 +176,16 @@ def test_manager_latest_and_already_committed(tmp_path):
     assert float(mgr.restore(5)["v"]) == 9.0
     with pytest.raises(FileNotFoundError, match="not a committed"):
         mgr.restore(3)
-    with pytest.raises(NotImplementedError, match="A5"):
-        mgr.restore(shardings={"v": None})
+    # a None placement is a host restore (as in the JAX package); a
+    # replicated one reads the whole array too; a sharded one waits (A5.5)
+    assert float(mgr.restore(shardings={"v": None})["v"]) == 9.0
+    two = DeviceMesh([0, 1], ("dp",))
+    rep = NamedSharding(two, PartitionSpec())
+    assert float(mgr.restore(shardings={"v": rep})["v"]) == 9.0
+    with pytest.raises(NotImplementedError, match="A5.5"):
+        mgr.restore(shardings={"v": NamedSharding(two, PartitionSpec("dp"))})
+    with pytest.raises(NotImplementedError, match="A5.5"):
+        mgr.restore(live_state={"v": torch.zeros(())})
     mgr.close()
 
 
@@ -564,13 +574,22 @@ def test_adjacent_seeds_draw_apart():
 
 
 def test_restore_rejects_what_the_port_lacks(tmp_path):
+    """A gradient reducer's residuals raise (A5.4); the step's placements
+    for a restore are replicated over its mesh and a restore takes them."""
     a = _port_step(0)
     a(*_batch(0))
     tree = a.state_for_checkpoint().to_tree()
     with pytest.raises(NotImplementedError, match="A5"):
         a.restore_from_checkpoint({**tree, "extra": {"grad_reduce_ef": {}}})
-    with pytest.raises(NotImplementedError, match="A5"):
-        a.checkpoint_shardings()
+    sh = a.checkpoint_shardings()
+    assert set(sh) == {"params", "opt_state"}
+    assert set(sh["params"]) == set(tree["params"])
+    assert all(s.is_replicated and s.mesh == a.mesh
+               for s in sh["params"].values())
+    mgr = CheckpointManager(str(tmp_path / "ck"), async_=False)
+    mgr.save(1, tree)
+    _assert_trees_bitwise(tree, mgr.restore(shardings=sh))
+    mgr.close()
     bad = {**tree, "params": {**tree["params"], "extra.weight":
                               torch.zeros(1)}}
     with pytest.raises(KeyError, match="names differ"):

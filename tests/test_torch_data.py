@@ -299,11 +299,20 @@ def test_prefetcher_passes_trees_and_errors(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """A batch split along its sequence (context parallelism) raises
+    naming A5.7; ``batch_sharding`` checks its axes as the JAX package's
+    does, and ``mesh=`` records the batch's placement."""
+    from paddle_tpu_torch.distributed import (DeviceMesh, NamedSharding,
+                                              PartitionSpec)
+
     paths = _token_shards(tmp_path)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdata.batch_sharding(object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdata.build_pretrain_pipeline(paths, 2, 24, eos_id=EOS,
-                                      mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdata.GlobalBatchFeeder(iter([]), sharding=object(), device="cpu")
+    mesh = DeviceMesh([0], ("dp",))
+    with pytest.raises(ValueError, match="no axes"):
+        tdata.batch_sharding(mesh, ("dp", "sharding"))
+    assert tdata.batch_sharding(mesh).spec == PartitionSpec(("dp",))
+    pipe = tdata.build_pretrain_pipeline(paths, 2, 24, eos_id=EOS,
+                                         mesh=mesh, device="cpu")
+    assert pipe.feeder.sharding == tdata.batch_sharding(mesh)
+    with pytest.raises(NotImplementedError, match="A5.7"):
+        tdata.GlobalBatchFeeder(iter([]), device="cpu", sharding=(
+            NamedSharding(mesh, PartitionSpec("dp", "dp"))))

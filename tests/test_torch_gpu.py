@@ -1351,3 +1351,50 @@ def test_moe_route_at_config5_makes_no_tec_tensor(cuda):
     assert tec not in mode.numels
     assert torch.equal(out, out2) and torch.equal(gx, gx2) \
         and torch.equal(gw, gw2)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_step_equals_the_no_mesh_step(cuda, tmp_path,
+                                                        monkeypatch):
+    """Data parallelism on the card at world size 1: ``fleet.init`` with a
+    file-store master forms an NCCL group of one rank, and the step over
+    its dp mesh all-reduces every gradient bucket, the loss and the
+    scaler's flag through it. Two bf16 steps (a scaler, clip, fp32 master
+    weights) equal the step without a mesh bit for bit: losses and every
+    parameter."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    for var in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "MASTER_ADDR",
+                "PADDLE_DISTRI_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PADDLE_MASTER", f"file://{tmp_path / 'store'}")
+    rng = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 128, (2, 4, 64), generator=rng)
+    y = torch.roll(x, -1, dims=2)
+    runs = []
+    dist.destroy_process_group()
+    try:
+        for use_mesh in (False, True):
+            model = _small_gpt(cuda, torch.bfloat16)
+            opt = AdamW(learning_rate=1e-3, multi_precision=True,
+                        parameters=model.named_parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            kw = dict(scaler=amp.GradScaler(init_loss_scaling=2.0 ** 10),
+                      device=cuda)
+            if use_mesh:
+                fleet.init(is_collective=True)
+                assert dist.get_backend() == "NCCL"
+                kw["mesh"] = fleet.get_hybrid_communicate_group().get_mesh()
+            step = fleet.make_sharded_train_step(model, opt, **kw)
+            losses = [step(x[k], y[k]) for k in range(2)]
+            runs.append((losses, {k: p.detach().clone()
+                                  for k, p in model.named_parameters()}))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)

@@ -93,6 +93,23 @@ def test_train_step_refuses_to_run_on_cpu_without_being_asked(monkeypatch):
     assert step.device.type == "cpu"
 
 
+def test_distributed_entry_points_refuse_to_run_on_cpu_without_being_asked(
+        monkeypatch):
+    """``init_parallel_env``, ``fleet.init`` and ``spawn`` join the world on
+    the card unless asked for the CPU; nothing is set up before they
+    raise."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (dist.init_parallel_env, fleet.init,
+                 lambda: dist.spawn(lambda: None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert not dist.is_initialized()
+    assert fleet.get_hybrid_communicate_group() is None
+
+
 def test_data_feed_refuses_to_run_on_cpu_without_being_asked(monkeypatch,
                                                             tmp_path):
     from paddle_tpu_torch.data import GlobalBatchFeeder, build_pretrain_pipeline

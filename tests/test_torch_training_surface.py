@@ -721,6 +721,7 @@ def test_dropout_layer_takes_paddles_arguments(mode):
 
 
 def test_unported_model_options_raise():
+    from paddle_tpu_torch.distributed import PartitionSpec
     from paddle_tpu_torch.models.gpt import GPTBlock
 
     for over in (dict(sequence_parallel=True),
@@ -734,7 +735,8 @@ def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="A5"):
         tm.pipeline_spec()
     opt = AdamW(parameters=tm.named_parameters())
-    for kw in (dict(batch_spec=object()), dict(pp_remat=False),
+    for kw in (dict(batch_spec=PartitionSpec(None, "dp")),
+               dict(pp_remat=False),
                dict(virtual_pp_degree=2), dict(pp_schedule="gpipe")):
         with pytest.raises(NotImplementedError, match="A5"):
             make_sharded_train_step(tm, opt, device="cpu", **kw)
