@@ -6,8 +6,9 @@ One process per rank, each on its own device: a multi-process job starts
 through the launcher, ``python -m paddle_tpu_torch.distributed.launch
 --nproc_per_node N script.py``, and each process calls ``fleet.init`` (or
 ``init_parallel_env``). NCCL carries CUDA tensors, gloo the CPU's
-(``PADDLE_DISTRI_BACKEND`` overrides). Data parallelism is ported (ROADMAP
-queue A item A5.2); the other parallelisms raise naming their items.
+(``PADDLE_DISTRI_BACKEND`` overrides). Data, tensor and ZeRO (stages 1
+and 2) parallelism are ported (ROADMAP queue A items A5.2, A5.3); the
+other parallelisms raise naming their items.
 """
 
 from .collective import (  # noqa: F401
@@ -69,6 +70,7 @@ from .parallel import (  # noqa: F401
     get_world_size,
     init_parallel_env,
 )
+from .split_api import split  # noqa: F401
 from .topology import (  # noqa: F401
     CommunicateTopology,
     HybridCommunicateGroup,

@@ -143,12 +143,44 @@ def destroy_process_group(group=None):
     from . import parallel, topology
 
     _groups.clear()
+    _alone.clear()
     _default_group = None
     reset_global_mesh()
     topology.set_hybrid_communicate_group(None)
     parallel._parallel_env = None
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+_alone = {}
+
+
+def axis_group(axis) -> Group:
+    """This rank's group along mesh axis ``axis`` (a ``Group`` is returned
+    as it is): the hybrid topology's group for that axis (``"model"`` and
+    the other paddle names alias the mesh's), else a group of this rank
+    alone, whose collectives change nothing. An axis of more than one rank
+    on the global mesh without a hybrid topology raises: its groups come
+    from ``fleet.init``."""
+    if isinstance(axis, Group):
+        return axis
+    from .mesh import current_mesh
+    from .topology import _AXIS_ALIAS, get_hybrid_communicate_group
+
+    axis = _AXIS_ALIAS.get(axis, axis)
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None and axis in hcg._groups:
+        return hcg._groups[axis]
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get(axis, 1) > 1:
+        raise ValueError(f"mesh axis {axis!r} of {mesh.shape[axis]} ranks "
+                         "has no groups: build them with fleet.init")
+    from .parallel import get_rank
+
+    key = (axis, get_rank())
+    if key not in _alone:
+        _alone[key] = Group([get_rank()], axis_name=axis, name=f"{axis}_self")
+    return _alone[key]
 
 
 def is_initialized() -> bool:

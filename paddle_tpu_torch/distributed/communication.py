@@ -17,10 +17,17 @@ size (gloo has no AVG). Groups of one rank have no process group: their
 collectives are the identity. Every call returns a ``Task``; with
 ``sync_op=False`` its ``wait()`` waits for the ``torch.distributed`` work.
 
-The in-trace collectives (``psum``, ``pmean``, ``pmax``, ``pmin``,
-``ppermute``, ``axis_index``, ``*_in_trace``) belong to the tensor-parallel
-layers' ``shard_map`` and raise ``NotImplementedError`` (ROADMAP queue A
-item A5.3).
+The collectives the JAX package runs inside ``shard_map`` (``psum``,
+``pmean``, ``pmax``, ``pmin``, ``axis_index``, ``all_gather_in_trace``,
+``reduce_scatter_in_trace``) are differentiable calls here on this rank's
+tensor over its group along a mesh axis (``fleet.meta_parallel.mp_ops``).
+``ppermute`` (ring attention, ROADMAP queue A item A5.7) and
+``all_to_all_in_trace`` (expert parallelism, A5.4) raise.
+``gather_blocks`` and ``reduce_scatter_blocks`` are the block collectives
+of the mp and ZeRO paths; on a gloo group, ops other than all-reduce and
+broadcast on CUDA tensors go through pinned host memory (``staged_ops``
+counts them), since gloo runs only those two on the card's tensors for
+certain.
 """
 
 from __future__ import annotations
@@ -30,9 +37,6 @@ import torch
 import torch.distributed as dist
 
 from .collective import Group, _resolve_group
-
-_A53 = "ROADMAP queue A item A5.3 (tensor and sharding parallelism)"
-
 
 class ReduceOp:
     SUM = "sum"
@@ -329,45 +333,148 @@ class ParallelMode:
     SHARDING_PARALLEL = 3
 
 
-def _in_trace(name):
-    raise NotImplementedError(
-        f"{name}: collectives inside a traced step belong to the "
-        f"tensor-parallel layers' shard_map, not ported yet ({_A53})")
+# ---- the collectives of the tensor-parallel and ZeRO paths ---------------
+#: the ops gloo runs on CUDA tensors itself (all-reduce and broadcast ran
+#: that way on the card); on a gloo group every other op of this section on
+#: CUDA tensors goes through pinned host memory, every time, never as a
+#: fallback. NCCL takes every op on the device
+GLOO_CUDA_NATIVE = ("all_reduce", "broadcast")
+#: ``{op: calls}`` staged through the host, for the record
+staged_ops = {}
+
+
+def _through_host(pg, t: torch.Tensor, op: str) -> bool:
+    if not t.is_cuda or op in GLOO_CUDA_NATIVE \
+            or str(dist.get_backend(pg)) != "gloo":
+        return False
+    staged_ops[op] = staged_ops.get(op, 0) + 1
+    return True
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def gather_blocks(t: torch.Tensor, group) -> list:
+    """Every rank's ``t`` (equal shapes), in rank order: one
+    ``all_gather_into_tensor``. A group of one rank returns ``[t]``."""
+    g = _resolve_group(group)
+    if g.nranks == 1 or _pg(g) is None:
+        return [t]
+    src = t.reshape(-1)  # flat: gloo takes no stacked output
+    out = torch.empty(g.nranks * src.numel(), dtype=src.dtype,
+                      device=src.device)
+    if _through_host(_pg(g), src, "all_gather_into_tensor"):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.all_gather_into_tensor(host, _pinned(src), group=_pg(g))
+        out.copy_(host)
+    else:
+        dist.all_gather_into_tensor(out, src, group=_pg(g))
+    return list(out.view((g.nranks,) + tuple(t.shape)).unbind(0))
+
+
+def reduce_scatter_blocks(stacked: torch.Tensor, group) -> torch.Tensor:
+    """``stacked`` is ``[n, ...]``, entry ``i`` meant for rank ``i``: rank
+    ``r`` gets the SUM over ranks of their entry ``r`` (one
+    ``reduce_scatter_tensor``)."""
+    g = _resolve_group(group)
+    if g.nranks == 1 or _pg(g) is None:
+        return stacked[0]
+    if stacked.shape[0] != g.nranks:
+        raise ValueError(f"reduce_scatter_blocks: {stacked.shape[0]} "
+                         f"entries for a group of {g.nranks}")
+    src = stacked.reshape(-1)
+    out = torch.empty(stacked.shape[1:], dtype=src.dtype, device=src.device)
+    if _through_host(_pg(g), src, "reduce_scatter_tensor"):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.reduce_scatter_tensor(host.view(-1), _pinned(src),
+                                   group=_pg(g))
+        out.copy_(host)
+    else:
+        dist.reduce_scatter_tensor(out.view(-1), src, group=_pg(g))
+    return out
+
+
+# ---- collectives inside the step, on the group along a mesh axis --------
+# The JAX package's run inside ``shard_map`` over a mesh axis; here each
+# is a differentiable call on this rank's tensor over its group along
+# ``axis_name`` (a name of the hybrid topology's axes, or a ``Group``),
+# built on ``fleet.meta_parallel.mp_ops``. A group of one rank changes
+# nothing.
+_A54 = "ROADMAP queue A item A5.4 (expert parallelism)"
+_A57 = "ROADMAP queue A item A5.7 (ring attention)"
+
+
+def _mp_ops():
+    from .fleet.meta_parallel import mp_ops
+
+    return mp_ops
 
 
 def psum(x, axis_name):
-    _in_trace("psum")
+    """The SUM over the axis (backward: the identity, as ``mp_allreduce``)."""
+    return _mp_ops().mp_allreduce(x, axis_name)
 
 
 def pmean(x, axis_name):
-    _in_trace("pmean")
+    from .collective import axis_group
+
+    return psum(x, axis_name) / axis_group(axis_name).nranks
+
+
+def _pextreme(x, axis_name, op):
+    from .collective import axis_group
+
+    g = axis_group(axis_name)
+    out = x.detach().clone()
+    if g.nranks > 1:
+        all_reduce(out, op, group=g)
+    return out
 
 
 def pmax(x, axis_name):
-    _in_trace("pmax")
+    """The MAX over the axis; not differentiable (the JAX package's pmax
+    has no VJP either: callers stop the gradient first)."""
+    return _pextreme(x, axis_name, ReduceOp.MAX)
 
 
 def pmin(x, axis_name):
-    _in_trace("pmin")
+    """The MIN over the axis; not differentiable, as ``pmax``."""
+    return _pextreme(x, axis_name, ReduceOp.MIN)
 
 
 def ppermute(x, axis_name, perm):
-    _in_trace("ppermute")
+    raise NotImplementedError(
+        f"ppermute: point-to-point rings belong to ring attention, not "
+        f"ported yet ({_A57})")
 
 
-def axis_index(axis_name):
-    _in_trace("axis_index")
+def axis_index(axis_name) -> int:
+    """This rank's index along the axis."""
+    from .collective import axis_group
+
+    return max(axis_group(axis_name).rank, 0)
 
 
 def all_gather_in_trace(x, axis_name, axis: int = 0, tiled: bool = False):
-    _in_trace("all_gather_in_trace")
+    """Every rank's ``x`` along ``axis``: stacked on a new ``axis`` or, with
+    ``tiled``, concatenated along it. Backward keeps this rank's part."""
+    if not tiled:
+        x = x.unsqueeze(axis)
+    return _mp_ops().c_concat(x, axis_name, dim=axis)
 
 
 def reduce_scatter_in_trace(x, axis_name, scatter_dimension: int = 0,
                             tiled: bool = True):
-    _in_trace("reduce_scatter_in_trace")
+    """The SUM over the axis, of which this rank keeps chunk ``rank`` of
+    ``scatter_dimension`` (without ``tiled``, that dimension's size is
+    the group's and is dropped). Backward gathers the chunks."""
+    out = _mp_ops().reduce_scatter(x, axis_name, dim=scatter_dimension)
+    return out if tiled else out.squeeze(scatter_dimension)
 
 
 def all_to_all_in_trace(x, axis_name, split_axis: int, concat_axis: int,
                         tiled: bool = True):
-    _in_trace("all_to_all_in_trace")
+    raise NotImplementedError(
+        f"all_to_all_in_trace: the token exchange of expert parallelism, "
+        f"not ported yet ({_A54})")

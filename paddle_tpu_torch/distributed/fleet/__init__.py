@@ -4,12 +4,15 @@
 ``init`` joins the world (``init_parallel_env``) and builds the
 ``HybridCommunicateGroup`` from ``strategy.hybrid_configs``, as the JAX
 package does: the rank mesh with named data, pipe, sharding, sep, expert
-and model axes, and a group per axis. Only the data axis may exceed 1
-(the others raise naming their ROADMAP items). ``distributed_model`` wraps
-the model in ``DataParallel`` at dp above 1; ``distributed_optimizer``
-wraps the optimizer so its clip is the dp group's global-norm clip. The
-train step (``make_sharded_train_step``) runs over the hybrid mesh when
-it is given none.
+and model axes, and a group per axis; then it seeds the model-parallel RNG
+tracker (``tensor_parallel_configs["tensor_init_seed"]``, 1024 by
+default). The data, model and sharding axes may exceed 1 (the others
+raise naming their ROADMAP items). ``distributed_model`` wraps the model
+as the JAX package does: ``TensorParallel`` at mp above 1,
+``ShardingParallel`` at sharding, ``DataParallel`` at dp;
+``distributed_optimizer`` wraps the optimizer so its clip is the hybrid
+global-norm clip. The train step (``make_sharded_train_step``) runs over
+the hybrid mesh when it is given none.
 
 Not ported: the cost-model planner (``auto_plan``, ``plan_hybrid_configs``;
 ROADMAP queue A item A7), parameter-server mode, the role makers and the
@@ -21,6 +24,9 @@ from __future__ import annotations
 from typing import Optional
 
 from . import meta_parallel  # noqa: F401
+from .meta_parallel import (ColumnParallelLinear, RowParallelLinear,
+                            TensorParallel, VocabParallelEmbedding,
+                            get_rng_state_tracker)
 from ..parallel import (DataParallel, get_rank, get_world_size,
                         init_parallel_env)
 from ..topology import (CommunicateTopology, HybridCommunicateGroup,
@@ -32,7 +38,9 @@ from .hybrid_parallel_optimizer import (HybridParallelClipGrad,
 from .recompute import recompute, recompute_hybrid, recompute_sequential
 from .utils import ShardedTrainStep, make_sharded_train_step
 
-__all__ = ["meta_parallel", "recompute", "recompute_sequential",
+__all__ = ["meta_parallel", "ColumnParallelLinear", "RowParallelLinear",
+           "TensorParallel", "VocabParallelEmbedding",
+           "get_rng_state_tracker", "recompute", "recompute_sequential",
            "recompute_hybrid", "ShardedTrainStep", "make_sharded_train_step",
            "DistributedStrategy", "HybridParallelClipGrad",
            "HybridParallelOptimizer", "init", "distributed_model",
@@ -76,12 +84,6 @@ def init(role_maker=None, is_collective: bool = True,
     if getattr(_strategy, "auto_plan", False):
         raise NotImplementedError(f"strategy.auto_plan is not ported yet "
                                   f"({_A7})")
-    seed = _strategy.tensor_parallel_configs.get("tensor_init_seed", -1)
-    if seed not in (-1, None):
-        raise NotImplementedError(
-            "tensor_parallel_configs['tensor_init_seed'] seeds the "
-            "tensor-parallel RNG tracker, not ported yet (ROADMAP queue A "
-            "item A5.3)")
     init_parallel_env(device=device)
     cfg = _strategy.hybrid_configs
     # sep = the sequence/context-parallel axis; "cp_degree" aliases it
@@ -103,14 +105,30 @@ def init(role_maker=None, is_collective: bool = True,
                          f"{get_world_size()}")
     set_hybrid_communicate_group(
         HybridCommunicateGroup(topo, global_rank=get_rank()))
+    from .meta_parallel.random import model_parallel_random_seed
+
+    seed = _strategy.tensor_parallel_configs.get("tensor_init_seed", -1)
+    model_parallel_random_seed(None if seed in (-1, None) else seed,
+                               device=device)
 
 
 def distributed_model(model):
-    """``DataParallel(model)`` at dp above 1, else the model itself."""
+    """``TensorParallel(model)`` at mp above 1, ``ShardingParallel`` in
+    the sharding mode, ``DataParallel`` in the data mode (the hybrid
+    topology's ``get_parallel_mode()``), else the model itself."""
+    from .meta_parallel import ShardingParallel, TensorParallel
+
     hcg = get_hybrid_communicate_group()
-    if hcg is None or hcg.get_parallel_mode() != "data":
+    if hcg is None:
         return model
-    return DataParallel(model, group=hcg.get_data_parallel_group())
+    if hcg.get_model_parallel_world_size() > 1:
+        return TensorParallel(model, hcg=hcg, strategy=_strategy)
+    mode = hcg.get_parallel_mode()
+    if mode == "sharding":
+        return ShardingParallel(model, hcg=hcg, strategy=_strategy)
+    if mode == "data":
+        return DataParallel(model, group=hcg.get_data_parallel_group())
+    return model
 
 
 def distributed_optimizer(optimizer, strategy=None):

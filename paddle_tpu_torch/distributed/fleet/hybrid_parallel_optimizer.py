@@ -3,10 +3,15 @@ hybrid_parallel_optimizer.py`` analog).
 
 At data parallelism the gradients are all-reduced over the dp group
 before they are clipped (by the train step, or by ``step()`` here in a
-user's own loop), so ``HybridParallelClipGrad`` is the global-norm clip
-over gradients that are already the global batch's: its norm is the
-global norm. The wrapper keeps the inner optimizer's API (the train step
-calls ``apply_gradients`` through it) and its gradient merge over
+user's own loop), so their norm is the global batch's. Under tensor
+parallelism a rank holds blocks of the mp-split parameters, and under
+ZeRO-2 slices of the gradients, so ``HybridParallelClipGrad`` (and
+``hybrid_clip_``, which the train step calls) sums the squares of each
+kind where it lives: the mp blocks' over the mp group, each replicated
+gradient's once, and ZeRO-2 slices' over the sharding group first. The
+norm is then the one over the global arrays that the JAX step computes.
+The wrapper keeps the inner optimizer's API (the train step calls
+``apply_gradients`` through it) and its gradient merge over
 ``strategy.gradient_merge_configs["k_steps"]`` eager steps.
 """
 
@@ -15,17 +20,67 @@ from __future__ import annotations
 import torch
 
 from ...nn.clip import ClipGradByGlobalNorm
+from ..communication import all_reduce
 from ..parallel import grad_buffers
 
 
-class HybridParallelClipGrad(ClipGradByGlobalNorm):
-    """The global-norm clip over the dp group's reduced gradients."""
+@torch.no_grad()
+def hybrid_clip_(clip, grads, *, mp_split, sliced, mp_group,
+                 sharding_group):
+    """``clip``'s global-norm clip over ``grads`` held across ranks:
+    ``mp_split[i]`` says gradient ``i`` is this rank's block of an
+    mp-split parameter (its squares are summed over ``mp_group``), and
+    ``sliced[i]`` that it is a ZeRO-2 slice (summed over
+    ``sharding_group`` first). Every gradient is scaled in place."""
+    dev = grads[0].device if grads else None
+    sums = torch.zeros(2, 2, dtype=torch.float32, device=dev)
+    for g, m, s in zip(grads, mp_split, sliced):
+        sums[int(s), int(m)] += g.float().square().sum()
+    part = sums[1].clone()
+    all_reduce(part, group=sharding_group)
+    whole = sums[0] + part
+    split = whole[1:].clone()
+    all_reduce(split, group=mp_group)
+    norm = torch.sqrt(whole[0] + split[0])
+    if clip.auto_skip_clip and float(norm) <= clip.clip_norm:
+        return
+    scale = clip.clip_norm / torch.clamp(norm, min=clip.clip_norm)
+    for g in grads:
+        g.copy_(g.float() * scale)
 
-    def __init__(self, clip, hcg=None):
+
+class HybridParallelClipGrad(ClipGradByGlobalNorm):
+    """The global-norm clip over the hybrid topology's gradients: dp's
+    reduced ones, mp blocks summed over the mp group."""
+
+    def __init__(self, clip, hcg=None, *, params=None):
         clip_norm = clip.clip_norm if hasattr(clip, "clip_norm") \
             else float(clip)
-        super().__init__(clip_norm)
+        super().__init__(clip_norm, auto_skip_clip=getattr(
+            clip, "auto_skip_clip", False))
         self._hcg = hcg
+        self._params = list(params) if params is not None else None
+
+    @torch.no_grad()
+    def clip_(self, grads):
+        """Clip ``grads`` in place. At an mp degree above 1 they must be
+        the gradients of the optimizer's parameters, in order: the
+        mp-split ones' squares are summed over the mp group."""
+        hcg, params = self._hcg, self._params
+        if hcg is None or hcg.get_model_parallel_world_size() == 1:
+            return super().clip_(grads)
+        if params is None or len(params) != len(grads):
+            raise ValueError("HybridParallelClipGrad at mp above 1 clips "
+                             "its optimizer's gradients, in order")
+        pairs = [(g, p) for g, p in zip(grads, params) if g is not None]
+        if pairs:
+            hybrid_clip_(self, [g for g, _ in pairs],
+                         mp_split=[getattr(p, "mp_dim", None) is not None
+                                   and getattr(p, "is_distributed", False)
+                                   for _, p in pairs],
+                         sliced=[False] * len(pairs),
+                         mp_group=hcg.get_model_parallel_group(),
+                         sharding_group=hcg.get_sharding_parallel_group())
 
 
 class HybridParallelOptimizer:
@@ -43,7 +98,8 @@ class HybridParallelOptimizer:
         if optimizer._grad_clip is not None and not isinstance(
                 optimizer._grad_clip, HybridParallelClipGrad):
             optimizer._grad_clip = HybridParallelClipGrad(
-                optimizer._grad_clip, hcg)
+                optimizer._grad_clip, hcg,
+                params=list(optimizer._params.values()))
 
     @torch.no_grad()
     def step(self):

@@ -1,5 +1,18 @@
-from .mp_layers import (ColumnParallelLinear, RowParallelLinear,
-                        VocabParallelEmbedding)
+from . import mp_ops  # noqa: F401
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
+                        RowParallelLinear, VocabParallelEmbedding)
+from .random import (RNGStatesTracker, get_rng_state_tracker,
+                     model_parallel_random_seed)
+from .sharding import (GroupShardedOptimizerStage2, GroupShardedStage2,
+                       GroupShardedStage3, group_sharded_parallel,
+                       save_group_sharded_model)
+from .tensor_parallel import (MetaParallelBase, ShardingParallel,
+                              TensorParallel)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy", "mp_ops",
+           "RNGStatesTracker", "get_rng_state_tracker",
+           "model_parallel_random_seed", "GroupShardedOptimizerStage2",
+           "GroupShardedStage2", "GroupShardedStage3",
+           "group_sharded_parallel", "save_group_sharded_model",
+           "MetaParallelBase", "TensorParallel", "ShardingParallel"]

@@ -42,35 +42,61 @@ scaler's ``[scale, good, bad]`` under ``extra.scaler_state``);
 numpy leaves, into the live parameters and state in place.
 
 Over a mesh (``mesh=``, by default the ``fleet.init`` topology's, else
-the whole world as one ``dp`` axis) the step is data parallel: a model
-wrapped in ``DataParallel`` must average over the same ranks as the
-step's dp group. ``batch_spec`` names the
-mesh axes dim 0 of a batch is split over (the JAX step's default
-``PartitionSpec(("dp", "sharding", "ep"))``), and each rank passes its
-*local* rows, the JAX package's multi-process contract; a batch whose rows
-differ across the dp group in count raises (checked each step over a gloo
-group on the host). The gradients are views into persistent flat buffers
-(``parallel.GradBuffers``), which the backward accumulates into; after it
-(after all ``accumulate_steps`` microbatches) each bucket is all-reduced
-by SUM over the dp group in place and each buffer scaled by ``1/world`` in
-its dtype, so the
-clip's norm and the update are the global batch's; the returned loss is
-the global mean (an AVG all-reduce of the local mean, nothing read on the
-host). With a scaler, the found-inf flag is all-reduced with MAX before
-its host read, so every rank skips the same steps. Dropout's key folds in
-the rank's dp index at dp above 1, so ranks draw different masks for
-different rows. At a dp world of one with a process group (NCCL at world
-size 1) the reductions run and change no bit. The replicas stay bitwise
-equal: every rank applies the same reduced gradients.
+the whole world as one ``dp`` axis) the step runs the parallelisms of its
+axes:
+
+- data (``dp``, and ``sharding``, which carries data as well):
+  ``batch_spec`` names the mesh axes dim 0 of a batch is split over (the
+  JAX step's default ``PartitionSpec(("dp", "sharding", "ep"))``), and
+  each rank passes its *local* rows, the JAX package's multi-process
+  contract; a batch whose rows differ across the data group in count
+  raises (checked each step over a gloo group on the host). The gradients
+  are views into persistent flat buffers (``parallel.GradBuffers``), which
+  the backward accumulates into; after it (after all
+  ``accumulate_steps`` microbatches) each bucket is all-reduced by SUM
+  over the data group in place and each buffer scaled by ``1/world`` in
+  its dtype, so the clip's norm and the update are the global batch's;
+  the returned loss is the global mean (an AVG all-reduce of the local
+  mean, nothing read on the host). With a scaler, the found-inf flag is
+  all-reduced with MAX before its host read, so every rank skips the same
+  steps. Dropout's key folds in the rank's index over the data axes only
+  (never mp: the ranks of an mp group draw the same masks on their
+  replicated activations). A model wrapped in ``DataParallel`` must
+  average over the data group's ranks;
+- tensor parallelism (``mp``): the model's mp layers hold their blocks
+  and call their collectives over the hybrid topology's mp group, which
+  must be the step's. The replicated parameters get the same gradients on
+  every rank of the group and stay bitwise equal; with a clip, the global
+  norm sums each mp-split gradient's squares over the group and counts
+  each replicated one once;
+- ZeRO (``sharding``, with an optimizer marked by
+  ``group_sharded_parallel``): each rank updates its slice of every
+  parameter with its slice of the optimizer state
+  (``meta_parallel.sharding.ZeroPartition``: the first dimension, not
+  split over mp, that the degree divides, as ``_state_sharding_like``
+  places it), and the slices are gathered back; stage 2 reduce-scatters
+  the gradients over the sharding group instead of averaging them there.
+
+``param_specs`` (``{name: PartitionSpec}``) is honoured where the port can
+realise the spec: the layer's own; ``PartitionSpec()`` on the weight of
+an mp linear (the whole weight on every rank: ``replicate_weight``); and a
+``sharding`` entry on a dimension the degree divides, which places that
+parameter's optimizer state there. Any other spec raises
+``NotImplementedError`` naming ROADMAP queue A item A7 (autoshard's
+layouts). ``state_for_checkpoint()`` gathers the global arrays in the JAX
+package's layout over mp and sharding (collective: every rank calls it),
+``restore_from_checkpoint`` keeps this rank's blocks of whole arrays, and
+``checkpoint_shardings()`` reports the placements. At a world of one with
+a process group (NCCL at world size 1) the reductions run and change no
+bit.
 
 Options of the JAX step that the port has not reached raise
 ``NotImplementedError`` naming their ROADMAP items: a mesh axis of size
-above 1 other than data's (tensor and ZeRO parallelism A5.3, expert A5.4,
-pipeline A5.6, context A5.7), a batch split along another dimension than
-dim 0 (A5.7), ``param_specs`` (A5.3), ``grad_reduce`` (A5.4), a GPT-MoE
-model at dp above 1 (A5.4: the JAX package routes over the global token
-count), the pipeline options (A5.6) and ``health_stats`` (A6). None is
-silently ignored.
+above 1 for expert (A5.4), pipeline (A5.6) or context (A5.7)
+parallelism, a batch split along another dimension than dim 0 (A5.7),
+``grad_reduce`` (A5.4), a GPT-MoE model at a data world above 1 (A5.4:
+the JAX package routes over the global token count), the pipeline options
+(A5.6) and ``health_stats`` (A6). None is silently ignored.
 """
 
 from __future__ import annotations
@@ -85,39 +111,59 @@ from ...nn.clip import ClipGradByGlobalNorm
 from ...optimizer.optimizer import _load_slot
 from ...weights import to_torch
 from ..collective import group_of
-from ..communication import ReduceOp, all_reduce
+from ..communication import ReduceOp, all_reduce, gather_blocks
 from ..mesh import (DeviceMesh, NamedSharding, PartitionSpec, device_count,
                     spec_axes)
 from ..parallel import DataParallel, get_rank, grad_buffers
+from ..sharding_utils import (assemble, local_block, resolve_spec,
+                              spec_dim)
 from ..topology import LATER_AXES, get_hybrid_communicate_group
+from .hybrid_parallel_optimizer import hybrid_clip_
+from .meta_parallel.mp_layers import _Linear
+from .meta_parallel.sharding import (SHARDING_AXIS, GroupShardedStage2,
+                                     ZeroPartition, state_dim)
+from .meta_parallel.tensor_parallel import MetaParallelBase
 
 _ITEM = "ROADMAP queue A item"
+_A7 = f"{_ITEM} A7 (autoshard's layouts)"
 
 
-def resolve_spec(spec, mesh: DeviceMesh) -> PartitionSpec:
-    """Drop spec axes the mesh does not have (an mp spec on a dp-only mesh
-    is replicated), as the JAX step resolves its specs."""
-    if spec is None:
-        return PartitionSpec()
-    if not isinstance(spec, tuple):
-        raise TypeError(f"batch_spec must be a PartitionSpec, got "
-                        f"{type(spec).__name__}")
+def _unwrap(model):
+    """The model inside fleet's and ZeRO's wrappers, the ranks of a
+    ``DataParallel`` wrapper's group (None without one) and the ZeRO stage
+    a ``GroupShardedStage2`` wrapper asks for (0 without one)."""
+    ranks, stage = None, 0
+    while isinstance(model, (DataParallel, MetaParallelBase,
+                             GroupShardedStage2)):
+        if isinstance(model, DataParallel):
+            ranks = model.group.ranks
+        if isinstance(model, GroupShardedStage2):
+            stage = 2
+        model = model._layers
+    return model, ranks, stage
+
+
+def _drop_axis(spec, axis) -> PartitionSpec:
     out = []
     for e in spec:
-        kept = tuple(a for a in (e if isinstance(e, tuple) else (e,))
-                     if a in mesh.axis_names)
-        out.append(None if not kept else kept if isinstance(e, tuple)
-                   else kept[0])
+        kept = tuple(a for a in spec_axes(e) if a != axis)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
     while out and out[-1] is None:
         out.pop()
     return PartitionSpec(*out)
 
 
+def _mp_split(p) -> bool:
+    """Whether ``p`` is this rank's block of a tensor split over mp."""
+    return getattr(p, "mp_dim", None) is not None \
+        and "mp" in spec_axes(getattr(p, "dist_spec", ()) or ())
+
+
 class ShardedTrainStep:
     """Holds the model's named parameters and runs one optimizer step per
-    call. Batches (token ids ``[B, S]`` as tensors or numpy arrays; at dp,
-    this rank's rows) are moved to ``device``, which defaults to ``cuda``;
-    the model must already live there."""
+    call. Batches (token ids ``[B, S]`` as tensors or numpy arrays; over
+    data axes, this rank's rows) are moved to ``device``, which defaults
+    to ``cuda``; the model must already live there."""
 
     def __init__(self, model, optimizer, loss_fn=None, mesh=None,
                  batch_spec=PartitionSpec(("dp", "sharding", "ep")),
@@ -133,15 +179,15 @@ class ShardedTrainStep:
                 ("grad_reduce", grad_reduce is not None,
                  f"{_ITEM} A5.4 (gradient compression)"),
                 ("health_stats", bool(health_stats), f"{_ITEM} A6 "
-                 "(observability)"),
-                ("param_specs", param_specs is not None,
-                 f"{_ITEM} A5.3 (tensor and sharding parallelism)")):
+                 "(observability)")):
             if on:
                 raise NotImplementedError(f"make_sharded_train_step: {what} "
                                           f"is not ported yet ({item})")
-        wrapper = model.group if isinstance(model, DataParallel) else None
-        if wrapper is not None:
-            model = model._layers  # the step reduces the gradients itself
+        if param_specs is not None and not isinstance(param_specs, dict):
+            raise NotImplementedError(
+                f"param_specs must be a {{name: PartitionSpec}} table, got "
+                f"{type(param_specs).__name__} ({_A7})")
+        model, wrapper, stage = _unwrap(model)
         self._seed = int(seed)
         self._donate = donate
         self.device = resolve_device(device)
@@ -169,14 +215,33 @@ class ShardedTrainStep:
                              "make_sharded_train_step")
         self._accum = accumulate_steps if accumulate_steps else 1
         self._step_i = 0  # optimizer steps taken, as the JAX step counts
-        self._init_dp(mesh, batch_spec, wrapper)
-        optimizer.init_state(self.params)
+        self._init_parallel(mesh, batch_spec, wrapper, stage,
+                            param_specs or {})
+        optimizer.init_state(self._state_targets())
 
-    def _init_dp(self, mesh, batch_spec, wrapper):
-        """The mesh, the batch's data axes, the dp group this rank reduces
-        over (it must be a ``DataParallel`` wrapper's group, when the model
-        came wrapped) and the gradients' buffers (collective: every rank
-        builds the step)."""
+    # ---------- the mesh, its groups and the placements ----------
+    def _axis_group(self, axes, name):
+        """This rank's group along ``axes`` of the step's mesh: the hybrid
+        topology's when the mesh is its and the axis one of its groups,
+        else one over ``group_of`` (collective: every rank builds every
+        group of the axes, in one order)."""
+        hcg = get_hybrid_communicate_group()
+        if len(axes) == 1 and hcg is not None and hcg.get_mesh() == self.mesh \
+                and axes[0] in hcg._groups:
+            return hcg._groups[axes[0]]
+        me, mine = get_rank(), None
+        for ranks in self.mesh.groups_along(axes):
+            g = group_of(ranks, self.mesh, ",".join(axes) or None, name=name)
+            if me in ranks:
+                mine = g
+        return mine
+
+    def _init_parallel(self, mesh, batch_spec, wrapper, stage, param_specs):
+        """The mesh, the batch's data axes and this rank's groups along
+        them, along mp and along sharding; the placements of the
+        parameters and their optimizer state, ``param_specs`` realised;
+        the gradients' buffers (collective: every rank builds the
+        step)."""
         if mesh is None:
             hcg = get_hybrid_communicate_group()
             mesh = hcg.get_mesh() if hcg is not None \
@@ -193,35 +258,115 @@ class ShardedTrainStep:
             if n > 1 and axis in LATER_AXES:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {n}: the train step runs "
-                    f"data parallelism only ({_ITEM} {LATER_AXES[axis]})")
+                    f"data, tensor and ZeRO parallelism ({_ITEM} "
+                    f"{LATER_AXES[axis]})")
+        if mesh.shape.get(SHARDING_AXIS, 1) > 1 \
+                and SHARDING_AXIS not in data_axes:
+            raise ValueError(f"batch_spec {spec} leaves out the sharding "
+                             "axis, which carries data under ZeRO")
         me = get_rank()
         mesh.coords(me)  # raises unless this rank is on the mesh
-        for ranks in mesh.groups_along(data_axes):
-            g = group_of(ranks, mesh, ",".join(data_axes) or None,
-                         name="dp_group")
-            if me in ranks:
-                self._dp = g
-        if wrapper is not None and wrapper.ranks != self._dp.ranks:
+        self._dp = self._axis_group(data_axes, "dp_group")
+        self._mp = self._axis_group(("mp",) if "mp" in mesh.shape else (),
+                                    "mp_group")
+        self._sh = self._axis_group(
+            (SHARDING_AXIS,) if SHARDING_AXIS in mesh.shape else (),
+            "sharding_group")
+        if wrapper is not None and wrapper != self._dp.ranks:
             raise ValueError(
                 f"the model's DataParallel averages over ranks "
-                f"{wrapper.ranks}, the step's dp group is {self._dp.ranks}: "
+                f"{wrapper}, the step's dp group is {self._dp.ranks}: "
                 "pass the mesh whose data axes are the wrapper's ranks")
         self._dp_world, self._dp_rank = self._dp.nranks, self._dp.rank
-        self._grads = grad_buffers(self.params.values(), self._dp)
+        moe = getattr(getattr(self.model, "cfg", None), "moe_num_experts", 0)
+        if moe and self._dp_world > 1:
+            raise NotImplementedError(
+                "a GPT-MoE model at a data world above 1: the JAX package "
+                "routes over the global batch's tokens (capacity cf*T/E), "
+                "which per-rank routing would change; expert parallelism "
+                f"is {_ITEM} A5.4")
+        for mod in self.model.modules():
+            g = getattr(mod, "mp_group", None)
+            if g is not None and g.ranks != self._mp.ranks:
+                raise ValueError(
+                    f"the model's mp layers run over ranks {g.ranks}, the "
+                    f"step's mp group is {self._mp.ranks}: build the model "
+                    "after fleet.init, on the step's mesh")
+        self._realise_specs(param_specs)
+        self._zero_stage = max(stage, getattr(self.optimizer, "_zero_stage",
+                                              0))
+        self._zero = None
+        if any(d is not None for d in self._state_dims.values()):
+            self._zero = ZeroPartition(self.params, self._state_dims,
+                                       self._sh, 2 if self._zero_stage == 2
+                                       else 1)
+        # stage 2 averages over the data axes but sharding in the buffers
+        # and reduce-scatters over sharding after them
+        grads_group = self._dp
+        if self._zero is not None and self._zero.stage == 2:
+            grads_group = self._axis_group(
+                tuple(a for a in data_axes if a != SHARDING_AXIS), "dp_only")
+        self._grads = grad_buffers(self.params.values(), grads_group)
         self._host = None
         if self._dp_world > 1:
-            if getattr(getattr(self.model, "cfg", None), "moe_num_experts",
-                       0):
-                raise NotImplementedError(
-                    "a GPT-MoE model at dp above 1: the JAX package routes "
-                    "over the global batch's tokens (capacity cf*T/E), "
-                    "which per-rank routing would change; expert "
-                    f"parallelism is {_ITEM} A5.4")
             # the rows check runs on the host, on a gloo group of its own
             for ranks in mesh.groups_along(data_axes):
                 g = group_of(ranks, backend="gloo")
                 if me in ranks:
                     self._host = g
+
+    def _realise_specs(self, param_specs):
+        """Each parameter's placement: its layer's spec, or the one
+        ``param_specs`` gives where the port can realise it; and the
+        dimension of its optimizer state split over sharding, if any."""
+        unknown = sorted(set(param_specs) - set(self.params))
+        if unknown:
+            raise KeyError(f"param_specs names no parameter of the model: "
+                           f"{unknown[:4]}")
+        for name, want in param_specs.items():
+            p = self.params[name]
+            own = resolve_spec(getattr(p, "dist_spec", None), self.mesh)
+            core = _drop_axis(resolve_spec(want, self.mesh), SHARDING_AXIS)
+            if core == own:
+                continue
+            owner = self.model.get_submodule(name.rpartition(".")[0])
+            if core == PartitionSpec() and isinstance(owner, _Linear) \
+                    and name.endswith(".weight") and _mp_split(p):
+                owner.replicate_weight()
+                continue
+            raise NotImplementedError(
+                f"param_specs[{name!r}] = {want!r}: the port realises the "
+                f"layer's own spec {own!r}, PartitionSpec() on an mp "
+                f"linear's weight and the sharding axis on the optimizer "
+                f"state, not this layout ({_A7})")
+        self.params = dict(self.model.named_parameters())
+        zero = getattr(self.optimizer, "_shard_state_axis", None) \
+            == SHARDING_AXIS
+        n = self._sh.nranks
+        self._state_dims = {}
+        for name, p in self.params.items():
+            # as _state_sharding_like: every dimension the parameter's
+            # spec places on an axis of the mesh is taken
+            taken = {i for i, e in enumerate(resolve_spec(
+                getattr(p, "dist_spec", None), self.mesh)) if e is not None}
+            want = param_specs.get(name)
+            d = spec_dim(resolve_spec(want, self.mesh), SHARDING_AXIS) \
+                if want is not None else None
+            if d is not None and n > 1:
+                if d in taken or d >= p.dim() or p.shape[d] % n:
+                    raise NotImplementedError(
+                        f"param_specs[{name!r}] = {want!r}: the optimizer "
+                        f"state of a {tuple(p.shape)} block cannot split "
+                        f"dimension {d} over {n} sharding ranks ({_A7})")
+            elif zero:
+                d = state_dim(p.shape, n, taken)
+            self._state_dims[name] = d if n > 1 else None
+
+    def _state_targets(self):
+        """What the optimizer's state is shaped like, by name: this rank's
+        ZeRO slice of a parameter, or the parameter."""
+        views = self._zero.views if self._zero is not None else {}
+        return {n: views.get(n, p) for n, p in self.params.items()}
 
     def _batch(self, a):
         return torch.as_tensor(a).to(self.device)
@@ -259,9 +404,9 @@ class ShardedTrainStep:
         return loss * inv
 
     def _check_rows(self, x):
-        """Every rank of the dp group passes as many rows (the mean of the
-        local means is then the global mean): one small all-reduce on the
-        host's gloo group."""
+        """Every rank of the data group passes as many rows (the mean of
+        the local means is then the global mean): one small all-reduce on
+        the host's gloo group."""
         if self._host is None:
             return
         rows = torch.tensor([x.shape[0], -x.shape[0]], dtype=torch.int64)
@@ -287,9 +432,26 @@ class ShardedTrainStep:
             return self._keyed_step(x, y, lr)
 
     def _global_mean(self, loss):
-        """The dp group's mean of the local mean losses, on the device."""
+        """The data group's mean of the local mean losses, on the
+        device."""
         all_reduce(loss, ReduceOp.AVG, group=self._dp)
         return loss
+
+    def _clip_(self, grads):
+        """The global-norm clip over the step's gradients: plain on one
+        rank's whole gradients; over the groups when some are mp blocks
+        or ZeRO-2 slices."""
+        zero = self._zero
+        sliced = zero is not None and zero.stage == 2
+        if self._mp.nranks == 1 and not sliced:
+            self._clip.clip_(list(grads.values()))
+            return
+        names = [k for k, g in grads.items() if g is not None]
+        hybrid_clip_(
+            self._clip, [grads[k] for k in names],
+            mp_split=[_mp_split(self.params[k]) for k in names],
+            sliced=[sliced and k in zero.dims for k in names],
+            mp_group=self._mp, sharding_group=self._sh)
 
     def _keyed_step(self, x, y, lr):
         if self._grads is None:
@@ -302,11 +464,18 @@ class ShardedTrainStep:
         loss = self._forward_backward(x, y, scale)
         if self._grads is not None:
             self._grads.reduce()
-        grads = [p.grad for p in self.params.values()]
+        zero = self._zero
+        if zero is not None and zero.stage == 2:
+            zero.reduce_scatter_grads()
+            grads = zero.grads()  # slices, and the unsliced whole
+        else:
+            grads = {k: p.grad for k, p in self.params.items()}
         if sc is not None:
-            flag = nonfinite_flag(grads, scale)
+            flag = nonfinite_flag(list(grads.values()), scale)
             if flag is not None:  # every rank skips alike
                 all_reduce(flag, ReduceOp.MAX, group=self._dp)
+                all_reduce(flag, ReduceOp.MAX, group=self._mp)
+                all_reduce(flag, ReduceOp.MAX, group=self._sh)
             skip = flag is not None and bool(flag)
             sc._found_inf = skip
             sc.update()
@@ -314,8 +483,11 @@ class ShardedTrainStep:
             if skip:
                 return self._global_mean(loss)
         if self._clip is not None:
-            self._clip.clip_(grads)
-        self.optimizer.apply_gradients(self.params, lr=lr)
+            self._clip_(grads)
+        if zero is not None:
+            zero.update(self.optimizer, zero.grads(), lr)
+        else:
+            self.optimizer.apply_gradients(self.params, lr=lr)
         return self._global_mean(loss)
 
     def __call__(self, x, y, lr=None):
@@ -348,22 +520,57 @@ class ShardedTrainStep:
         return self._step_i
 
     # ---------- checkpointing (paddle_tpu_torch.checkpoint) ----------
+    def _global(self, name, t, sliced=False):
+        """The global array of parameter ``name``'s tensor ``t`` (the
+        parameter, or a state leaf shaped like it, ``sliced`` under
+        ZeRO): gathered over sharding, then over mp (collective)."""
+        if sliced:
+            t = self._zero.whole(name, gather_blocks(t, self._sh))
+        p = self.params[name]
+        if self._mp.nranks > 1 and _mp_split(p):
+            t = assemble(gather_blocks(t, self._mp), p.mp_dim,
+                         p.mp_segments)
+        return t
+
+    def _local(self, name, t, sliced=False):
+        """This rank's block of the global array ``t`` (the inverse of
+        ``_global``)."""
+        p = self.params[name]
+        if self._mp.nranks > 1 and _mp_split(p):
+            t = local_block(t, p.mp_dim, self._mp.rank, self._mp.nranks,
+                            p.mp_segments)
+        if sliced:
+            t = self._zero.slice(name, t)
+        return t
+
+    def _sliced(self, name) -> bool:
+        return self._zero is not None and name in self._zero.dims
+
     def state_for_checkpoint(self):
         """The step's resume state as the JAX step's ``TrainState``: the
-        live parameters and optimizer state by name (tensors; the step
-        powers fp32 host scalars), buffers, ``rng={"seed"}``, the step
-        count and, with a scaler, ``extra.scaler_state`` ``[scale (fp32),
-        good, bad (int32)]``. The tensors are the live ones: save (the
-        snapshot) before the next step."""
+        parameters and optimizer state by name, buffers, ``rng={"seed"}``,
+        the step count and, with a scaler, ``extra.scaler_state`` ``[scale
+        (fp32), good, bad (int32)]``. Over mp or ZeRO the arrays are the
+        global ones, gathered (every rank must call this, in one order);
+        otherwise the live tensors: save (the snapshot) before the next
+        step. The step powers are fp32 host scalars."""
         from ...checkpoint import TrainState
 
         sc = self._scaler
         extra = None if sc is None else {"scaler_state": [
             np.float32(sc._scale), np.int32(sc._good_steps),
             np.int32(sc._bad_steps)]}
+        with torch.no_grad():
+            params = {n: self._global(n, p.detach())
+                      for n, p in self.params.items()}
+            opt_state = {
+                n: {k: self._global(n, v, self._sliced(n))
+                    if isinstance(v, torch.Tensor) else v
+                    for k, v in s.items()}
+                for n, s in self.optimizer.state.items()}
         return TrainState(
-            params=dict(self.params),
-            opt_state={n: dict(s) for n, s in self.optimizer.state.items()},
+            params=params,
+            opt_state=opt_state,
             buffers=dict(self.model.named_buffers()) or None,
             rng={"seed": int(self._seed)},
             step=self._step_i,
@@ -374,25 +581,41 @@ class ShardedTrainStep:
         """{axis: size} of this step's mesh."""
         return dict(self.mesh.shape)
 
+    def _placement(self, name, sliced):
+        p = self.params[name]
+        spec = list(resolve_spec(getattr(p, "dist_spec", None), self.mesh))
+        if sliced:
+            d = self._zero.dims[name]
+            spec += [None] * (d + 1 - len(spec))
+            spec[d] = SHARDING_AXIS
+        return NamedSharding(self.mesh, resolve_spec(PartitionSpec(*spec),
+                                                     self.mesh))
+
     def checkpoint_shardings(self):
         """Placements aligned with ``state_for_checkpoint().to_tree()``'s
-        params and optimizer state, for ``CheckpointManager.restore``: all
-        replicated over the mesh at data parallelism (every rank reads the
-        whole array)."""
-        rep = NamedSharding(self.mesh, PartitionSpec())
-        return {"params": {n: rep for n in self.params},
-                "opt_state": {n: {k: rep for k in slots} for n, slots
-                              in self.optimizer.state.items()}}
+        params and optimizer state: each parameter's spec (mp blocks over
+        ``mp``), each state leaf's with its ZeRO slice over ``sharding``.
+        ``CheckpointManager.restore`` accepts replicated ones only (a
+        sharded restore is ROADMAP queue A item A5.5): restore whole
+        arrays and ``restore_from_checkpoint`` keeps this rank's
+        blocks."""
+        return {"params": {n: self._placement(n, False) for n in self.params},
+                "opt_state": {n: {k: self._placement(
+                    n, self._sliced(n) and isinstance(v, torch.Tensor))
+                    if isinstance(v, torch.Tensor)
+                    else NamedSharding(self.mesh, PartitionSpec())
+                    for k, v in slots.items()}
+                    for n, slots in self.optimizer.state.items()}}
 
     @torch.no_grad()
     def restore_from_checkpoint(self, tree):
-        """Adopt a restored ``TrainState`` (or its tree, as
+        """Adopt a restored ``TrainState`` of global arrays (or its tree, as
         ``CheckpointManager.restore`` or the JAX package's ``load_tree``
-        returns it: tensor or numpy leaves). Parameters, optimizer slots
-        and buffers are copied into the live tensors in place (names,
-        slots and shapes must match), the step powers restored to the same
-        fp32 bits; the step count, the seed and the scaler's automaton
-        follow."""
+        returns it: tensor or numpy leaves). This rank's blocks of the
+        parameters, optimizer slots and buffers are copied into the live
+        tensors in place (names, slots and shapes must match), the step
+        powers restored to the same fp32 bits; the step count, the seed and
+        the scaler's automaton follow."""
         from ...checkpoint import TrainState
 
         ts = tree if isinstance(tree, TrainState) \
@@ -401,11 +624,13 @@ class ShardedTrainStep:
             raise NotImplementedError(
                 "a checkpoint with grad_reduce_ef (error-feedback residuals "
                 f"of a gradient reducer) needs grad_reduce ({_ITEM} A5.4)")
-        _copy_named(self.params, ts.params, "params")
+        _copy_named(self.params, {
+            n: self._local(n, _as_tensor(v)) if n in self.params else v
+            for n, v in ts.params.items()}, "params")
         if ts.buffers:
             _copy_named(dict(self.model.named_buffers()), ts.buffers,
                         "buffers")
-        state = self.optimizer.init_state(self.params)
+        state = self.optimizer.init_state(self._state_targets())
         if set(ts.opt_state) != set(state):
             raise KeyError(f"restore_from_checkpoint: opt_state names differ "
                            f"from the step's: {sorted(set(ts.opt_state) ^ set(state))[:4]}")
@@ -415,8 +640,10 @@ class ShardedTrainStep:
                                f"{sorted(ts.opt_state[name])} are not the "
                                f"optimizer's {sorted(slots)}")
             for k in list(slots):
-                slots[k] = _load_slot(slots[k], ts.opt_state[name][k],
-                                      f"{name}_{k}")
+                v = ts.opt_state[name][k]
+                if isinstance(slots[k], torch.Tensor):
+                    v = self._local(name, _as_tensor(v), self._sliced(name))
+                slots[k] = _load_slot(slots[k], v, f"{name}_{k}")
         sc_state = (ts.extra or {}).get("scaler_state")
         if sc_state is not None and self._scaler is not None:
             self._scaler._scale = float(np.float32(float(sc_state[0])))
@@ -426,6 +653,10 @@ class ShardedTrainStep:
         if ts.rng and "seed" in ts.rng:
             self._seed = int(ts.rng["seed"])
         return self
+
+
+def _as_tensor(v):
+    return v if isinstance(v, torch.Tensor) else to_torch(np.asarray(v))
 
 
 def _copy_named(live, saved, what):

@@ -8,9 +8,9 @@ grid, the model axis varying fastest. ``HybridCommunicateGroup`` builds the
 ``collective.group_of`` (a process group for each set of ranks that varies
 along the axis; every rank builds all of them, in one order).
 
-Data parallelism is ported; a degree above 1 on any other axis raises
-``NotImplementedError`` naming its ROADMAP item (``model`` and
-``sharding`` A5.3, ``expert`` A5.4, ``pipe`` A5.6, ``sep`` A5.7).
+Data, tensor (``model``) and ZeRO (``sharding``) parallelism are ported;
+a degree above 1 on any other axis raises ``NotImplementedError`` naming
+its ROADMAP item (``expert`` A5.4, ``pipe`` A5.6, ``sep`` A5.7).
 """
 
 from __future__ import annotations
@@ -27,11 +27,9 @@ from .mesh import DeviceMesh, build_mesh, set_global_mesh
 _AXIS_ALIAS = {"data": "dp", "pipe": "pp", "sharding": "sharding",
                "model": "mp", "sep": "sep", "expert": "ep"}
 
-#: the ROADMAP item that ports parallelism over each axis but data's,
+#: the ROADMAP item that ports parallelism over each axis not ported yet,
 #: by paddle and by mesh name
-LATER_AXES = {"model": "A5.3 (tensor parallelism)",
-              "sharding": "A5.3 (ZeRO sharding)",
-              "expert": "A5.4 (expert parallelism)",
+LATER_AXES = {"expert": "A5.4 (expert parallelism)",
               "pipe": "A5.6 (pipeline parallelism)",
               "sep": "A5.7 (context parallelism)"}
 LATER_AXES.update({_AXIS_ALIAS[k]: v for k, v in list(LATER_AXES.items())})
@@ -100,9 +98,9 @@ class HybridCommunicateGroup:
         for name in names:
             if topology.get_dim(name) > 1 and name in LATER_AXES:
                 raise NotImplementedError(
-                    f"{name} degree {topology.get_dim(name)}: only data "
-                    f"parallelism is ported (ROADMAP queue A item "
-                    f"{LATER_AXES[name]})")
+                    f"{name} degree {topology.get_dim(name)}: data, tensor "
+                    f"and ZeRO parallelism are ported (ROADMAP queue A "
+                    f"item {LATER_AXES[name]})")
         self._topo = topology
         self.global_rank = global_rank
         self.nranks = topology.world_size()

@@ -17,8 +17,17 @@ layout the multi-token ``extend_step`` of prefix-cache suffix prefills and
 speculative verify), ``generate``, and GPT-MoE on one device
 (``GPTMoEMLP`` in every ``moe_every_k``-th block, routed by
 ``incubate.distributed.models.moe.moe_route``). Data parallelism is the
-train step's; sharding the model belongs to later slices (ROADMAP queue A
-items A5.3, A5.6, A5.7).
+train step's. Under tensor parallelism (an mp group of more than one
+rank, the ``fleet.init`` topology's) each rank holds its block of the mp
+layers, as the JAX package's ``gpt.py`` annotates them: attention over
+its ``num_heads/mp`` query and ``num_kv_heads/mp`` K/V heads (the fused
+qkv projection's columns are three segments, q | k | v, each split by
+head), the MLP column- then row-parallel, the vocabulary-parallel
+embedding and tied logits ``c_identity(h) @ W_local.T`` of
+``[B, S, V/mp]``, and the loss through the vocabulary-parallel cross
+entropy (``forward_with_loss`` unchunked, as the JAX package's at mp).
+Serving an mp-split model (ROADMAP queue A item A5.5), MoE blocks at mp
+(A5.4), pipeline and sequence parallelism (A5.6, A5.7) raise.
 """
 
 from __future__ import annotations
@@ -33,7 +42,9 @@ from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    mp_ops,
 )
+from ..distributed.fleet.meta_parallel.mp_layers import mp_group_of
 from ..distributed.fleet.recompute import recompute
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn import functional as F
@@ -99,22 +110,39 @@ GPT_TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
                 max_seq_len=64)
 
 
+def _no_mp(module, what: str, item: str):
+    """Raise when ``module``'s mp group has more than one rank."""
+    n = module.mp_group.nranks
+    if n > 1:
+        raise NotImplementedError(f"{what} at mp degree {n} is not ported "
+                                  f"yet (ROADMAP queue A item {item})")
+
+
 class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
-        qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-        self.qkv = ColumnParallelLinear(cfg.hidden_size, qkv_out,
-                                        gather_output=False, device=device,
-                                        dtype=dtype)
+        n = mp_group_of(None).nranks
+        if cfg.num_heads % n or cfg.num_kv_heads % n:
+            raise ValueError(f"num_heads {cfg.num_heads} and num_kv_heads "
+                             f"{cfg.num_kv_heads} must divide by the mp "
+                             f"degree {n}")
+        # heads of this rank
+        self.num_heads, self.num_kv_heads = cfg.num_heads // n, \
+            cfg.num_kv_heads // n
+        D = cfg.head_dim
+        self.qkv = ColumnParallelLinear(
+            cfg.hidden_size, (cfg.num_heads + 2 * cfg.num_kv_heads) * D,
+            gather_output=False, device=device, dtype=dtype,
+            segments=(cfg.num_heads * D, cfg.num_kv_heads * D,
+                      cfg.num_kv_heads * D))
         self.proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                       input_is_parallel=True, device=device,
                                       dtype=dtype)
         self.dropout = Dropout(cfg.dropout)
 
     def _split(self, qkv, B, S):
-        cfg = self.cfg
-        Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        Hq, Hkv, D = self.num_heads, self.num_kv_heads, self.cfg.head_dim
         q = qkv[:, :, :Hq * D].reshape(B, S, Hq, D)
         k = qkv[:, :, Hq * D:(Hq + Hkv) * D].reshape(B, S, Hkv, D)
         v = qkv[:, :, (Hq + Hkv) * D:].reshape(B, S, Hkv, D)
@@ -131,7 +159,8 @@ class GPTAttention(nn.Module):
         out = F.scaled_dot_product_attention(
             q, k, v, dropout_p=self.cfg.dropout, is_causal=True,
             training=self.training)
-        return self.dropout(self.proj(out.reshape(B, S, self.cfg.hidden_size)))
+        out = out.reshape(B, S, self.num_heads * self.cfg.head_dim)
+        return self.dropout(self.proj(out))
 
     def _serving_forward(self, qkv, B, S, kv_cache, cache_positions,
                          return_kv):
@@ -147,6 +176,7 @@ class GPTAttention(nn.Module):
         positions, masked to the valid prefix."""
         from ..serving import kv_cache as _kvc
 
+        _no_mp(self.qkv, "serving", "A5.5 (serving a sharded model)")
         q, k, v = self._split(qkv, B, S)
         if return_kv:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -207,6 +237,8 @@ class GPTMoEMLP(nn.Module):
         super().__init__()
         E, d, f = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
         self.cfg = cfg
+        self.mp_group = mp_group_of(None)
+        _no_mp(self, "a GPT-MoE block", "A5.4 (expert parallelism)")
 
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, device=device,
@@ -378,9 +410,16 @@ class GPTForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.gpt.final_ln.weight.dtype
 
+    @property
+    def mp_group(self):
+        """The group the model's mp layers are split over."""
+        return self.gpt.embeddings.word_embeddings.mp_group
+
     def _logits(self, h):
+        """Logits, this rank's ``V/mp`` of them at mp above 1."""
         if self.cfg.tie_word_embeddings:
-            return torch.matmul(h, self.gpt.embeddings.word_embeddings.weight.t())
+            W = self.gpt.embeddings.word_embeddings.weight
+            return torch.matmul(mp_ops.c_identity(h, self.mp_group), W.t())
         return self.lm_head(h)
 
     def forward(self, input_ids, position_ids=None):
@@ -397,6 +436,10 @@ class GPTForCausalLM(nn.Module):
         MoE model's aux term is added by ``forward_with_loss``; this method
         sees only logits."""
         V = logits.shape[-1]
+        if self.mp_group.nranks > 1:  # vocabulary-sharded logits
+            return mp_ops.parallel_cross_entropy(
+                logits.reshape(-1, V), labels.reshape(-1),
+                self.mp_group).mean()
         return F.cross_entropy(logits.reshape(-1, V),
                                labels.reshape(-1)).mean()
 
@@ -404,12 +447,14 @@ class GPTForCausalLM(nn.Module):
         """Trunk and loss in one call. With ``cfg.loss_chunk`` dividing S,
         the LM head and the fp32 cross-entropy run per sequence chunk under
         ``recompute``, so the ``[B, S, V]`` fp32 logits never
-        exist; the loss is the sum over chunks over ``B*S``. Otherwise it
-        is ``loss(forward(input_ids), labels)``. A MoE model adds
-        ``moe_aux_weight`` times the blocks' summed aux loss either way."""
+        exist; the loss is the sum over chunks over ``B*S``. Otherwise, and
+        at mp above 1 (whose logits go through the vocabulary-parallel
+        cross entropy), it is ``loss(forward(input_ids), labels)``. A MoE
+        model adds ``moe_aux_weight`` times the blocks' summed aux loss
+        either way."""
         chunk = self.cfg.loss_chunk
         B, S = input_ids.shape
-        if not chunk or S % chunk:
+        if not chunk or S % chunk or self.mp_group.nranks > 1:
             loss = self.loss(self.forward(input_ids), labels)
             aux = self._moe_aux()
             return loss if aux is None else loss + aux

@@ -4,6 +4,15 @@ The port keeps the JAX package's parameter names and its ``[in, out]``
 linear layout, so conversion is a name-for-name copy with no transposes.
 The input is the dict ``model.functional_state()[0]`` gives, converted to
 numpy by the caller (this module imports no JAX).
+
+For a model split over ``mp_degree`` ranks, ``from_paddle_tpu(params,
+mp_rank=r, mp_degree=n)`` gives rank ``r``'s blocks (``mp_layout``): the
+vocabulary rows of the embedding, the column-parallel weights' columns
+(the qkv projection's by head: rank ``r``'s heads of each of its q, k and
+v thirds, not the contiguous column chunk a ``P(None, 'mp')`` placement
+gives a device in the JAX package), the row-parallel weights' rows; the
+rest whole. ``to_paddle_tpu`` assembles the global arrays from every
+rank's blocks.
 """
 
 from __future__ import annotations
@@ -13,6 +22,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .distributed.sharding_utils import assemble, local_block
 
 _EMBED = ("gpt.embeddings.word_embeddings.weight",
           "gpt.embeddings.position_embeddings.weight")
@@ -50,13 +61,66 @@ def expected_names(num_layers: int, tied: bool = True, moe_layers=()):
     return names
 
 
-def from_paddle_tpu(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+#: (split dimension, column-parallel or not) of each mp-split weight
+_MP_SPLIT = {"attn.qkv.weight": 1, "attn.qkv.bias": 0, "attn.proj.weight": 0,
+             "mlp.fc1.weight": 1, "mlp.fc1.bias": 0, "mlp.fc2.weight": 0}
+
+
+def mp_layout(name: str, shapes: Dict[str, tuple]):
+    """``(dim, segments)`` of GPT parameter ``name`` split over mp, or None
+    for a parameter every rank holds whole. ``shapes`` maps names to
+    shapes (the qkv projection's q | k | v segments come from its and the
+    attention projection's)."""
+    if name == _EMBED[0]:
+        return 0, None
+    if name == _HEAD:
+        return 1, None
+    m = _LAYER_RE.match(name)
+    if not m:
+        return None
+    suffix = name[m.end():]
+    if suffix in _MOE_MLP:
+        raise NotImplementedError("a GPT-MoE block split over mp is not "
+                                  "ported yet (ROADMAP queue A item A5.4)")
+    if suffix not in _MP_SPLIT:
+        return None
+    segments = None
+    if suffix.startswith("attn.qkv"):
+        q = shapes[f"{m.group(0)}attn.proj.weight"][0]
+        kv = (shapes[name][-1] - q) // 2
+        segments = (q, kv, kv)
+    return _MP_SPLIT[suffix], segments
+
+
+def to_paddle_tpu(blocks) -> Dict[str, torch.Tensor]:
+    """The global arrays (CPU tensors, under the JAX package's names and
+    layout) from every mp rank's state dict, in rank order: the inverse of
+    ``from_paddle_tpu(..., mp_rank=r, mp_degree=len(blocks))``."""
+    blocks = [{k: torch.as_tensor(v).detach().cpu() for k, v in b.items()}
+              for b in blocks]
+    n = len(blocks)
+    whole = {k: tuple(v.shape) for k, v in blocks[0].items()}
+    for k, layout in ((k, mp_layout(k, whole)) for k in whole):
+        if layout is not None:
+            d = layout[0]
+            whole[k] = whole[k][:d] + (whole[k][d] * n,) + whole[k][d + 1:]
+    out = {}
+    for k in blocks[0]:
+        layout = mp_layout(k, whole)
+        out[k] = blocks[0][k].clone() if layout is None or n == 1 \
+            else assemble([b[k] for b in blocks], *layout)
+    return out
+
+
+def from_paddle_tpu(params: Dict[str, np.ndarray], *, mp_rank: int = 0,
+                    mp_degree: int = 1) -> Dict[str, torch.Tensor]:
     """Convert a ``paddle_tpu`` GPT parameter dict (numpy values) into a
-    state dict for ``paddle_tpu_torch.models.gpt.GPTForCausalLM``. dtypes
-    are kept. The block count, and which blocks hold the MoE FFN (those
-    with an ``mlp.gate_weight``), are read from the names; a name missing
-    from that structure, or one outside it (a block mixing the dense and
-    the MoE set among them), raises ``KeyError``."""
+    state dict for ``paddle_tpu_torch.models.gpt.GPTForCausalLM``; with
+    ``mp_degree`` above 1, rank ``mp_rank``'s blocks of it (``mp_layout``).
+    dtypes are kept. The block count, and which blocks hold the MoE FFN
+    (those with an ``mlp.gate_weight``), are read from the names; a name
+    missing from that structure, or one outside it (a block mixing the
+    dense and the MoE set among them), raises ``KeyError``."""
     layers = [int(m.group(1)) for m in map(_LAYER_RE.match, params) if m]
     num_layers = max(layers) + 1 if layers else 0
     moe = {i for i in range(num_layers)
@@ -68,4 +132,13 @@ def from_paddle_tpu(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     if missing or extra:
         raise KeyError(f"from_paddle_tpu: missing {missing[:6]}, "
                        f"unexpected {extra[:6]}")
-    return {name: to_torch(np.asarray(params[name])) for name in want}
+    out = {name: to_torch(np.asarray(params[name])) for name in want}
+    if mp_degree == 1:
+        return out
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    for name in want:
+        layout = mp_layout(name, shapes)
+        if layout is not None:
+            out[name] = local_block(out[name], layout[0], mp_rank, mp_degree,
+                                    layout[1]).contiguous()
+    return out

@@ -222,8 +222,7 @@ def job_collectives(directory, inp, rank):
     D.barrier()
 
     # degrees left to later items raise before any group forms
-    for key in ("mp_degree", "sharding_degree", "pp_degree", "sep_degree",
-                "ep_degree"):
+    for key in ("pp_degree", "sep_degree", "ep_degree"):
         st = fleet.DistributedStrategy()
         st.hybrid_configs = {"dp_degree": 1, key: 2}
         out[f"refuse_{key}"] = _raises(lambda: fleet.init(
@@ -358,8 +357,218 @@ def _tree_copy(tree):
     return tree
 
 
+# ---------------- tensor parallelism and ZeRO (A5.3) ----------------------
+def _hybrid_init(dims):
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = dims
+    fleet.init(is_collective=True, strategy=st, device="cpu")
+    return fleet.get_hybrid_communicate_group()
+
+
+def _hcg_record(hcg):
+    topo = hcg.topology()
+    return {
+        "coords": [hcg.get_data_parallel_rank(), hcg.get_stage_id(),
+                   hcg.get_sharding_parallel_rank(),
+                   hcg.get_sep_parallel_rank(),
+                   hcg.get_expert_parallel_rank(),
+                   hcg.get_model_parallel_rank()],
+        "groups": {a: g.ranks for a, g in hcg._groups.items()},
+        "axis_sizes": hcg.axis_sizes(),
+        "mode": hcg.get_parallel_mode(),
+        "comm_lists": {n: topo.get_comm_list(n)
+                       for n in topo.get_hybrid_group_names()},
+        "mesh": hcg.get_mesh().devices.tolist(),
+    }
+
+
+def _mp_ops_results(cases, g):
+    """Each ``mp_ops`` function on this rank's shards of ``cases``' global
+    inputs: its output, and the gradients of ``(w * out).sum()`` (``w``
+    this rank's part of the cotangent) for its float inputs."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
+
+    r, n = g.rank, g.nranks
+
+    def part(t, dim):
+        return t.chunk(n, dim)[r].clone()
+
+    def run(fn, args, w):
+        args = [a.requires_grad_(True) if a.is_floating_point() else a
+                for a in args]
+        out = fn(*args)
+        (w * out).sum().backward()
+        return {"out": out.detach(),
+                "grads": [a.grad for a in args if a.is_floating_point()]}
+
+    c = cases
+    return {
+        "col": run(lambda x, W, b: mp_ops.column_parallel_linear(
+            x, W, b, g), [c["x"].clone(), part(c["W1"], 1),
+                          part(c["b1"], 0)], part(c["w1"], 1)),
+        "col_gather": run(lambda x, W, b: mp_ops.column_parallel_linear(
+            x, W, b, g, gather_output=True), [c["x"].clone(),
+                                              part(c["W1"], 1),
+                                              part(c["b1"], 0)], c["w1"]),
+        "row": run(lambda h, W, b: mp_ops.row_parallel_linear(h, W, b, g),
+                   [part(c["h"], 1), part(c["W2"], 0), c["b2"].clone()],
+                   c["w2"]),
+        "emb": run(lambda t, i: mp_ops.vocab_parallel_embedding(i, t, g),
+                   [part(c["table"], 0), c["ids"]], c["w3"]),
+        "ce": run(lambda lg, lb: mp_ops.parallel_cross_entropy(lg, lb, g),
+                  [part(c["logits"], 1), c["labels"]], c["w4"]),
+    }
+
+
+def _tp_step(blocks, hcg, dropout=0.0, mesh=None, **kw):
+    """The tiny GPT from this rank's ``blocks`` through fleet's wrappers
+    and ``make_sharded_train_step``."""
+    model, opt = _tiny_on(blocks, dropout)
+    return fleet.make_sharded_train_step(
+        fleet.distributed_model(model), fleet.distributed_optimizer(opt),
+        mesh=mesh or hcg.get_mesh(), device="cpu", **kw)
+
+
+def _replicated_bits(step):
+    """The parameters every rank holds whole: all of them without mp, the
+    replicated ones at mp."""
+    return {k: p.detach().clone() for k, p in step.params.items()
+            if step._mp.nranks == 1 or not getattr(p, "is_distributed",
+                                                   False)}
+
+
+def _run_global(step, xs, ys, rows):
+    """Every step on ``rows`` of each batch: the losses, the global
+    parameters after the last step, and the replicated parameters after
+    each step."""
+    losses, reps = [], []
+    for k in range(xs.shape[0]):
+        losses.append(step(xs[k][rows], ys[k][rows]).item())
+        reps.append(_replicated_bits(step))
+    tree = step.state_for_checkpoint().to_tree()
+    return {"losses": losses, "params": _tree_copy(tree["params"]),
+            "replicated": reps}
+
+
+def _wait_for(path, seconds=SPAWN_TIMEOUT):
+    t0 = time.monotonic()
+    while not path.exists():
+        if time.monotonic() - t0 > seconds:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.05)
+
+
+def job_mp(directory, inp, rank):
+    """Two ranks at mp 2: the topology; each ``mp_ops`` function on this
+    rank's shards; 3 steps of the tiny GPT on the whole batch (plain, with
+    ``param_specs`` replicating layer 0's qkv weight, with dropout 0.1);
+    what mp leaves to later items; a save after 2 steps, and the JAX
+    package's save restored into a fresh step."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
+    from paddle_tpu_torch.weights import from_paddle_tpu
+
+    hcg = _hybrid_init({"mp_degree": 2})
+    mp_rank = hcg.get_model_parallel_rank()
+    out = {"hcg": _hcg_record(hcg),
+           "mp_ops": _mp_ops_results(inp["mp_ops"],
+                                     hcg.get_model_parallel_group())}
+    lg = inp["mp_ops"]["logits"].chunk(2, 1)[mp_rank].to(torch.bfloat16)
+    labels = inp["mp_ops"]["labels"]
+    g = hcg.get_model_parallel_group()
+    out["ce_bf16_err"] = float((mp_ops.parallel_cross_entropy(lg, labels, g)
+                                - mp_ops.parallel_cross_entropy(
+                                    lg.float(), labels, g)).abs().max())
+    blocks = from_paddle_tpu(inp["params"], mp_rank=mp_rank, mp_degree=2)
+    xs, ys = inp["x"], inp["y"]
+    out["plain"] = _run_global(_tp_step(blocks, hcg), xs, ys, slice(None))
+    spec = {"gpt.layers.0.attn.qkv.weight": D.PartitionSpec()}
+    out["spec"] = _run_global(_tp_step(blocks, hcg, param_specs=spec), xs,
+                              ys, slice(None))
+    out["dropout"] = _run_global(_tp_step(blocks, hcg, dropout=0.1), xs, ys,
+                                 slice(None))
+    moe = {**TINY, "moe_num_experts": 4, "moe_every_k": 1}
+    out["refuse_moe"] = _raises(lambda: GPTForCausalLM(GPTConfig(**moe),
+                                                       device="cpu"))
+    out["refuse_kv"] = _raises(lambda: GPTForCausalLM(GPTConfig(
+        **{**TINY, "num_kv_heads": 1}), device="cpu"))
+    model, _ = _tiny_on(blocks)
+    out["refuse_serving"] = _raises(lambda: model.prefill_with_cache(
+        xs[0][:1, :8]))
+
+    step = _tp_step(blocks, hcg)
+    for k in range(2):
+        step(xs[k], ys[k])
+    mgr = CheckpointManager(directory / "port_ck")
+    mgr.save(2, step.state_for_checkpoint().to_tree())
+    mgr.wait_until_finished()
+    mgr.close()
+    out["saved"] = _tree_copy(step.state_for_checkpoint().to_tree())
+    _wait_for(directory / "jax_ck.ready")
+    fresh = _tp_step({k: torch.randn_like(v) for k, v in blocks.items()}, hcg)
+    fresh.restore_from_checkpoint(CheckpointManager(directory /
+                                                    "jax_ck").restore())
+    out["restored"] = _tree_copy(fresh.state_for_checkpoint().to_tree())
+    out["restored_blocks"] = {k: p.detach().clone()
+                              for k, p in fresh.params.items()}
+    return out
+
+
+def job_dp_mp(directory, inp, rank):
+    """Four ranks at dp 2 x mp 2: the topology, and 3 steps of the tiny
+    GPT, each dp rank on its half of every batch."""
+    from paddle_tpu_torch.weights import from_paddle_tpu
+
+    hcg = _hybrid_init({"dp_degree": 2, "mp_degree": 2})
+    blocks = from_paddle_tpu(inp["params"],
+                             mp_rank=hcg.get_model_parallel_rank(),
+                             mp_degree=2)
+    n = inp["x"].shape[1] // 2
+    dp = hcg.get_data_parallel_rank()
+    return {"hcg": _hcg_record(hcg),
+            "plain": _run_global(_tp_step(blocks, hcg), inp["x"], inp["y"],
+                                 slice(dp * n, (dp + 1) * n))}
+
+
+def job_zero(directory, inp, rank):
+    """Two ranks at sharding 2, levels ``os`` and ``os_g``: 3 steps of the
+    tiny GPT on each rank's half of every batch, on the ``{"sharding":
+    2}`` mesh; each rank's optimizer-state shapes; then a stage-2 save
+    after 2 steps."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        group_sharded_parallel)
+
+    hcg = _hybrid_init({"sharding_degree": 2})
+    mesh = D.DeviceMesh([0, 1], ("sharding",))
+    out = {"hcg": _hcg_record(hcg)}
+    for level in ("os", "os_g"):
+        model, opt = _tiny_on(inp["params"])
+        model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        step = fleet.make_sharded_train_step(
+            model, opt, mesh=mesh, device="cpu")
+        rec = _run_global(step, inp["x"], inp["y"],
+                          slice(rank * 2, rank * 2 + 2))
+        rec["state_shapes"] = {n: {k: tuple(v.shape) for k, v in s.items()
+                                   if torch.is_tensor(v)}
+                               for n, s in step.optimizer.state.items()}
+        out[level] = rec
+    model, opt = _tiny_on(inp["params"])
+    model, opt, _ = group_sharded_parallel(model, opt, level="os_g")
+    step = fleet.make_sharded_train_step(model, opt, mesh=mesh,
+                                         device="cpu")
+    for k in range(2):
+        step(inp["x"][k][rank * 2:rank * 2 + 2],
+             inp["y"][k][rank * 2:rank * 2 + 2])
+    mgr = CheckpointManager(directory / "zero_ck")
+    mgr.save(2, step.state_for_checkpoint().to_tree())
+    mgr.wait_until_finished()
+    mgr.close()
+    out["saved"] = _tree_copy(step.state_for_checkpoint().to_tree())
+    return out
+
+
 JOBS = {"collectives": job_collectives, "dp_step": job_dp_step,
-        "ckpt": job_ckpt}
+        "ckpt": job_ckpt, "mp": job_mp, "dp_mp": job_dp_mp,
+        "zero": job_zero}
 
 
 # ---------------- the port alone, one process --------------------------------
@@ -535,15 +744,15 @@ def test_data_parallel_wrapper_in_one_process(fresh_world):
 
 
 def test_later_items_raise(fresh_world):
-    """In-trace collectives (A5.3), the planner (A7), role makers and
+    """The in-trace collectives of ring attention (A5.7) and expert
+    parallelism (A5.4), the planner (A7), role makers and
     parameter-server mode (A8) and the hybrid degrees each name their
     item; the launcher's PS mode (A8) and elastic restarts (A5.8) too."""
     from paddle_tpu_torch.distributed.launch.main import _parse_args, launch
 
-    for fn in (lambda: D.psum(1, "dp"), lambda: D.ppermute(1, "dp", []),
-               lambda: D.all_gather_in_trace(1, "dp"),
-               lambda: D.axis_index("dp")):
-        with pytest.raises(NotImplementedError, match="A5.3"):
+    for fn, item in ((lambda: D.ppermute(1, "dp", []), "A5.7"),
+                     (lambda: D.all_to_all_in_trace(1, "dp", 0, 0), "A5.4")):
+        with pytest.raises(NotImplementedError, match=item):
             fn()
     with pytest.raises(NotImplementedError, match="A7"):
         fleet.plan_hybrid_configs({})
@@ -555,8 +764,7 @@ def test_later_items_raise(fresh_world):
         fleet.init(is_collective=False, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         fleet.PaddleCloudRoleMaker(is_collective=True)
-    for names, item in ((["data", "model"], "A5.3"), (["data", "pipe"],
-                                                      "A5.6"),
+    for names, item in ((["data", "pipe"], "A5.6"),
                         (["data", "expert"], "A5.4"),
                         (["data", "sep"], "A5.7")):
         with pytest.raises(NotImplementedError, match=item):

@@ -267,8 +267,7 @@ def test_collectives_topology_and_data_match_the_reference(tmp_path):
                 (name, r, got, ref_r)
         assert out["all_gather_object"] == [0, 1]
         assert out["broadcast_object_list"] == ["from 1"]
-        for key, item in (("mp_degree", "A5.3"), ("sharding_degree", "A5.3"),
-                          ("pp_degree", "A5.6"), ("sep_degree", "A5.7"),
+        for key, item in (("pp_degree", "A5.6"), ("sep_degree", "A5.7"),
                           ("ep_degree", "A5.4")):
             assert "NotImplementedError" in out[f"refuse_{key}"] \
                 and item in out[f"refuse_{key}"], out[f"refuse_{key}"]

@@ -1398,3 +1398,51 @@ def test_nccl_world_of_one_step_equals_the_no_mesh_step(cuda, tmp_path,
     (l0, p0), (l1, p1) = runs
     assert all(torch.equal(a, b) for a, b in zip(l0, l1))
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
+
+
+@pytest.mark.gpu
+def test_mp_layers_over_an_nccl_group_of_one_rank(cuda, tmp_path,
+                                                  monkeypatch):
+    """The tensor-parallel layers on the card, over ``fleet.init``'s mp
+    group of one rank (NCCL, file-store master): equal to the plain
+    layers on the same weights bit for bit, forward and gradients, and
+    their outputs carry a ``grad_fn``."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+    for var in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "MASTER_ADDR",
+                "PADDLE_DISTRI_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PADDLE_MASTER", f"file://{tmp_path / 'store'}")
+    dist.destroy_process_group()
+    try:
+        fleet.init(is_collective=True)
+        g = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+        assert dist.get_backend() == "NCCL" and g.nranks == 1 \
+            and g.process_group is not None
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn(2, 5, 16, device=cuda, generator=gen)
+        ids = torch.randint(0, 32, (2, 5), device=cuda, generator=gen)
+        layers = [ColumnParallelLinear(16, 24, mp_group=g, device=cuda),
+                  RowParallelLinear(16, 8, mp_group=g, device=cuda),
+                  VocabParallelEmbedding(32, 16, mp_group=g, device=cuda)]
+        for layer, inp in zip(layers, (x, x, ids)):
+            with torch.no_grad():
+                for p in layer.parameters():
+                    p.normal_(generator=gen)
+            out = layer(inp)
+            assert out.grad_fn is not None, type(layer).__name__
+            w = layer.weight.detach().clone().requires_grad_()
+            if isinstance(layer, VocabParallelEmbedding):
+                want = torch.nn.functional.embedding(inp, w)
+            else:
+                b = layer.bias.detach().clone().requires_grad_()
+                want = inp @ w + b
+            assert torch.equal(out, want), type(layer).__name__
+            out.square().sum().backward()
+            want.square().sum().backward()
+            assert torch.equal(layer.weight.grad, w.grad)
+    finally:
+        dist.destroy_process_group()

@@ -374,15 +374,15 @@ def test_bad_arguments_raise(call, exc):
 @pytest.mark.parametrize("option", ["mesh", "grad_reduce", "health_stats",
                                     "param_specs", "autoshard"])
 def test_train_step_options_of_later_slices_raise(option):
-    """What data parallelism does not cover raises: a mesh with a
-    tensor-parallel axis, a gradient reducer, health statistics,
-    per-parameter specs and the layout search."""
+    """What the port does not cover yet raises: a mesh with a pipeline
+    axis, a gradient reducer, health statistics, per-parameter specs it
+    cannot realise and the layout search."""
     from paddle_tpu_torch.distributed import DeviceMesh
 
     _, tm = _build()
     opt = AdamW(parameters=tm.named_parameters())
     value = True if option in ("health_stats", "autoshard") else object()
     if option == "mesh":
-        value = DeviceMesh([0, 1], ("mp",))
+        value = DeviceMesh([0, 1], ("pp",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sharded_train_step(tm, opt, device="cpu", **{option: value})

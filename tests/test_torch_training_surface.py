@@ -664,8 +664,8 @@ def test_norm_attrs_and_positional_parallel_linear():
     """``LayerNorm(bias_attr=False)`` builds no bias and computes the JAX
     package's value; ``ColumnParallelLinear(h, n, None, True, False)``
     (paddle's positional order) has a bias; ``fuse_matmul_bias`` is
-    stored and changes no value, as in the JAX package; ``mp_group``
-    raises."""
+    stored and changes no value, as in the JAX package; an ``mp_group``
+    that is not a ``Group`` raises."""
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
     from paddle_tpu_torch.nn import LayerNorm
@@ -691,7 +691,7 @@ def test_norm_attrs_and_positional_parallel_linear():
     assert RowParallelLinear(24, 8, None, False, device="cpu").bias is None
     for make in (lambda: ColumnParallelLinear(8, 8, mp_group=object()),
                  lambda: VocabParallelEmbedding(8, 4, mp_group=object())):
-        with pytest.raises(NotImplementedError, match="A5"):
+        with pytest.raises(TypeError, match="mp_group must be a Group"):
             make()
 
 
