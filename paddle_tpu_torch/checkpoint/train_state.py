@@ -3,8 +3,10 @@
 
 Params, optimizer state, buffers, the RNG position, the step counter, the
 data pipeline's position and any extra leaves (the loss scaler's
-automaton) are checkpointed as one tree under one COMMIT, so a restored
-run continues the exact token, dropout and update sequence.
+automaton, ``scaler_state``; a gradient reducer's error-feedback
+residuals, ``grad_reduce_ef``: one ``[world * groups, padded]`` fp32
+array per bucket) are checkpointed as one tree under one COMMIT, so a
+restored run continues the exact token, dropout and update sequence.
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ The collectives the JAX package runs inside ``shard_map`` (``psum``,
 ``reduce_scatter_in_trace``) are differentiable calls here on this rank's
 tensor over its group along a mesh axis (``fleet.meta_parallel.mp_ops``).
 ``ppermute`` (ring attention, ROADMAP queue A item A5.7) and
-``all_to_all_in_trace`` (expert parallelism, A5.4) raise.
-``gather_blocks`` and ``reduce_scatter_blocks`` are the block collectives
-of the mp and ZeRO paths; on a gloo group, ops other than all-reduce and
+``all_to_all_in_trace`` (expert parallelism, A5.4b) raise.
+``gather_blocks``, ``gather_along``, ``reduce_scatter_blocks`` and
+``all_to_all_blocks`` are the block collectives of the mp, ZeRO and
+gradient-reduction paths; on a gloo group, ops other than all-reduce and
 broadcast on CUDA tensors go through pinned host memory (``staged_ops``
 counts them), since gloo runs only those two on the card's tensors for
 certain.
@@ -373,6 +374,21 @@ def gather_blocks(t: torch.Tensor, group) -> list:
     return list(out.view((g.nranks,) + tuple(t.shape)).unbind(0))
 
 
+def gather_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` joined along ``dim`` in rank order: one
+    ``all_gather_into_tensor``, whose buffer is the result itself for
+    ``dim`` 0 (no copy). A group of one rank returns ``t``."""
+    g = _resolve_group(group)
+    if g.nranks == 1 or _pg(g) is None:
+        return t
+    moved = t.movedim(dim, 0) if dim else t
+    blocks = gather_blocks(moved.contiguous(), g)
+    if dim == 0:  # the blocks are consecutive views of one buffer
+        base = blocks[0]._base if blocks[0]._base is not None else blocks[0]
+        return base.view((g.nranks * t.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat(blocks, 0).movedim(0, dim).contiguous()
+
+
 def reduce_scatter_blocks(stacked: torch.Tensor, group) -> torch.Tensor:
     """``stacked`` is ``[n, ...]``, entry ``i`` meant for rank ``i``: rank
     ``r`` gets the SUM over ranks of their entry ``r`` (one
@@ -395,13 +411,46 @@ def reduce_scatter_blocks(stacked: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+#: dtypes every gloo build moves as they are; any other goes as its raw
+#: bytes (an exchange computes nothing, so the bytes are the values)
+_GLOO_DTYPES = (torch.float32, torch.float64, torch.float16, torch.int8,
+                torch.uint8, torch.int32, torch.int64)
+
+
+def all_to_all_blocks(stacked: torch.Tensor, group) -> torch.Tensor:
+    """``stacked`` is ``[n, ...]``, entry ``j`` meant for rank ``j`` of the
+    group (in its rank order): returns ``[n, ...]`` whose entry ``i`` is
+    what rank ``i`` sent this one (one ``all_to_all_single``). A group of
+    one rank returns ``stacked``."""
+    g = _resolve_group(group)
+    if g.nranks == 1 or _pg(g) is None:
+        return stacked
+    if stacked.shape[0] != g.nranks:
+        raise ValueError(f"all_to_all_blocks: {stacked.shape[0]} entries "
+                         f"for a group of {g.nranks}")
+    src = stacked.contiguous()
+    if src.dtype not in _GLOO_DTYPES and \
+            str(dist.get_backend(_pg(g))) == "gloo":
+        # bf16 (and any dtype this gloo build may lack) as its bytes
+        return all_to_all_blocks(src.view(torch.uint8), g).view(src.dtype)
+    flat = src.reshape(g.nranks, -1)
+    out = torch.empty_like(flat)
+    if _through_host(_pg(g), flat, "all_to_all_single"):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.all_to_all_single(host, _pinned(flat), group=_pg(g))
+        out.copy_(host)
+    else:
+        dist.all_to_all_single(out, flat, group=_pg(g))
+    return out.view(stacked.shape)
+
+
 # ---- collectives inside the step, on the group along a mesh axis --------
 # The JAX package's run inside ``shard_map`` over a mesh axis; here each
 # is a differentiable call on this rank's tensor over its group along
 # ``axis_name`` (a name of the hybrid topology's axes, or a ``Group``),
 # built on ``fleet.meta_parallel.mp_ops``. A group of one rank changes
 # nothing.
-_A54 = "ROADMAP queue A item A5.4 (expert parallelism)"
+_A54 = "ROADMAP queue A item A5.4b (expert parallelism)"
 _A57 = "ROADMAP queue A item A5.7 (ring attention)"
 
 

@@ -75,7 +75,30 @@ axes:
   (``meta_parallel.sharding.ZeroPartition``: the first dimension, not
   split over mp, that the degree divides, as ``_state_sharding_like``
   places it), and the slices are gathered back; stage 2 reduce-scatters
-  the gradients over the sharding group instead of averaging them there.
+  the gradients over the sharding group instead of averaging them there;
+  stage 3 (a ``GroupShardedStage3`` model) stores only the slices of the
+  parameters it shards, gathers them on use inside the step's forward
+  and reduce-scatters their gradients into the slices during the
+  backward (after an average over the other data axes), and updates the
+  slices in place with nothing gathered after the update; with
+  ``accumulate_steps`` above 1 the whole gradients are summed over the
+  microbatches first.
+
+``grad_reduce`` (``None``, a shorthand of ``comm_opt.normalize_grad_reduce``,
+a dict or a ``GradReduceConfig``) replaces the all-reduce over the data
+axes with ``comm_opt``'s explicit reduction (``reducer_for_step``'s
+rules): the gradients of every parameter, whole over the ZeRO axis (which
+is a data axis), are flattened into the plan's buckets and reduced in
+fp32, bf16 or block-scaled int8 with error feedback; each ZeRO rank then
+takes its slice. With a scaler the gradients are unscaled before the
+residual is added and rescaled after, and a skipped step leaves the
+residuals as they were. With ``accumulate_steps`` above 1 and
+``overlap``, each microbatch's gradients are reduced at its boundary and
+the reduced means averaged. The residuals (this rank's row of each
+bucket) travel in ``state_for_checkpoint().extra["grad_reduce_ef"]`` as
+the JAX package writes them, one ``[world * groups, padded]`` array per
+bucket, and ``restore_from_checkpoint`` reads them back (a plan they do
+not fit resets them, as in the JAX package).
 
 ``param_specs`` (``{name: PartitionSpec}``) is honoured where the port can
 realise the spec: the layer's own; ``PartitionSpec()`` on the weight of
@@ -92,14 +115,16 @@ bit.
 
 Options of the JAX step that the port has not reached raise
 ``NotImplementedError`` naming their ROADMAP items: a mesh axis of size
-above 1 for expert (A5.4), pipeline (A5.6) or context (A5.7)
-parallelism, a batch split along another dimension than dim 0 (A5.7),
-``grad_reduce`` (A5.4), a GPT-MoE model at a data world above 1 (A5.4:
-the JAX package routes over the global token count), the pipeline options
-(A5.6) and ``health_stats`` (A6). None is silently ignored.
+above 1 for expert (A5.4b), pipeline (A5.6) or context (A5.7)
+parallelism, a batch split along another dimension than dim 0 (A5.7), a
+GPT-MoE model at a data world above 1 (A5.4b: the JAX package routes over
+the global token count), the pipeline options (A5.6) and
+``health_stats`` (A6). None is silently ignored.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -111,6 +136,7 @@ from ...nn.clip import ClipGradByGlobalNorm
 from ...optimizer.optimizer import _load_slot
 from ...weights import to_torch
 from ..collective import group_of
+from ..comm_opt import normalize_grad_reduce, reducer_for_step
 from ..communication import ReduceOp, all_reduce, gather_blocks
 from ..mesh import (DeviceMesh, NamedSharding, PartitionSpec, device_count,
                     spec_axes)
@@ -121,7 +147,8 @@ from ..topology import LATER_AXES, get_hybrid_communicate_group
 from .hybrid_parallel_optimizer import hybrid_clip_
 from .meta_parallel.mp_layers import _Linear
 from .meta_parallel.sharding import (SHARDING_AXIS, GroupShardedStage2,
-                                     ZeroPartition, state_dim)
+                                     GroupShardedStage3, ZeroPartition,
+                                     state_dim)
 from .meta_parallel.tensor_parallel import MetaParallelBase
 
 _ITEM = "ROADMAP queue A item"
@@ -130,17 +157,20 @@ _A7 = f"{_ITEM} A7 (autoshard's layouts)"
 
 def _unwrap(model):
     """The model inside fleet's and ZeRO's wrappers, the ranks of a
-    ``DataParallel`` wrapper's group (None without one) and the ZeRO stage
-    a ``GroupShardedStage2`` wrapper asks for (0 without one)."""
-    ranks, stage = None, 0
+    ``DataParallel`` wrapper's group (None without one), the ZeRO stage a
+    ``GroupShardedStage2`` or ``GroupShardedStage3`` wrapper asks for (0
+    without one) and the stage-3 wrapper (None without one)."""
+    ranks, stage, stage3 = None, 0, None
     while isinstance(model, (DataParallel, MetaParallelBase,
-                             GroupShardedStage2)):
+                             GroupShardedStage2, GroupShardedStage3)):
         if isinstance(model, DataParallel):
             ranks = model.group.ranks
         if isinstance(model, GroupShardedStage2):
             stage = 2
+        if isinstance(model, GroupShardedStage3):
+            stage, stage3 = 3, model
         model = model._layers
-    return model, ranks, stage
+    return model, ranks, stage, stage3
 
 
 def _drop_axis(spec, axis) -> PartitionSpec:
@@ -176,8 +206,6 @@ class ShardedTrainStep:
                 ("pp_remat", pp_remat is not True, pipe),
                 ("virtual_pp_degree", virtual_pp_degree != 1, pipe),
                 ("pp_schedule", pp_schedule != "1f1b", pipe),
-                ("grad_reduce", grad_reduce is not None,
-                 f"{_ITEM} A5.4 (gradient compression)"),
                 ("health_stats", bool(health_stats), f"{_ITEM} A6 "
                  "(observability)")):
             if on:
@@ -187,7 +215,9 @@ class ShardedTrainStep:
             raise NotImplementedError(
                 f"param_specs must be a {{name: PartitionSpec}} table, got "
                 f"{type(param_specs).__name__} ({_A7})")
-        model, wrapper, stage = _unwrap(model)
+        self._grad_reduce = normalize_grad_reduce(grad_reduce)
+        model, wrapper, stage, stage3 = _unwrap(model)
+        self._stage3 = stage3
         self._seed = int(seed)
         self._donate = donate
         self.device = resolve_device(device)
@@ -284,7 +314,7 @@ class ShardedTrainStep:
                 "a GPT-MoE model at a data world above 1: the JAX package "
                 "routes over the global batch's tokens (capacity cf*T/E), "
                 "which per-rank routing would change; expert parallelism "
-                f"is {_ITEM} A5.4")
+                f"is {_ITEM} A5.4b")
         for mod in self.model.modules():
             g = getattr(mod, "mp_group", None)
             if g is not None and g.ranks != self._mp.ranks:
@@ -292,21 +322,57 @@ class ShardedTrainStep:
                     f"the model's mp layers run over ranks {g.ranks}, the "
                     f"step's mp group is {self._mp.ranks}: build the model "
                     "after fleet.init, on the step's mesh")
+        # stage 3's slices: the parameter is this rank's chunk of dimension
+        # zero3_dim of the whole tensor
+        self._z3 = {n: p.zero3_dim for n, p in self.params.items()
+                    if getattr(p, "zero3_dim", None) is not None}
+        if self._z3 and self._stage3 is None:
+            raise ValueError("the model holds stage-3 slices: pass the "
+                             "GroupShardedStage3 wrapper to the step")
+        if self._stage3 is not None \
+                and self._stage3.group.ranks != self._sh.ranks:
+            raise ValueError(
+                f"GroupShardedStage3 shards over ranks "
+                f"{self._stage3.group.ranks}, the step's sharding group is "
+                f"{self._sh.ranks}: build it on the step's mesh")
         self._realise_specs(param_specs)
         self._zero_stage = max(stage, getattr(self.optimizer, "_zero_stage",
                                               0))
         self._zero = None
-        if any(d is not None for d in self._state_dims.values()):
-            self._zero = ZeroPartition(self.params, self._state_dims,
-                                       self._sh, 2 if self._zero_stage == 2
-                                       else 1)
-        # stage 2 averages over the data axes but sharding in the buffers
-        # and reduce-scatters over sharding after them
+        dims = {**self._state_dims, **self._z3}
+        if any(d is not None for d in dims.values()):
+            self._zero = ZeroPartition(self.params, dims, self._sh,
+                                       max(self._zero_stage, 1),
+                                       z3=self._z3)
+        # stages 2 and 3 average over the data axes but sharding in the
+        # buffers and reduce-scatter over sharding after them
         grads_group = self._dp
-        if self._zero is not None and self._zero.stage == 2:
+        if self._zero is not None and self._zero.stage >= 2:
             grads_group = self._axis_group(
                 tuple(a for a in data_axes if a != SHARDING_AXIS), "dp_only")
-        self._grads = grad_buffers(self.params.values(), grads_group)
+        self._reducer = None
+        cfg = self._grad_reduce
+        if cfg.active:
+            self._reducer = reducer_for_step(
+                cfg, mesh, data_axes, {
+                    n: (tuple(getattr(p, "zero3_shape", p.shape)), p.dtype)
+                    for n, p in self.params.items() if p.requires_grad},
+                group_fn=lambda axes: self._axis_group(axes, "grad_reduce"))
+        red = self._reducer
+        self.ef_state = red.local_ef(red.init_ef(), self.device) \
+            if red is not None else {}
+        # with overlap, every accumulation microbatch reduces its own
+        # gradients (the wire volume per step scales by accumulate_steps)
+        self._reductions_per_step = self._accum if (
+            red is not None and cfg.overlap and self._accum > 1) else 1
+        if self._stage3 is not None:  # the reducer takes whole gradients
+            self._stage3.step_mode(
+                dp_group=grads_group if red is None else None,
+                defer=red is not None)
+        # the reducer packs the gradients itself: no flat buffers then
+        self._grads = None if red is not None else grad_buffers(
+            [p for n, p in self.params.items() if n not in self._z3],
+            grads_group)
         self._host = None
         if self._dp_world > 1:
             # the rows check runs on the host, on a gloo group of its own
@@ -345,6 +411,17 @@ class ShardedTrainStep:
         n = self._sh.nranks
         self._state_dims = {}
         for name, p in self.params.items():
+            if name in self._z3:  # the parameter is already its slice
+                want = param_specs.get(name)
+                d = spec_dim(resolve_spec(want, self.mesh), SHARDING_AXIS) \
+                    if want is not None else None
+                if d not in (None, self._z3[name]):
+                    raise NotImplementedError(
+                        f"param_specs[{name!r}] = {want!r}: stage 3 holds "
+                        f"this parameter's slice of dimension "
+                        f"{self._z3[name]} ({_A7})")
+                self._state_dims[name] = None
+                continue
             # as _state_sharding_like: every dimension the parameter's
             # spec places on an axis of the mesh is taken
             taken = {i for i, e in enumerate(resolve_spec(
@@ -372,13 +449,17 @@ class ShardedTrainStep:
         return torch.as_tensor(a).to(self.device)
 
     def _loss(self, x, y):
-        if self._use_fwl:
-            return self.model.forward_with_loss(x, y).float()
-        return self.loss_fn(self.model(x), y).float()
+        scope = self._stage3.forward_scope() if self._stage3 is not None \
+            else contextlib.nullcontext()
+        with scope:
+            if self._use_fwl:
+                return self.model.forward_with_loss(x, y).float()
+            return self.loss_fn(self.model(x), y).float()
 
     def _forward_backward(self, x, y, scale):
         """The (mean) loss, times ``scale`` when given, with the gradients
-        of that value in the parameters' ``.grad``."""
+        of that value in the parameters' ``.grad`` (a stage-3 slice's, or
+        in deferred mode the stage-3 wrapper's whole sums)."""
         M = self._accum
         if M <= 1:
             loss = self._loss(x, y)
@@ -402,6 +483,66 @@ class ShardedTrainStep:
                 if p.grad is not None:
                     p.grad.mul_(inv)
         return loss * inv
+
+    def _whole_grads(self, scale=None):
+        """``{name: this rank's gradient}``, whole over the ZeRO axis (a
+        stage-3 parameter's from the wrapper's deferred sums, times
+        ``scale``); a parameter without one gets zeros."""
+        z3 = self._stage3.whole_grads(scale) if self._stage3 is not None \
+            else {}
+        out = {}
+        for n, p in self.params.items():
+            if not p.requires_grad:
+                continue
+            g = z3.get(n) if n in self._z3 else p.grad
+            if g is None:
+                g = torch.zeros(getattr(p, "zero3_shape", p.shape),
+                                dtype=p.dtype, device=p.device)
+            out[n] = g
+        return out
+
+    def _inv_scale(self, scale):
+        return None if scale is None else torch.tensor(
+            inverse(scale), dtype=torch.float32, device=self.device)
+
+    def _reduce_explicitly(self, x, y, scale):
+        """The gradient reducer's path: the loss, with every parameter's
+        reduced gradient adopted (this rank's slice under ZeRO), and the
+        new residuals (committed by the caller unless the step skips)."""
+        red, M = self._reducer, self._accum
+        inv = self._inv_scale(scale)
+        if self._reductions_per_step == 1:
+            loss = self._forward_backward(x, y, scale)
+            reduced, ef = red.reduce(
+                self._whole_grads(1.0 / M if M > 1 else None),
+                self.ef_state, inv)
+        else:  # overlap: each microbatch reduced at its boundary
+            if x.shape[0] % M:
+                raise ValueError(f"batch {x.shape[0]} not divisible by "
+                                 f"accumulate_steps {M}")
+            loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            reduced, ef = None, self.ef_state
+            for m in range(M):
+                for p in self.params.values():
+                    p.grad = None
+                lm = self._loss(x[m::M], y[m::M])
+                if scale is not None:
+                    lm = lm * scale
+                lm.backward()
+                loss += lm.detach()
+                g, ef = red.reduce(self._whole_grads(), ef, inv)
+                reduced = g if reduced is None else {
+                    k: reduced[k] + g[k] for k in g}
+            loss = loss * (1.0 / M)
+            reduced = {k: g * (1.0 / M) for k, g in reduced.items()}
+        zero = self._zero
+        if zero is not None and zero.stage >= 2:
+            zero.take_slices(reduced)
+        for n, p in self.params.items():
+            if n in reduced and (zero is None or zero.stage < 2
+                                 or n not in zero.dims):
+                p.grad = reduced[n]
+        return loss, ef
 
     def _check_rows(self, x):
         """Every rank of the data group passes as many rows (the mean of
@@ -442,7 +583,7 @@ class ShardedTrainStep:
         rank's whole gradients; over the groups when some are mp blocks
         or ZeRO-2 slices."""
         zero = self._zero
-        sliced = zero is not None and zero.stage == 2
+        sliced = zero is not None and zero.stage >= 2 and zero.n > 1
         if self._mp.nranks == 1 and not sliced:
             self._clip.clip_(list(grads.values()))
             return
@@ -454,19 +595,23 @@ class ShardedTrainStep:
             mp_group=self._mp, sharding_group=self._sh)
 
     def _keyed_step(self, x, y, lr):
-        if self._grads is None:
-            for p in self.params.values():
+        for n, p in self.params.items():
+            if self._grads is None or n in self._z3:
                 p.grad = None
-        else:
+        if self._grads is not None:
             self._grads.attach()
         sc = self._scaler
         scale = sc._scale if sc is not None else None
-        loss = self._forward_backward(x, y, scale)
-        if self._grads is not None:
-            self._grads.reduce()
-        zero = self._zero
-        if zero is not None and zero.stage == 2:
-            zero.reduce_scatter_grads()
+        zero, ef = self._zero, None
+        if self._reducer is not None:
+            loss, ef = self._reduce_explicitly(x, y, scale)
+        else:
+            loss = self._forward_backward(x, y, scale)
+            if self._grads is not None:
+                self._grads.reduce()
+            if zero is not None and zero.stage >= 2:
+                zero.reduce_scatter_grads()
+        if zero is not None and zero.stage >= 2:
             grads = zero.grads()  # slices, and the unsliced whole
         else:
             grads = {k: p.grad for k, p in self.params.items()}
@@ -480,8 +625,10 @@ class ShardedTrainStep:
             sc._found_inf = skip
             sc.update()
             loss = loss * inverse(scale)
-            if skip:
+            if skip:  # the residuals stay the pre-step ones too
                 return self._global_mean(loss)
+        if ef is not None:
+            self.ef_state = ef
         if self._clip is not None:
             self._clip_(grads)
         if zero is not None:
@@ -550,18 +697,25 @@ class ShardedTrainStep:
         """The step's resume state as the JAX step's ``TrainState``: the
         parameters and optimizer state by name, buffers, ``rng={"seed"}``,
         the step count and, with a scaler, ``extra.scaler_state`` ``[scale
-        (fp32), good, bad (int32)]``. Over mp or ZeRO the arrays are the
-        global ones, gathered (every rank must call this, in one order);
-        otherwise the live tensors: save (the snapshot) before the next
-        step. The step powers are fp32 host scalars."""
+        (fp32), good, bad (int32)]``; with error feedback,
+        ``extra.grad_reduce_ef`` (``{"bucket000": [world * groups,
+        padded] fp32, ...}``). Over mp or ZeRO the arrays are the global
+        ones, gathered, as are the residuals (every rank must call this,
+        in one order); otherwise the live tensors: save (the snapshot)
+        before the next step. The step powers are fp32 host scalars."""
         from ...checkpoint import TrainState
 
         sc = self._scaler
-        extra = None if sc is None else {"scaler_state": [
-            np.float32(sc._scale), np.int32(sc._good_steps),
-            np.int32(sc._bad_steps)]}
+        extra = {}
+        if sc is not None:
+            extra["scaler_state"] = [
+                np.float32(sc._scale), np.int32(sc._good_steps),
+                np.int32(sc._bad_steps)]
+        if self.ef_state:
+            extra["grad_reduce_ef"] = self._reducer.global_ef(self.ef_state)
+        extra = extra or None
         with torch.no_grad():
-            params = {n: self._global(n, p.detach())
+            params = {n: self._global(n, p.detach(), n in self._z3)
                       for n, p in self.params.items()}
             opt_state = {
                 n: {k: self._global(n, v, self._sliced(n))
@@ -599,7 +753,8 @@ class ShardedTrainStep:
         sharded restore is ROADMAP queue A item A5.5): restore whole
         arrays and ``restore_from_checkpoint`` keeps this rank's
         blocks."""
-        return {"params": {n: self._placement(n, False) for n in self.params},
+        return {"params": {n: self._placement(n, n in self._z3)
+                           for n in self.params},
                 "opt_state": {n: {k: self._placement(
                     n, self._sliced(n) and isinstance(v, torch.Tensor))
                     if isinstance(v, torch.Tensor)
@@ -614,18 +769,17 @@ class ShardedTrainStep:
         returns it: tensor or numpy leaves). This rank's blocks of the
         parameters, optimizer slots and buffers are copied into the live
         tensors in place (names, slots and shapes must match), the step
-        powers restored to the same fp32 bits; the step count, the seed and
-        the scaler's automaton follow."""
+        powers restored to the same fp32 bits; the step count, the seed,
+        the scaler's automaton and this rank's error-feedback residuals
+        follow (residuals that do not fit the step's plan, or a step
+        without one, start from zeros, as in the JAX package)."""
         from ...checkpoint import TrainState
 
         ts = tree if isinstance(tree, TrainState) \
             else TrainState.from_tree(tree)
-        if ts.extra and ts.extra.get("grad_reduce_ef") is not None:
-            raise NotImplementedError(
-                "a checkpoint with grad_reduce_ef (error-feedback residuals "
-                f"of a gradient reducer) needs grad_reduce ({_ITEM} A5.4)")
         _copy_named(self.params, {
-            n: self._local(n, _as_tensor(v)) if n in self.params else v
+            n: self._local(n, _as_tensor(v), n in self._z3)
+            if n in self.params else v
             for n, v in ts.params.items()}, "params")
         if ts.buffers:
             _copy_named(dict(self.model.named_buffers()), ts.buffers,
@@ -649,6 +803,12 @@ class ShardedTrainStep:
             self._scaler._scale = float(np.float32(float(sc_state[0])))
             self._scaler._good_steps = int(sc_state[1])
             self._scaler._bad_steps = int(sc_state[2])
+        red = self._reducer
+        if red is not None and red.has_ef:
+            ef_in = (ts.extra or {}).get("grad_reduce_ef")
+            self.ef_state = red.local_ef(
+                ef_in if ef_in is not None and red.ef_matches(ef_in)
+                else red.init_ef(), self.device)
         self._step_i = int(ts.step)
         if ts.rng and "seed" in ts.rng:
             self._seed = int(ts.rng["seed"])

@@ -10,7 +10,7 @@ along the axis; every rank builds all of them, in one order).
 
 Data, tensor (``model``) and ZeRO (``sharding``) parallelism are ported;
 a degree above 1 on any other axis raises ``NotImplementedError`` naming
-its ROADMAP item (``expert`` A5.4, ``pipe`` A5.6, ``sep`` A5.7).
+its ROADMAP item (``expert`` A5.4b, ``pipe`` A5.6, ``sep`` A5.7).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ _AXIS_ALIAS = {"data": "dp", "pipe": "pp", "sharding": "sharding",
 
 #: the ROADMAP item that ports parallelism over each axis not ported yet,
 #: by paddle and by mesh name
-LATER_AXES = {"expert": "A5.4 (expert parallelism)",
+LATER_AXES = {"expert": "A5.4b (expert parallelism)",
               "pipe": "A5.6 (pipeline parallelism)",
               "sep": "A5.7 (context parallelism)"}
 LATER_AXES.update({_AXIS_ALIAS[k]: v for k, v in list(LATER_AXES.items())})

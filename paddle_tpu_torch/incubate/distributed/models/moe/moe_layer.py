@@ -16,7 +16,7 @@ fp32, as the einsum's transpose does.
 
 Expert parallelism (the ``ep`` mesh axis, ``global_scatter`` /
 ``global_gather`` beyond one rank, the ``quant`` dispatch's int8
-exchanges) is ROADMAP queue A item A5.4: on one device the ``quant`` mode has no
+exchanges) is ROADMAP queue A item A5.4b: on one device the ``quant`` mode has no
 exchange to compress and routes as ``dense`` does, as the JAX package's
 ``plan_quant_dispatch`` returns None without an ``ep`` axis.
 """
@@ -32,7 +32,7 @@ from .....distributed.fleet.meta_parallel.mp_layers import _Linear
 from .....nn import functional as F
 from .gate import _route
 
-_A5 = "ROADMAP queue A item A5.4 (expert parallelism)"
+_A5 = "ROADMAP queue A item A5.4b (expert parallelism)"
 
 
 def _slot_choices(slots, n_slots: int):
@@ -144,7 +144,7 @@ class MoELayer(nn.Module):
     holds the gate's load-balancing term of the last forward. When every
     expert is an ``ExpertMLP`` of one shape and activation, the experts
     run as one batched fp32 product over their stacked weights; otherwise
-    one by one. ``group`` (an expert-parallel group) raises, naming A5.4.
+    one by one. ``group`` (an expert-parallel group) raises, naming A5.4b.
     ``gate_weight [d_model, E]`` is drawn Xavier-uniform."""
 
     def __init__(self, d_model: int, experts: Sequence[nn.Module],
@@ -259,13 +259,13 @@ def _check_world(what: str, group):
 def global_scatter(x, local_count, global_count, group=None):
     """Count-routed token exchange (``global_scatter_op`` analog). On one
     rank the identity, as in the reference; across ranks it raises,
-    naming A5.4."""
+    naming A5.4b."""
     _check_world("global_scatter", group)
     return x
 
 
 def global_gather(x, local_count, global_count, group=None):
     """Inverse of ``global_scatter``: the identity on one rank; across
-    ranks it raises, naming A5.4."""
+    ranks it raises, naming A5.4b."""
     _check_world("global_gather", group)
     return x

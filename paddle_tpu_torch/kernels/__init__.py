@@ -30,6 +30,9 @@ from .norms import (LayerNormFunction, RMSNormFunction, fused_layer_norm,
                     rms_norm_ref)
 from .paged_attention import paged_attention, paged_attention_ref
 from .primitive import elementwise_kernel, row_reduce_kernel
+# the gradient reduction's wire format: plain PyTorch, no kernel
+from .quant import (dequantize_block_scaled, fit_block_size,
+                    quantize_block_scaled)
 
 #: every kernel wrapper of the package, for resetting and reading the counts
 WRAPPERS = (fused_layer_norm, layer_norm_bwd, flash_attention_fwd,
@@ -58,4 +61,6 @@ __all__ = ["fused_layer_norm", "layer_norm_ref", "layer_norm_bwd",
            "flash_attention_bwd_ref", "flash_fwd_op", "paged_attention",
            "paged_attention_ref", "fused_adamw_update", "adamw_ref",
            "primitive", "elementwise_kernel", "row_reduce_kernel",
-           "WRAPPERS", "reset_launch_counts", "launch_counts"]
+           "quantize_block_scaled", "dequantize_block_scaled",
+           "fit_block_size", "WRAPPERS", "reset_launch_counts",
+           "launch_counts"]

@@ -27,7 +27,7 @@ embedding and tied logits ``c_identity(h) @ W_local.T`` of
 ``[B, S, V/mp]``, and the loss through the vocabulary-parallel cross
 entropy (``forward_with_loss`` unchunked, as the JAX package's at mp).
 Serving an mp-split model (ROADMAP queue A item A5.5), MoE blocks at mp
-(A5.4), pipeline and sequence parallelism (A5.6, A5.7) raise.
+(A5.4b), pipeline and sequence parallelism (A5.6, A5.7) raise.
 """
 
 from __future__ import annotations
@@ -238,7 +238,7 @@ class GPTMoEMLP(nn.Module):
         E, d, f = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
         self.cfg = cfg
         self.mp_group = mp_group_of(None)
-        _no_mp(self, "a GPT-MoE block", "A5.4 (expert parallelism)")
+        _no_mp(self, "a GPT-MoE block", "A5.4b (expert parallelism)")
 
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, device=device,

@@ -81,7 +81,7 @@ def mp_layout(name: str, shapes: Dict[str, tuple]):
     suffix = name[m.end():]
     if suffix in _MOE_MLP:
         raise NotImplementedError("a GPT-MoE block split over mp is not "
-                                  "ported yet (ROADMAP queue A item A5.4)")
+                                  "ported yet (ROADMAP queue A item A5.4b)")
     if suffix not in _MP_SPLIT:
         return None
     segments = None
@@ -95,7 +95,13 @@ def mp_layout(name: str, shapes: Dict[str, tuple]):
 def to_paddle_tpu(blocks) -> Dict[str, torch.Tensor]:
     """The global arrays (CPU tensors, under the JAX package's names and
     layout) from every mp rank's state dict, in rank order: the inverse of
-    ``from_paddle_tpu(..., mp_rank=r, mp_degree=len(blocks))``."""
+    ``from_paddle_tpu(..., mp_rank=r, mp_degree=len(blocks))``. A model
+    (or a list of them) stands for its ``state_dict()``: a ZeRO stage-3
+    model's gathers its slices (collective over its sharding group)."""
+    if isinstance(blocks, torch.nn.Module):
+        blocks = [blocks]
+    blocks = [b.state_dict() if isinstance(b, torch.nn.Module) else b
+              for b in blocks]
     blocks = [{k: torch.as_tensor(v).detach().cpu() for k, v in b.items()}
               for b in blocks]
     n = len(blocks)

@@ -6,7 +6,8 @@ each rank runs.
 tests/test_torch_dist_ranks.py <job> <directory>`` (or one launcher,
 ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2``,
 that starts them) meeting at a file store in ``directory`` over gloo on
-the CPU. Each rank reads ``directory/inputs.pt``, runs the job and writes
+the CPU. Each rank reads ``directory/inputs.pt``, runs the job (one of
+this file's, or of ``tests/torch_dist_jobs.py``) and writes
 ``directory/out.<rank>.pt``. The ranks run in a process group of their
 own session and are killed, all of them, when they outlive their
 timeout (at most 60 s from their start), so a hung rendezvous fails a
@@ -114,7 +115,12 @@ def main(job, directory):
     torch.set_num_threads(1)
     directory = Path(directory)
     rank = int(os.environ["PADDLE_TRAINER_ID"])
-    out = JOBS[job](directory, torch.load(directory / "inputs.pt"), rank)
+    fn = JOBS.get(job)
+    if fn is None:  # the ZeRO-3 and gradient-reduction jobs
+        import torch_dist_jobs
+
+        fn = torch_dist_jobs.JOBS[job]
+    out = fn(directory, torch.load(directory / "inputs.pt"), rank)
     torch.save(out, directory / f"out.{rank}.pt")
     D.destroy_process_group()
 

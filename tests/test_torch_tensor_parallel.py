@@ -53,8 +53,7 @@ from paddle_tpu_torch import distributed as D
 from paddle_tpu_torch.distributed import topology as ttopology
 from paddle_tpu_torch.distributed.collective import Group
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
-    GroupShardedStage3, get_rng_state_tracker, group_sharded_parallel,
-    model_parallel_random_seed)
+    get_rng_state_tracker, model_parallel_random_seed)
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import from_paddle_tpu, to_paddle_tpu
@@ -408,16 +407,29 @@ def test_rng_tracker_replays_and_advances():
         tracker.add("other", 123 + 1024)
 
 
-def test_options_left_out_raise():
-    """ZeRO stage 3 (A5.3b), sequence parallelism (A5.7), a spec the port
-    cannot realise (A7) and ring attention's ppermute (A5.7) raise naming
+def test_options_left_out_raise(monkeypatch):
+    """Sequence parallelism (A5.7), a spec the port cannot realise (A7),
+    ring attention's ppermute (A5.7), and expert parallelism's
+    ``MoELayer(group=)`` and a GPT-MoE step at dp 2 (A5.4b) raise naming
     their items."""
+    from paddle_tpu_torch.distributed.fleet import utils as tutils
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
     m = GPTForCausalLM(GPTConfig(**R.TINY), device="cpu")
     opt = AdamW(parameters=m.named_parameters())
-    with pytest.raises(NotImplementedError, match="A5.3b"):
-        group_sharded_parallel(m, opt, level="p_g_os")
-    with pytest.raises(NotImplementedError, match="A5.3b"):
-        GroupShardedStage3(m)
+    with pytest.raises(NotImplementedError, match="A5.4b"):
+        MoELayer(64, [torch.nn.Identity()] * 2, group=Group([0, 1]))
+    moe = GPTForCausalLM(GPTConfig(**{**R.TINY, "moe_num_experts": 4,
+                                      "moe_every_k": 1}), device="cpu")
+    # the dp group's two ranks, without a world: the step refuses first
+    monkeypatch.setattr(tutils, "group_of", lambda ranks, mesh=None,
+                        axis=None, name=None, backend=None: Group(
+                            ranks, mesh, axis, name=name))
+    with pytest.raises(NotImplementedError, match="A5.4b"):
+        tutils.make_sharded_train_step(
+            moe, AdamW(parameters=moe.named_parameters()),
+            mesh=D.DeviceMesh([0, 1], ("dp",)), device="cpu")
+    monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="A5.7"):
         GPTConfig(**R.TINY, sequence_parallel=True)
     with pytest.raises(NotImplementedError, match="A5.7"):

@@ -375,8 +375,9 @@ def test_bad_arguments_raise(call, exc):
                                     "param_specs", "autoshard"])
 def test_train_step_options_of_later_slices_raise(option):
     """What the port does not cover yet raises: a mesh with a pipeline
-    axis, a gradient reducer, health statistics, per-parameter specs it
-    cannot realise and the layout search."""
+    axis, health statistics, per-parameter specs it cannot realise and the
+    layout search. A gradient reducer is ported: a value that names none
+    raises ``TypeError``, as in the JAX package."""
     from paddle_tpu_torch.distributed import DeviceMesh
 
     _, tm = _build()
@@ -384,5 +385,7 @@ def test_train_step_options_of_later_slices_raise(option):
     value = True if option in ("health_stats", "autoshard") else object()
     if option == "mesh":
         value = DeviceMesh([0, 1], ("pp",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = (TypeError, "grad_reduce must be") \
+        if option == "grad_reduce" else (NotImplementedError, "ROADMAP")
+    with pytest.raises(err, match=match):
         make_sharded_train_step(tm, opt, device="cpu", **{option: value})

@@ -1,0 +1,326 @@
+"""The rank jobs of the port's ZeRO-3 and gradient-reduction tests
+(``tests/test_torch_zero3.py``, ``tests/test_torch_comm_opt.py``).
+Imports no JAX: ``tests/test_torch_dist_ranks.py``, the script each rank
+runs, looks a job up here when it is not one of its own.
+"""
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import amp
+from paddle_tpu_torch import distributed as D
+from paddle_tpu_torch.checkpoint import CheckpointManager
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed.comm_opt import (GradReduceConfig,
+                                                   plan_as_dict,
+                                                   reducer_for_step)
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+    group_sharded_parallel, save_group_sharded_model)
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.weights import from_paddle_tpu, to_paddle_tpu
+
+import test_torch_dist_ranks as R
+
+#: the recompute policies a stage-3 run goes through
+POLICIES = ("none", "full", "save_flash", "dots_saveable")
+
+
+def _model(params, **cfg):
+    """The tiny GPT on ``params`` (whole arrays) and its AdamW."""
+    model = GPTForCausalLM(GPTConfig(**{**R.TINY, **cfg}), device="cpu")
+    model.load_state_dict(params)
+    model.train()
+    return model, AdamW(learning_rate=R.LR, epsilon=R.EPS, weight_decay=0.01,
+                        parameters=model.named_parameters(),
+                        grad_clip=ClipGradByGlobalNorm(R.CLIP))
+
+
+def _save(step, path, at):
+    mgr = CheckpointManager(path)
+    mgr.save(at, step.state_for_checkpoint().to_tree())
+    mgr.wait_until_finished()
+    mgr.close()
+
+
+# ---------------- the reducer alone ----------------------------------------
+def _reduce_runs(inp, mesh, data_axes, pos):
+    """Each of ``inp["configs"]`` on this rank's gradients (entry ``pos``
+    of every stacked leaf), ``steps`` times: the outputs of every step,
+    the residuals after the last (the checkpoint's rows) and the plan."""
+    grads = {k: v[pos].clone() for k, v in inp["grads"].items()}
+    ints = {k: v[pos].clone() for k, v in inp["ints"].items()}
+    templates = {k: (tuple(v.shape), torch.float32) for k, v in grads.items()}
+    out = {}
+    for name, (cfg, steps, integer) in inp["configs"].items():
+        red = reducer_for_step(GradReduceConfig(**cfg), mesh, data_axes,
+                               templates)
+        ef = red.local_ef(red.init_ef(), "cpu")
+        outs = []
+        for _ in range(steps):
+            r, ef = red.reduce(ints if integer else grads, ef)
+            outs.append({k: v.clone() for k, v in r.items()})
+        out[name] = {"outs": outs, "ef": red.global_ef(ef),
+                     "plan": plan_as_dict(red.plan), "has_ef": red.has_ef,
+                     "stages": [list(a) if isinstance(a, tuple) else a
+                                for a in red.stage_axes]}
+    return out
+
+
+def job_reducer(directory, inp, rank):
+    """The reducer on two dp ranks: every configuration of the inputs."""
+    D.init_parallel_env(device="cpu")
+    mesh = D.DeviceMesh([0, 1], ("dp",))
+    return _reduce_runs(inp, mesh, ("dp",), rank)
+
+
+# ---------------- the train step with grad_reduce at dp 2 ------------------
+def _dp_reduce_step(params, hcg, grad_reduce, **kw):
+    model, opt = _model(params)
+    return fleet.make_sharded_train_step(
+        model, opt, mesh=hcg.get_mesh(), grad_reduce=grad_reduce,
+        device="cpu", **kw)
+
+
+def job_grad_reduce(directory, inp, rank):
+    """Two ranks at dp 2: runs of the tiny GPT with grad_reduce None,
+    fp32, int8 and bf16 on each rank's half of the batches; the int8
+    residuals after 2 steps; a save and the replay of its next steps; the
+    JAX package's int8 save continued for a step; overlap with
+    accumulate_steps=2 (twice); int8 under a loss scaler whose first step
+    overflows on rank 1."""
+    hcg = R._dp_init()
+    xs, ys, params = inp["x"], inp["y"], inp["params"]
+    n = xs.shape[1] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+
+    def run(step, k0=0, k1=None):
+        return [step(xs[k][rows], ys[k][rows]).item()
+                for k in range(k0, k1 if k1 is not None else xs.shape[0])]
+
+    out = {}
+    for mode in (None, "fp32", "int8", "bf16"):
+        step = _dp_reduce_step(params, hcg, mode)
+        out[str(mode)] = {"losses": run(step),
+                          "params": R._snapshot(step)}
+    step = _dp_reduce_step(params, hcg, "int8")
+    out["stages"] = step._reducer.stage_axes
+    run(step, 0, 2)
+    tree = step.state_for_checkpoint().to_tree()
+    out["ef"] = R._tree_copy(tree["extra"]["grad_reduce_ef"])
+    out["plan"] = plan_as_dict(step._reducer.plan)
+    _save(step, directory / "port_ck", 2)
+    out["continued"] = run(step, 2, 5)
+    fresh = _dp_reduce_step(
+        {k: torch.randn_like(v) for k, v in params.items()}, hcg, "int8")
+    fresh.restore_from_checkpoint(CheckpointManager(
+        directory / "port_ck").restore())
+    out["replayed"] = run(fresh, 2, 5)
+    out["replay_params"] = (R._snapshot(step), R._snapshot(fresh))
+    R._wait_for(directory / "jax_ck.ready")
+    fresh = _dp_reduce_step(
+        {k: torch.randn_like(v) for k, v in params.items()}, hcg, "int8")
+    fresh.restore_from_checkpoint(CheckpointManager(
+        directory / "jax_ck").restore())
+    out["from_jax"] = {"losses": run(fresh, 2, 3),
+                       "params": R._tree_copy(
+                           fresh.state_for_checkpoint().to_tree())}
+    out["overlap"] = []
+    for _ in range(2):
+        step = _dp_reduce_step(params, hcg, "int8", accumulate_steps=2)
+        out["overlap"].append({"losses": run(step, 0, 3),
+                               "per_step": step._reductions_per_step})
+    step = _dp_reduce_step(params, hcg, {"mode": "quant", "overlap": False},
+                           accumulate_steps=2)
+    out["no_overlap"] = run(step, 0, 3)
+    sc = amp.GradScaler(init_loss_scaling=float("inf") if rank else 2.0 ** 10)
+    step = _dp_reduce_step(params, hcg, "int8", scaler=sc)
+    ef0 = {k: v.clone() for k, v in step.ef_state.items()}
+    first = run(step, 0, 1)
+    out["scaler"] = {"skip_kept_ef": all(torch.equal(ef0[k], v) for k, v in
+                                         step.ef_state.items()),
+                     "first": first}
+    sc.set_init_loss_scaling(2.0 ** 10)
+    out["scaler"]["losses"] = run(step, 1, 3)
+    # expert parallelism is left to a later item
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    moe = GPTForCausalLM(GPTConfig(**{**R.TINY, "moe_num_experts": 4,
+                                      "moe_every_k": 1}), device="cpu")
+    out["moe_step"] = R._raises(lambda: fleet.make_sharded_train_step(
+        moe, AdamW(parameters=moe.named_parameters()), mesh=hcg.get_mesh(),
+        device="cpu"))
+    out["moe_group"] = R._raises(lambda: MoELayer(
+        64, [torch.nn.Identity()] * 2, group=hcg.get_data_parallel_group()))
+    return out
+
+
+# ---------------- ZeRO stage 3 at sharding 2 -------------------------------
+def _z3_step(params, mesh, level="p_g_os", **cfg):
+    model, opt = _model(params, **cfg)
+    wrapped, opt, _ = group_sharded_parallel(model, opt, level=level)
+    return wrapped, fleet.make_sharded_train_step(wrapped, opt, mesh=mesh,
+                                                  device="cpu")
+
+
+def _block_bytes(model):
+    """The largest block's stage-3 weights, whole, in bytes."""
+    per = {}
+    for name, z in model.z3.items():
+        if ".layers." in name:
+            i = name.split(".layers.")[1].split(".")[0]
+            per[i] = per.get(i, 0) + int(np.prod(z.shape)) * 4
+    return max(per.values())
+
+
+def job_zero3(directory, inp, rank):
+    """Two ranks at sharding 2 (fleet's mesh, whose mp axis has one rank):
+    stage 3's placement; 3 steps at os_g and at p_g_os (plain and under
+    every recompute policy) with each rank on its half of the batches, the
+    gathers and the live gathered bytes; the whole-array state dicts."""
+    mesh = R._hybrid_init({"sharding_degree": 2}).get_mesh()
+    xs, ys, params = inp["x"], inp["y"], inp["params"]
+    rows = slice(rank * 2, rank * 2 + 2)
+    out = {}
+    _, step = _z3_step(params, mesh, "os_g")
+    out["os_g"] = R._run_global(step, xs, ys, rows)
+    model, step = _z3_step(params, mesh)
+    out["placement"] = {n: (tuple(p.shape), getattr(p, "zero3_dim", None))
+                        for n, p in model.named_parameters()}
+    out["slices"] = {n: p.detach().clone()
+                     for n, p in model.named_parameters()}
+    out["state_dict_whole"] = all(
+        torch.equal(v, params[k]) for k, v in model.state_dict().items())
+    out["to_paddle_tpu"] = all(torch.equal(v, params[k]) for k, v in
+                               to_paddle_tpu(model).items())
+    out["block_bytes"] = _block_bytes(model)
+    out["policies"] = {}
+    for pol in POLICIES:
+        cfg = {} if pol == "none" else {
+            "use_recompute": True,
+            "recompute_policy": None if pol == "full" else pol}
+        model, step = _z3_step(params, mesh, **cfg)
+        model.stats.reset()
+        rec = R._run_global(step, xs, ys, rows)
+        rec["stats"] = (model.stats.gathers, model.stats.reduce_scatters,
+                        model.stats.peak_bytes, model.live_bytes)
+        rec["state_shapes"] = {n: {k: tuple(v.shape) for k, v in s.items()
+                                   if torch.is_tensor(v)}
+                               for n, s in step.optimizer.state.items()}
+        out["policies"][pol] = rec
+    return out
+
+
+def _slice_of(whole, p, rank):
+    """This rank's stage-3 slice of ``whole`` for the parameter ``p``."""
+    d = getattr(p, "zero3_dim", None)
+    return whole if d is None else whole.chunk(2, d)[rank]
+
+
+def job_zero3_state(directory, inp, rank):
+    """Two ranks at sharding 2 (fleet's mesh): 2 steps at os_g and at
+    p_g_os with accumulate_steps=2; the eager use and
+    ``save_group_sharded_model``; whole arrays into ``set_state_dict``; a
+    two-rank save after 2 steps and its restore into a stage-3 step on
+    other weights."""
+    mesh = R._hybrid_init({"sharding_degree": 2}).get_mesh()
+    xs, ys, params = inp["x"], inp["y"], inp["params"]
+    rows = slice(rank * 2, rank * 2 + 2)
+    out = {}
+    # accumulation: each microbatch reduce-scatters into the slices
+    out["accum"] = {}
+    for level in ("os_g", "p_g_os"):
+        model, opt = _model(params)
+        model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        step = fleet.make_sharded_train_step(model, opt, mesh=mesh,
+                                             accumulate_steps=2, device="cpu")
+        out["accum"][level] = R._run_global(step, xs[:2], ys[:2], rows)
+        if level == "p_g_os":
+            out["accum"]["reduce_scatters"] = model.stats.reduce_scatters
+    # eager: model(x).mean().backward(); opt.step()
+    model, opt = _model(params)
+    model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model(xs[0][rows]).mean().backward()
+    opt.step()
+    out["eager"] = {"moved": sorted(n for n, p in model.named_parameters()
+                                    if not torch.equal(before[n], p)),
+                    "names": sorted(before),
+                    "whole": model.state_dict(),
+                    "opt_whole": R._tree_copy(
+                        model.whole_optimizer_state(opt))}
+    save_group_sharded_model(model, str(directory / "eager"), opt)
+    # the wrapper takes whole arrays (the JAX package's, converted) and
+    # keeps its slices; a two-rank save after 2 steps, and the save
+    # restored into a stage-3 step built on other weights
+    model, step = _z3_step({k: torch.randn_like(v)
+                            for k, v in params.items()}, mesh)
+    model.set_state_dict(from_paddle_tpu(
+        {k: v.numpy() for k, v in params.items()}))
+    out["set_state_dict"] = all(torch.equal(p, _slice_of(params[n], p, rank))
+                                for n, p in model._layers.named_parameters())
+    for k in range(2):
+        step(xs[k][rows], ys[k][rows])
+    _save(step, directory / "z3_ck", 2)
+    out["saved"] = R._tree_copy(step.state_for_checkpoint().to_tree())
+    model, fresh = _z3_step({k: torch.randn_like(v)
+                             for k, v in params.items()}, mesh)
+    fresh.restore_from_checkpoint(CheckpointManager(
+        directory / "z3_ck").restore())
+    out["restored"] = R._tree_copy(fresh.state_for_checkpoint().to_tree())
+    return out
+
+
+# ---------------- four ranks ------------------------------------------------
+def job_dp_sharding_4(directory, inp, rank):
+    """Four ranks at dp 2 x sharding 2: the reducer over both data axes,
+    hierarchical and flat (positions folded as the JAX package orders
+    them); then 3 steps of the tiny GPT at p_g_os with int8, each rank on
+    its quarter of every batch."""
+    hcg = R._hybrid_init({"dp_degree": 2, "sharding_degree": 2})
+    mesh = hcg.get_mesh()
+    coords = mesh.coords(rank)
+    pos = coords["dp"] * 2 + coords["sharding"]
+    out = {"reducer": _reduce_runs(inp["reducer"], mesh, ("dp", "sharding"),
+                                   pos)}
+    model, opt = _model(inp["params"])
+    model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+    step = fleet.make_sharded_train_step(model, opt, mesh=mesh,
+                                         grad_reduce="int8", device="cpu")
+    out["world"], out["z3"] = step._reducer.world, sorted(step._z3)
+    out["step"] = R._run_global(step, inp["x"], inp["y"],
+                                slice(pos, pos + 1))
+    out["ef_shapes"] = {k: tuple(v.shape) for k, v in step.state_for_checkpoint()
+                        .to_tree()["extra"]["grad_reduce_ef"].items()}
+    return out
+
+
+def job_dp_mp_4(directory, inp, rank):
+    """Four ranks at dp 2 x mp 2: 3 steps of the tiny GPT with int8 (one
+    reduction per model shard's data group), each dp rank on its half of
+    every batch; a GPT-MoE step at dp 2 and MoELayer(group=) refuse."""
+    hcg = R._hybrid_init({"dp_degree": 2, "mp_degree": 2})
+    blocks = from_paddle_tpu({k: v.numpy() for k, v in inp["params"].items()},
+                             mp_rank=hcg.get_model_parallel_rank(),
+                             mp_degree=2)
+    model, opt = R._tiny_on(blocks)
+    step = fleet.make_sharded_train_step(
+        fleet.distributed_model(model), fleet.distributed_optimizer(opt),
+        mesh=hcg.get_mesh(), grad_reduce="int8", device="cpu")
+    red = step._reducer
+    n = inp["x"].shape[1] // 2
+    dp = hcg.get_data_parallel_rank()
+    out = {"hybrid": red.hybrid, "groups": red.groups, "world": red.world,
+           "plan": plan_as_dict(red.plan),
+           "step": R._run_global(step, inp["x"], inp["y"],
+                                 slice(dp * n, (dp + 1) * n))}
+    out["ef_shapes"] = {k: tuple(v.shape) for k, v in step.state_for_checkpoint()
+                        .to_tree()["extra"]["grad_reduce_ef"].items()}
+    return out
+
+
+JOBS = {"reducer": job_reducer, "grad_reduce": job_grad_reduce,
+        "zero3": job_zero3, "zero3_state": job_zero3_state,
+        "dp_sharding_4": job_dp_sharding_4,
+        "dp_mp_4": job_dp_mp_4}
