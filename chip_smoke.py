@@ -5,7 +5,10 @@
     python3 chip_smoke.py --paged-shapes-of DIR [--paged-symbols S ...]
         # another checkout's paged decode at [3]'s four shapes
     python3 chip_smoke.py --train-of DIR
-        # a checkout's training step ([6]) and recompute policies ([8])
+        # a checkout's AdamW timings ([3]), training step ([6]) and
+        # recompute policies ([8])
+    python3 chip_smoke.py --moe-of DIR
+        # a checkout's GPT-MoE training step ([16])
     python3 chip_smoke.py --mp-of DIR
         # [3]'s checks at the mp and ZeRO shapes, [18b] and [19] alone
     python3 chip_smoke.py --dp-worker DIR
@@ -41,7 +44,13 @@ Phases, each of which exits non-zero on failure:
    at the training shape bitwise equal; paged decode on its vector route,
    two calls bitwise equal (also at GPT-MoE's H 16/16 D 64), timed at
    four shapes: the serving slice's decode batch, every slot and one slot
-   at a 2048-token context, and the GQA serving config); then timed with
+   at a 2048-token context, and the GQA serving config; the fused AdamW
+   as one launch over a mixed list, one per dtype group: the six
+   (param, grad, moments) combinations at sizes 0 to 50304 x 2048 and on
+   aligned and unaligned slice views, then [6]'s whole parameter list with
+   the bf16 copies, bitwise); the fp32 flash kernels (CUDA cores) at the
+   shapes [5], [7] and [9] give them, beside ``F.sdpa`` in fp32; then
+   timed with
    CUDA events and the profiler beside the plain version, a library yardstick the port
    never calls, and the H100 bound (a flash, norm or paged kernel the
    profiler does not see fails the run; others print "not seen");
@@ -76,9 +85,12 @@ Phases, each of which exits non-zero on failure:
    master weights and bf16 moments, batch 16 x 2048; one warm-up step,
    five timed steps and one profiled step, with each kernel's launch
    count over the timed steps (the flash kernels' on the tensor-core
-   route; 4L + 1 LayerNorm forwards and 2L + 1 backwards a step) and the
-   bf16 flash kernels' and the LayerNorm kernels' device time in the
-   profiled step; the loss must be finite and fall;
+   route; 4L + 1 LayerNorm forwards and 2L + 1 backwards a step; one
+   AdamW launch a step and no master copied by ``copy_``) and the bf16
+   flash kernels', the LayerNorm kernels' and AdamW's device time in the
+   profiled step, ``apply_gradients``' host clock, and a digest of the
+   losses and the state after the steps (equal to another checkout's
+   under ``--train-of`` iff bitwise); the loss must be finite and fall;
 7. training vs plain: at full width and depth 2 in fp32, the same weights
    take 3 AdamW steps on the card (every flash launch on the CUDA-core
    route) and on the CPU; losses, the first step's gradients and the
@@ -161,11 +173,12 @@ Phases, each of which exits non-zero on failure:
    aux loss and each MoE block's share of choices dropped at capacity),
    five timed steps (step ms, tokens/s, MFU by ``bench.py``'s
    activated-parameter count, peak memory, each kernel's launches per
-   step held to what the code gives, every flash launch on wgmma) and
-   one profiled step (device busy, idle share, device time by group: the
-   experts' products, their bias and GELU, the routing, flash,
-   LayerNorm, AdamW, the rest); the loss must fall, and two steps from
-   one state must be bitwise equal. Then depth 2 (one dense block, one
+   step held to what the code gives, one AdamW launch, every flash launch
+   on wgmma, ``apply_gradients``' host clock) and one profiled step
+   (device busy, idle share, device time by group: the experts'
+   products, their bias and GELU, the routing, flash, LayerNorm, AdamW,
+   the rest); the loss must fall, the digest as [6]'s, and two steps
+   from one state must be bitwise equal. Then depth 2 (one dense block, one
    MoE block) in fp32: 3 AdamW steps on the card and on the CPU; the
    first forward's routing identical (or a tie, reported), losses,
    gradients and updates agree;
@@ -217,10 +230,15 @@ Phases, each of which exits non-zero on failure:
    None, fp32 (bitwise None's), int8 with error feedback (within 1% of
    fp32 at every step) and bf16, one int8 and one bf16 reduction
    repeated on the CPU tensors of the same per-rank gradients (reduced
-   gradients bitwise, residuals within a rounding): each mode's plan bytes, reduction host clock and step. In
-   [3], the fused AdamW against ``torch._fused_adamw_``
-   on all-fp32 tensors at n 16.8M and at [20a] (ii)'s slice, 12
-   interleaved CUDA-event readings each and the profiler's device time.
+   gradients bitwise, residuals within a rounding): each mode's plan
+   bytes, reduction host clock and step. Each multi-rank phase holds
+   AdamW to one launch a step and no master copied by ``copy_``. In [3],
+   the fused AdamW against ``torch._fused_adamw_`` and against the
+   per-tensor path (a launch and a ``copy_`` a tensor): on all-fp32
+   tensors at n 16.8M and at [20a] (ii)'s slice, in [6]'s dtypes with the
+   bf16 copy at n 16.8M, over [6]'s list in fp32 and in its dtypes, and
+   over [16]'s list in bf16, 12 interleaved CUDA-event readings each and
+   the profiler's device time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -233,6 +251,7 @@ from __future__ import annotations
 import argparse
 import functools
 import gc
+import hashlib
 import importlib
 import json
 import re
@@ -294,7 +313,7 @@ SERVING_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
                    "paged_attention")
 TRAINING_KERNELS = ("fused_layer_norm", "layer_norm_bwd",
                     "flash_attention_fwd", "flash_attention_bwd_dq",
-                    "flash_attention_bwd_dkv", "fused_adamw_update")
+                    "flash_attention_bwd_dkv", "fused_adamw_multi")
 USER_API_KERNELS = ("fused_rms_norm", "rms_norm_bwd", "elementwise_kernel",
                     "row_reduce_kernel")
 # the bf16 flash kernels, by symbol: the forward (csrc/flash_fwd_sm90.cu)
@@ -306,6 +325,13 @@ BWD_SYMBOLS = {"dq": "flash_bwd_dq_sm90_kernel",
 SM90_LIBS = {"flash_fwd_sm90": (FWD_SYMBOL,),
              "flash_bwd_sm90": tuple(BWD_SYMBOLS.values())}
 FP32_FWD_SYMBOL = "flash_fwd_kernel"
+FP32_BWD_SYMBOLS = {"dq": "flash_bwd_dq_kernel",
+                    "dkv": "flash_bwd_dkv_kernel"}
+# the fp32 (CUDA-core) flash calls of the fp32 phases, (B, S, H, D): [5]'s
+# largest prefill bucket, and [7]'s and [9]'s training batch (both 2 x 128
+# at full width, causal)
+FP32_FLASH = {"[5] prefill": (1, 128, 16, 128),
+              "[7], [9] training": (2, 128, 16, 128)}
 # the serving kernels' symbols on the card, by wrapper
 SERVING_SYMBOLS = {"fused_layer_norm": (NORM_SYMBOLS["fwd"],),
                    "flash_attention_fwd": (FWD_SYMBOL,),
@@ -333,7 +359,7 @@ MOE_NORM = [(8192, 1024), (8, 1, 1024), (1, 128, 1024), (1, 512, 1024),
             (2, 1, 1024)]
 ALL_KERNELS = ("fused_layer_norm", "layer_norm_bwd", "flash_attention_fwd",
                "paged_attention", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv", "fused_adamw_update") \
+               "flash_attention_bwd_dkv", "fused_adamw_multi") \
     + USER_API_KERNELS
 # the functions this script lifts into primitives
 ELEMENTWISE_FNS = {
@@ -351,6 +377,26 @@ REDUCE_FNS = {
 CKPT_PARENT = None
 ADAMW_HP = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
                 beta1_pow=0.9 ** 3, beta2_pow=0.999 ** 3)
+# the (param, grad, moments) dtype combinations the fused AdamW takes: the
+# grad in the param's dtype, or bf16 beside an fp32 master
+ADAMW_COMBOS = [(pd, gd, md) for pd in (torch.float32, torch.bfloat16)
+                for gd in (torch.float32, torch.bfloat16)
+                for md in (torch.float32, torch.bfloat16)
+                if gd == pd or gd == torch.bfloat16]
+
+
+def adamw_wrapper(K) -> str:
+    """The fused AdamW wrapper a train step launches through: the grouped
+    one, or the per-tensor one of a tree that has no grouped launch (an
+    earlier checkout under --train-of or --moe-of)."""
+    return "fused_adamw_multi" if hasattr(K, "fused_adamw_multi") \
+        else "fused_adamw_update"
+
+
+def training_kernels(K):
+    """``TRAINING_KERNELS`` by the wrapper names of the package ``K``."""
+    return tuple(adamw_wrapper(K) if k == "fused_adamw_multi" else k
+                 for k in TRAINING_KERNELS)
 
 
 def fail(msg: str):
@@ -1069,128 +1115,321 @@ def train_kernel_checks(K, gen, rows):
     del q, k, v, do, o, lse, delta, dq, dk, dv, qt, kt, vt, dot
     torch.cuda.empty_cache()
 
-    # -- fused AdamW: the optimizer's three dtype combinations (param,
-    #    grad, moments) at a tail-only size, an odd size past one vector
-    #    chunk, fc1's 2048 x 8192 and the word embedding's 50304 x 2048 (the
-    #    train step's largest tensor); the kernel repeats the plain
-    #    version's roundings op by op, so they agree to the bit
-    f32, bf16 = torch.float32, torch.bfloat16
-    combos = ((f32, f32, f32), (f32, bf16, bf16), (bf16, bf16, bf16))
-
-    def adamw_inputs(n, pd, gd, md):
-        return (randn(n, dtype=f32).to(pd), randn(n, dtype=f32).to(gd),
-                (0.1 * randn(n, dtype=f32)).to(md),
-                (0.1 * randn(n, dtype=f32)).abs().to(md))
-
-    for n in (33, 65553, 2048 * 8192, 50304 * 2048):
-        for pd, gd, md in combos:
-            p, g, m, v = adamw_inputs(n, pd, gd, md)
-            want = K.adamw_ref(p, g, m, v, **ADAMW_HP)
-            got = (p.clone(), m.clone(), v.clone())
-            K.fused_adamw_update(got[0], g, got[1], got[2], **ADAMW_HP)
-            errs = [max_err(a, b) for a, b in zip(got, want)]
-            print(f"  fused_adamw n={n} p {pd} g {gd} m/v {md}: p/m/v err "
-                  f"{' '.join(f'{e:.1e}' for e in errs)} (tol 0)", flush=True)
-            check(all(e == 0 for e in errs), f"adamw n={n} {pd}/{gd}/{md}: "
-                  f"{errs}")
+    # -- fused AdamW: one launch over a mixed list, grouped by the six
+    #    (param, grad, moments) dtype combinations the optimizer makes, at
+    #    sizes 0, 33 (a tail only), 65553 (past a chunk, with a partial
+    #    vector), fc1's 2048 x 8192 and the word embedding's 50304 x 2048
+    #    (the train step's largest tensor), and dim-0 slice views of a leaf
+    #    (16-byte aligned and not), each with its own learning rate, decay
+    #    and step powers, a bf16 copy beside every other fp32 param; the
+    #    kernel repeats the plain version's roundings op by op, so every
+    #    output, the copies included, agrees to the bit
+    adamw_list_check(K, gen, ADAMW_COMBOS,
+                     (0, 33, 65553, 2048 * 8192, 50304 * 2048), "[3]")
+    torch.cuda.empty_cache()
+    # the same on [6]'s whole parameter list (fp32 master, bf16 g/m/v and
+    # the bf16 parameter), which one launch updates on the main path
+    shapes = param_shapes("dense")
+    adamw_list_check(K, gen, [(torch.float32, torch.bfloat16,
+                               torch.bfloat16)], shapes, "[3] on [6]'s list",
+                     copies="all")
+    torch.cuda.empty_cache()
     n = 2048 * 8192
-    p, g, m, v = adamw_inputs(n, f32, bf16, bf16)
+    p, g, m, v, low = adamw_tensors(gen, n, torch.float32, torch.bfloat16,
+                                    torch.bfloat16, copy=True)
 
     def ours():
-        K.fused_adamw_update(p, g, m, v, **ADAMW_HP)
+        K.fused_adamw_multi([p], [g], [m], [v], **ADAMW_HP, low=[low])
+
+    def plain():
+        new = K.adamw_ref(p, g, m, v, **ADAMW_HP)
+        return new, new[0].to(torch.bfloat16)
 
     ms = timed_ms(ours, 50)
-    dms = device_ms(ours, "fused_adamw_kernel", 20)
-    plain = timed_ms(lambda: K.adamw_ref(p, g, m, v, **ADAMW_HP), 20)
-    err = max(max_err(a, b) for a, b in zip(
-        K.adamw_ref(p, g, m, v, **ADAMW_HP),
-        K.fused_adamw_update(p.clone(), g, m.clone(), v.clone(), **ADAMW_HP)))
-    bms, by = bound(18 * n, 15 * n, PEAK_FP32)
-    # the library's fused AdamW takes one dtype for all four tensors: time
-    # both it and the kernel on fp32 p/g/m/v (28 B moved per element)
-    p32, g32, m32, v32 = adamw_inputs(n, f32, f32, f32)
-    step_t = torch.tensor(3.0, device=dev)
-    lib = timed_ms(lambda: torch._fused_adamw_(
-        [p32], [g32], [m32], [v32], [], [step_t], lr=ADAMW_HP["lr"],
-        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
-        maximize=False), 50)
-    ms32 = timed_ms(lambda: K.fused_adamw_update(p32, g32, m32, v32,
-                                                 **ADAMW_HP), 50)
-    print(f"  fused_adamw fp32 master + bf16 g/m/v, n={n}: kernel {ms:.4f} ms "
-          f"(device {fmt(dms, '.4f')} ms), plain {plain:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}); all fp32: kernel {ms32:.4f} ms, "
-          f"torch._fused_adamw_ {lib:.4f} ms", flush=True)
-    rows["fused_adamw_update"] = dict(
-        name="fused_adamw_update", route="cuda",
+    dms = device_ms(ours, "fused_adamw", 20)
+    plain_ms = timed_ms(plain, 20)
+    want, want_low = plain()
+    got = [t.clone() for t in (p, m, v, low)]
+    K.fused_adamw_multi([got[0]], [g], [got[1]], [got[2]], **ADAMW_HP,
+                        low=[got[3]])
+    err = max(max_err(a, b) for a, b in zip(got, (*want, want_low)))
+    # read p 4 + g 2 + m 2 + v 2, write p 4 + m 2 + v 2 + the copy 2
+    bms, by = bound(20 * n, 15 * n, PEAK_FP32)
+    print(f"  fused_adamw_multi fp32 master + bf16 g/m/v + the bf16 copy, "
+          f"n={n}: kernel {ms:.4f} ms (device {fmt(dms, '.4f')} ms), plain "
+          f"(and the copy) {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+          f"err {err:.1e} (tol 0)", flush=True)
+    check(err == 0, f"adamw with the bf16 copy at n={n}: {err}")
+    rows["fused_adamw_multi"] = dict(
+        name="fused_adamw_multi", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/fused_adamw.cu",
         replaces="paddle_tpu/kernels/fused_optim.py:24",
-        shape=f"n {n} (fc1), p fp32 master, g/m/v bf16",
-        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib,
-        library_note=f"torch._fused_adamw_ on fp32 p/g/m/v; the kernel on "
-                     f"the same fp32 tensors took {ms32:.4f} ms")
+        shape=f"n {n} (fc1), p fp32 master, g/m/v bf16, the bf16 copy",
+        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None)
+    del p, g, m, v, low, got, want, want_low
+
+
+def flash_fp32_routes(K, gen, rows):
+    """[3]: the fp32 flash kernels (CUDA cores, ``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu``) at the shapes the fp32 phases give them
+    (``FP32_FLASH``): each kernel's CUDA-event and device ms, its bound
+    (fp32 operations at the CUDA cores' peak against bytes), and
+    ``F.scaled_dot_product_attention``'s fp32 forward and backward on the
+    same values (TF32 off), into the three flash rows."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    for what, (B, S, H, D) in FP32_FLASH.items():
+        q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device=dev)
+                       for _ in range(4))
+        o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+        delta = importlib.import_module(
+            "paddle_tpu_torch.kernels.flash_attention")._delta(o, do)
+        calls = {
+            "fwd": (lambda: K.flash_attention_fwd(q, k, v, causal=True),
+                    FP32_FWD_SYMBOL),
+            "dq": (lambda: K.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    True),
+                   FP32_BWD_SYMBOLS["dq"]),
+            "dkv": (lambda: K.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, True),
+                    FP32_BWD_SYMBOLS["dkv"])}
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        lib_f = timed_ms(sdpa, 20)
+        lib_b = timed_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                     dot), 20) - lib_f
+        pairs = S * (S + 1) // 2
+        io = B * S * H * D * 4  # one fp32 [B, S, H, D] tensor
+        stats = B * H * S * 4
+        # bytes: q, k, v in, o out (and lse); the backward's dq reads q, k,
+        # v, do, lse, delta and writes dq, its dk/dv the same with dk, dv
+        work = {"fwd": (4 * io + stats, 4 * D * pairs * B * H),
+                "dq": (5 * io + 2 * stats, 6 * D * pairs * B * H),
+                "dkv": (6 * io + 2 * stats, 8 * D * pairs * B * H)}
+        out = {}
+        for name, (fn, sym) in calls.items():
+            ms = timed_ms(fn, 20)
+            dms = device_ms(fn, sym, 10)
+            bms, by = bound(*work[name], PEAK_FP32)
+            out[name] = dict(ms=ms, device_ms=dms, bound_ms=bms, bound_by=by)
+            check(dms is not None, f"the profiler did not see {sym}")
+        print(f"  flash fp32 (CUDA cores) at {what}'s B{B} S{S} H{H} D{D} "
+              f"causal: " + "; ".join(
+                  f"{name} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.5f} {r['bound_by']})"
+                  for name, r in out.items())
+              + f"; F.sdpa fp32 forward {lib_f:.4f} ms, backward (dq+dk+dv) "
+              f"{lib_b:.4f} ms ({nvidia_smi_line()})", flush=True)
+        for name, row in (("fwd", "flash_attention_fwd"),
+                          ("dq", "flash_attention_bwd_dq"),
+                          ("dkv", "flash_attention_bwd_dkv")):
+            rows[row].setdefault("float32_routes", {})[what] = dict(
+                shape=f"fp32 B{B} S{S} H{H} D{D} causal", **out[name],
+                library_ms=lib_f if name == "fwd" else lib_b)
+
+
+def adamw_tensors(gen, shape, pd, gd, md, copy=False):
+    """p, g, m, v (and the bf16 copy of p when ``copy``) on the card."""
+    dev = torch.device("cuda")
+
+    def randn(scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    p, g, m, v = (randn().to(pd), randn().to(gd), randn(0.1).to(md),
+                  randn(0.1).abs().to(md))
+    return (p, g, m, v, p.to(torch.bfloat16)) if copy else (p, g, m, v, None)
+
+
+def param_shapes(which: str):
+    """The parameter shapes of [6]'s GPT-3 1.3B ("dense") or [16]'s GPT-MoE
+    ("moe"), from a model built on the card and dropped."""
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**(GPT3_1p3B if which == "dense" else MOE5))
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def adamw_list_check(K, gen, combos, sizes, what, copies="every other"):
+    """One ``fused_adamw_multi`` call over tensors of every dtype
+    combination of ``combos`` and every shape of ``sizes``, plus two dim-0
+    slice views per combination (rows 2:4 of a [4, 2048] leaf, 16-byte
+    aligned; row 1 of a [3, 5] leaf, not), with per-tensor learning rates,
+    decays and step powers; a bf16 copy beside every other fp32 param
+    (``copies="all"``: every one). Holds every output to ``adamw_ref``
+    bitwise, the leaves' other rows untouched and the launches to one per
+    combination."""
+    entries, leaves, aligned = [], [], set()
+    for pd, gd, md in combos:
+        for shape in sizes:
+            entries.append(adamw_tensors(gen, shape, pd, gd, md))
+        for shape, part in (((4, 2048), slice(2, 4)), ((3, 5), slice(1, 2))):
+            leaf = adamw_tensors(gen, shape, pd, gd, md)[:4]
+            leaves.append((leaf, [t.clone() for t in leaf], part))
+            entries.append(tuple(t[part] for t in leaf) + (None,))
+            aligned.add(all(t.data_ptr() % 16 == 0 for t in entries[-1][:4]))
+    entries = [(p, g, m, v, p.to(torch.bfloat16) if p.dtype == torch.float32
+                and (copies == "all" or i % 2) else None)
+               for i, (p, g, m, v, _) in enumerate(entries)]
+    hp = [dict(lr=1e-4 * (1 + i % 3), weight_decay=0.01 * (i % 2),
+               beta1_pow=0.9 ** (1 + i % 4), beta2_pow=0.999 ** (1 + i % 4))
+          for i in range(len(entries))]
+    want = [K.adamw_ref(*e[:4], beta1=0.9, beta2=0.999, eps=1e-8, **h)
+            for e, h in zip(entries, hp)]
+    n0 = K.fused_adamw_multi.launches
+    K.fused_adamw_multi(
+        *[[e[k] for e in entries] for k in range(4)],
+        beta1=0.9, beta2=0.999, eps=1e-8,
+        **{k: [h[k] for h in hp] for k in hp[0]},
+        low=[e[4] for e in entries])
+    groups = {(e[0].dtype, e[1].dtype, e[2].dtype) for e in entries
+              if e[0].numel()}
+    errs = []
+    for (p, g, m, v, low), w in zip(entries, want):
+        got = (p, m, v) + (() if low is None else (low,))
+        ref = w + (() if low is None else (w[0].to(torch.bfloat16),))
+        errs.append((max([max_err(a, b) for a, b in zip(got, ref)
+                          if a.numel()], default=0.0),
+                     f"{p.dtype}/{g.dtype}/{m.dtype} {tuple(p.shape)}"))
+    rest = all(torch.equal(torch.cat([a[:part.start], a[part.stop:]]),
+                           torch.cat([b[:part.start], b[part.stop:]]))
+               for leaf, whole, part in leaves for a, b in zip(leaf, whole))
+    launched = K.fused_adamw_multi.launches - n0
+    print(f"  fused_adamw_multi {what}: {len(entries)} tensors "
+          f"({sum(e[0].numel() for e in entries)} elements; "
+          f"{sum(e[4] is not None for e in entries)} bf16 copies; slice "
+          f"views 16-byte aligned {sorted(aligned)}) in {launched} "
+          f"launches for {len(groups)} dtype combinations; largest "
+          f"|kernel - plain| {max(errs)[0]:.1e} (tol 0), the leaves' "
+          f"other rows untouched {rest}", flush=True)
+    check(max(errs)[0] == 0 and rest and launched == len(groups)
+          and aligned == {True, False},
+          f"{what}: adamw list {[e for e in errs if e[0]][:8]}, untouched "
+          f"{rest}, launches {launched} for {len(groups)} combinations, "
+          f"aligned {aligned}")
 
 
 def adamw_vs_library(K, gen, rows):
-    """[3]: the fused AdamW against ``torch._fused_adamw_`` on the same
-    all-fp32 tensors (the one dtype set the library takes), at fc1's n
-    16.8M and at [20a] (ii)'s slice of it (fc1 at sharding 2, n 8.4M):
-    12 CUDA-event readings of each, interleaved, each the mean of 20 calls,
-    and the device time of one call by the profiler (every kernel in the
-    window). Median and spread (the readings' min and max) go to the
-    kernel line."""
+    """[3]: the fused AdamW timed against ``torch._fused_adamw_`` and
+    against the per-tensor path (a launch, and a ``copy_`` of each master,
+    per tensor), 12 CUDA-event readings of each, interleaved (each the mean
+    of 20 calls on one tensor, of 5 on a list), and the profiler's device
+    time of a call (every kernel in the window):
+    (a) all-fp32 tensors at fc1's n 16.8M and at [20a] (ii)'s slice of it
+    (n 8.4M), the one-tensor form against the library;
+    (b) fp32 master, bf16 g/m/v and the bf16 copy at n 16.8M;
+    (c) [6]'s parameter list, all fp32, against the library over the list;
+    (d) [6]'s list in [6]'s dtypes with the bf16 copies;
+    (e) [16]'s parameter list, all bf16, against the library on bf16
+    p/g/m/v.
+    With a tree that has no grouped launch (``fused_adamw_multi``), only
+    the per-tensor path and the library. Medians, spreads and bounds go to
+    the kernel line (a tree without the grouped launch has no such line)."""
     dev = torch.device("cuda")
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
+    multi = getattr(K, "fused_adamw_multi", None)
+    hp = {k: v for k, v in ADAMW_HP.items()}
     step_t = torch.tensor(3.0, device=dev)
-    out = {}
-    for n, what in ((2048 * 8192, "fc1"), (1024 * 8192, "fc1 at sharding 2")):
-        p, g = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
-        m = 0.1 * torch.randn(n, generator=gen, device=dev)
-        v = (0.1 * torch.randn(n, generator=gen, device=dev)).abs()
 
-        def ours():
-            K.fused_adamw_update(p, g, m, v, **ADAMW_HP)
+    def variants(ps, gs, ms, vs, lows, library):
+        per_tensor = [(p, g, m, v, low) for p, g, m, v, low
+                      in zip(ps, gs, ms, vs, lows)]
 
-        def lib():
-            torch._fused_adamw_([p], [g], [m], [v], [], [step_t],
-                                lr=ADAMW_HP["lr"], beta1=0.9, beta2=0.999,
-                                weight_decay=0.01, eps=1e-8, amsgrad=False,
-                                maximize=False)
+        def each():
+            for p, g, m, v, low in per_tensor:
+                K.fused_adamw_update(p, g, m, v, **hp)
+                if low is not None:
+                    low.copy_(p)
 
-        reads = {"kernel": [], "library": []}
+        out = {"per-tensor path": each}
+        if multi is not None:
+            def grouped():
+                multi(ps, gs, ms, vs, **hp, low=lows)
+            out["kernel"] = grouped
+        if library:
+            steps = [step_t] * len(ps)
+
+            def lib():
+                torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=hp["lr"],
+                                    beta1=0.9, beta2=0.999,
+                                    weight_decay=0.01, eps=1e-8,
+                                    amsgrad=False, maximize=False)
+            out["torch._fused_adamw_"] = lib
+        return out
+
+    def measure(what, fns, iters, nbytes, n):
+        reads = {k: [] for k in fns}
         for _ in range(12):
-            reads["kernel"].append(timed_ms(ours, 20))
-            reads["library"].append(timed_ms(lib, 20))
+            for k, fn in fns.items():
+                reads[k].append(timed_ms(fn, iters))
         dev_ms = {}
-        for name, fn in (("kernel", ours), ("library", lib)):
+        for k, fn in fns.items():
             fn()
-            ks = profile_kernels(lambda: [fn() for _ in range(20)])
-            dev_ms[name] = sum(t for _, t in ks) / 20 * 1e3 if ks else None
+            ks = profile_kernels(lambda: [fn() for _ in range(iters)])
+            dev_ms[k] = sum(t for _, t in ks) / iters * 1e3 if ks else None
         med = {k: float(np.median(r)) for k, r in reads.items()}
         spread = {k: (min(r), max(r)) for k, r in reads.items()}
-        # p, g, m, v read (16 B) and p, m, v written (12 B) per element
-        bms, by = bound(28 * n, 15 * n, PEAK_FP32)
-        beyond = spread["kernel"][0] > spread["library"][1]
-        print(f"  fused_adamw all fp32, n={n} ({what}): kernel median "
-              f"{med['kernel']:.4f} ms (spread {spread['kernel'][0]:.4f}-"
-              f"{spread['kernel'][1]:.4f}), torch._fused_adamw_ median "
-              f"{med['library']:.4f} ms (spread {spread['library'][0]:.4f}-"
-              f"{spread['library'][1]:.4f}) over 12 interleaved readings; "
-              f"device {fmt(dev_ms['kernel'], '.4f')} vs "
-              f"{fmt(dev_ms['library'], '.4f')} ms; bound {bms:.4f} ms "
-              f"({by}); the kernel slower beyond the spread: {beyond}",
-              flush=True)
-        out[what] = {"n": n, "median_ms": med, "spread_ms": spread,
-                     "device_ms": dev_ms, "bound_ms": bms,
-                     "slower_beyond_spread": beyond}
-        del p, g, m, v
-    row = rows["fused_adamw_update"]
-    row["library_ms"] = out["fc1"]["median_ms"]["library"]
-    row["library_note"] = (
-        "torch._fused_adamw_ on fp32 p/g/m/v, median of 12 readings; the "
-        "kernel on the same tensors "
-        f"{out['fc1']['median_ms']['kernel']:.4f} ms")
-    row["fp32_vs_library"] = out
+        bms, by = bound(nbytes, 15 * n, PEAK_FP32)
+        print(f"  fused AdamW, {what}: bound {bms:.4f} ms ({by}); medians of "
+              f"12 interleaved readings (spread; device ms): " + "; ".join(
+                  f"{k} {med[k]:.4f} ({spread[k][0]:.4f}-{spread[k][1]:.4f}"
+                  f"; {fmt(dev_ms[k], '.4f')})" for k in fns), flush=True)
+        return {"n": n, "bound_ms": bms, "median_ms": med,
+                "spread_ms": spread, "device_ms": dev_ms}
+
+    def tensors(shapes, pd, gd, md, copy):
+        ts = [adamw_tensors(gen, sh, pd, gd, md, copy) for sh in shapes]
+        return [list(col) for col in zip(*ts)]
+
+    out = {}
+    # (a), (b): one tensor; p, g, m, v read (16 B) and p, m, v written
+    # (12 B) per element in fp32; 10 + 8 + the copy's 2 in (b)
+    for n, what in ((2048 * 8192, "fc1"), (1024 * 8192, "fc1 at sharding 2")):
+        ps, gs, ms, vs, lows = tensors([n], f32, f32, f32, False)
+        fns = {"kernel": lambda: K.fused_adamw_update(ps[0], gs[0], ms[0],
+                                                      vs[0], **hp),
+               "torch._fused_adamw_": variants(
+                   ps, gs, ms, vs, lows, True)["torch._fused_adamw_"]}
+        out[f"all fp32, n {n} ({what})"] = measure(
+            f"all fp32, n {n} ({what})", fns, 20, 28 * n, n)
+        del ps, gs, ms, vs, lows, fns
+    n = 2048 * 8192
+    cols = tensors([n], f32, bf16, bf16, True)
+    out["fp32 master, bf16 g/m/v, the copy, n 16.8M"] = measure(
+        f"fp32 master + bf16 g/m/v + the bf16 copy, n {n} (fc1)",
+        variants(*cols, False), 20, 20 * n, n)
+    del cols
+    for which, dtypes, copy, key in (
+            ("dense", (f32, f32, f32), False, "[6]'s list, all fp32"),
+            ("dense", (f32, bf16, bf16), True,
+             "[6]'s list, fp32 master, bf16 g/m/v, the copies"),
+            ("moe", (bf16, bf16, bf16), False, "[16]'s list, all bf16")):
+        shapes = param_shapes(which)
+        n = sum(int(np.prod(sh)) for sh in shapes)
+        per = {f32: 28, bf16: 14}[dtypes[0]] if not copy else 20
+        cols = tensors(shapes, *dtypes, copy)
+        out[key] = measure(f"{key}: {len(shapes)} tensors, n {n}",
+                           variants(*cols, not copy), 5, per * n, n)
+        del cols
+        torch.cuda.empty_cache()
+    if multi is not None:
+        a = out["all fp32, n 16777216 (fc1)"]
+        row = rows.setdefault("fused_adamw_multi", {})
+        row["library_ms"] = a["median_ms"]["torch._fused_adamw_"]
+        row["library_note"] = (
+            "torch._fused_adamw_ on fp32 p/g/m/v, median of 12 readings; the "
+            f"kernel on the same tensors {a['median_ms']['kernel']:.4f} ms")
+        row["vs_library"] = out
+    return out
 
 
 def mp_kernel_checks(K, gen, rows):
@@ -1265,7 +1504,7 @@ def mp_kernel_checks(K, gen, rows):
                   and K.fused_adamw_update.launches == n0 + 1
                   and aligned == (shape[0] == 4),
                   f"adamw on a slice view {shape}[{part}]: {errs}, {rest}")
-    rows["fused_adamw_update"]["slice_view_max_abs_err"] = worst
+    rows["fused_adamw_multi"]["slice_view_max_abs_err"] = worst
 
 
 def primitive_err(got, want):
@@ -2207,16 +2446,23 @@ def train_slice(K, seed: int, rows):
     torch.cuda.synchronize()
     print(f"    warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
     K.reset_launch_counts()
+    copies0 = getattr(opt, "master_copies", None)
+    clock = HostClock(step.optimizer, "apply_gradients")
     t0 = time.perf_counter()
     for _ in range(timed):
         losses.append(step(x, y))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / timed
+    clock.close()
     counts = K.launch_counts()
+    copies = None if copies0 is None else opt.master_copies - copies0
     routes = check_flash_routes(K, "wgmma", "[6]")
     peak = torch.cuda.max_memory_allocated()
-    kernels = profile_kernels(lambda: losses.append(step(x, y)))
+    launched = profile_launches(lambda: losses.append(step(x, y)))
+    kernels = [(name, t) for name, t, _ in launched]
     busy, top = sum(t for _, t in kernels), kernels[:10]
+    adamw_ms, adamw_n = optimizer_device_ms(
+        lambda: losses.append(step(x, y)), opt)
     flash_ms = {k: kernel_ms(kernels, sym) for k, sym in
                 (("fwd", FWD_SYMBOL), *BWD_SYMBOLS.items())}
     norm_ms = {k: kernel_ms(kernels, sym) for k, sym in NORM_SYMBOLS.items()}
@@ -2238,6 +2484,18 @@ def train_slice(K, seed: int, rows):
         print(f"     {t * 1e3:9.3f} ms  {name[:90]}", flush=True)
     print(f"    kernel launches over the {timed} timed steps: {counts}; "
           f"flash kernels by route: {routes}", flush=True)
+    adamw = adamw_wrapper(K)
+    # one launch for the one dtype combination (fp32 master, bf16 g/m/v);
+    # a tree without the grouped launch: one per tensor
+    want_adamw = 1 if adamw == "fused_adamw_multi" else n_tensors
+    print(f"    AdamW: {counts[adamw] / timed:g} launches of {adamw} a step "
+          f"({n_tensors} tensors), master weights copied by copy_ "
+          f"{'not counted' if copies is None else copies / timed:} a step; "
+          f"apply_gradients {clock.seconds / timed * 1e3:.2f} ms host clock "
+          f"a step (a launch blocks once the launch queue is full); a "
+          f"further profiled step: apply_gradients' {adamw_n} kernels on "
+          f"the card, {adamw_ms:.3f} ms of device time "
+          f"({nvidia_smi_line()})", flush=True)
     print(f"    profiled step: {FWD_SYMBOL} {fmt(flash_ms['fwd'], '.3f')} ms, "
           f"{BWD_SYMBOLS['dq']} {fmt(flash_ms['dq'], '.3f')} ms, "
           f"{BWD_SYMBOLS['dkv']} {fmt(flash_ms['dkv'], '.3f')} ms of device "
@@ -2264,17 +2522,26 @@ def train_slice(K, seed: int, rows):
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
           f"first loss {losses[0]} is not within 0.5 of ln V")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+    check(all(counts[k] > 0 for k in training_kernels(K)),
           f"a kernel of the training path was never launched: {counts}")
     check(counts["flash_attention_fwd"] == 2 * L * timed
           and counts["flash_attention_bwd_dq"] == L * timed
           and counts["flash_attention_bwd_dkv"] == L * timed
-          and counts["fused_adamw_update"] == n_tensors * timed,
+          and counts[adamw] == want_adamw * timed and copies in (None, 0)
+          and (adamw_n == want_adamw or copies is None),
           f"launches per step differ from 2L flash forwards (recompute), L "
-          f"dq and dk/dv, one AdamW per parameter tensor: {counts}")
-    for name in TRAINING_KERNELS:  # LayerNorm and flash fwd serve as well
+          f"dq and dk/dv, {want_adamw} AdamW and no master copy: {counts}, "
+          f"copies {copies}, AdamW kernels in the profiled step {adamw_n}")
+    print(f"    digest of the {len(losses)} losses, the parameters and the "
+          f"AdamW state after them: {state_digest(losses, state_tensors(step))}",
+          flush=True)
+    for name, kname in zip(TRAINING_KERNELS, training_kernels(K)):
+        # LayerNorm and flash fwd serve as well
         key = "launches_train" if "launches" in rows[name] else "launches"
-        rows[name][key] = counts[name]
+        rows[name][key] = counts[kname]
+    rows["fused_adamw_multi"].update(
+        train_apply_gradients_host_ms=clock.seconds / timed * 1e3,
+        train_device_ms=adamw_ms, train_master_copies=copies)
     print(f"    phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     del model, opt, step
     torch.cuda.empty_cache()
@@ -2437,7 +2704,7 @@ def train_surface(K, seed):
               f"{peak / 2**30:.2f} GiB; per step: flash fwd {fwd:g}, dq "
               f"{counts['flash_attention_bwd_dq'] / KS:g}, dk/dv "
               f"{counts['flash_attention_bwd_dkv'] / KS:g}, AdamW "
-              f"{counts['fused_adamw_update'] / KS:g}, LayerNorm "
+              f"{counts[adamw_wrapper(K)] / KS:g}, LayerNorm "
               f"{counts['fused_layer_norm'] / KS:g}; policy took "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         L = cfg.num_layers
@@ -2447,7 +2714,7 @@ def train_surface(K, seed):
               f"{policy}: {losses}")
         check(lrs == want_lrs, f"rates {lrs} differ from the schedule "
               f"{want_lrs}")
-        check(all(counts[k] > 0 for k in TRAINING_KERNELS),
+        check(all(counts[k] > 0 for k in training_kernels(K)),
               f"a kernel of the training path was never launched: {counts}")
         check(fwd == (L if policy == "save_flash" else 2 * L),
               f"flash forwards per step under {policy}: {fwd}")
@@ -2661,6 +2928,82 @@ def state_checksum(state) -> int:
         else:
             total += int(np.asarray(v).view(np.int32))
     return total % 2 ** 64
+
+
+def state_digest(losses, state) -> str:
+    """A SHA-256 over the losses' and every state entry's bits, by name:
+    two runs of the same steps on the same inputs (in two checkouts, each
+    in its own process) print the same digest iff every value is bitwise
+    equal. Each tensor enters by its words' sum and their sum weighted by
+    position (int64 on the card, mod 2**64), and its shape and dtype."""
+    h = hashlib.sha256(np.asarray(losses, np.float32).tobytes())
+    for name in sorted(state):
+        v = state[name]
+        h.update(name.encode())
+        if isinstance(v, torch.Tensor):
+            words = v.detach().reshape(-1).view(
+                {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                    v.element_size()]).to(torch.int64)
+            pos = torch.arange(1, words.numel() + 1, device=words.device)
+            h.update(f"{v.dtype}{tuple(v.shape)}{int(words.sum())}"
+                     f"{int((words * pos).sum())}".encode())
+        else:
+            h.update(np.asarray(v, np.float32).tobytes())
+    return h.hexdigest()[:32]
+
+
+def optimizer_device_ms(step_fn, opt):
+    """(device ms, kernels) of ``opt.apply_gradients`` in one call of
+    ``step_fn``, by the profiler: the kernels of the ops it runs inside a
+    profiler range (a master's ``copy_``, a plain update) and the fused
+    AdamW's, which ``ctypes`` launches outside any op (by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    label = "chip_smoke::apply_gradients"
+    opt.apply_gradients = scoped(opt.apply_gradients, label)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn()
+            torch.cuda.synchronize()
+    finally:
+        del opt.apply_gradients
+    ms, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "fused_adamw" in e.name:
+            ms, n = ms + (e.time_range.end - e.time_range.start) * 1e-3, n + 1
+        scope = e
+        while scope is not None and scope.name != label:
+            scope = scope.cpu_parent
+        if scope is None:
+            continue
+        for kern in e.kernels:
+            if "fused_adamw" not in kern.name:
+                ms, n = ms + kern.duration * 1e-3, n + 1
+    return ms, n
+
+
+class HostClock:
+    """Host seconds spent in ``obj.name`` (a method wrapped on the
+    instance until ``close``)."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.seconds = obj, name, 0.0
+        fn = getattr(obj, name)
+
+        @functools.wraps(fn)
+        def clocked(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        setattr(obj, name, clocked)
+
+    def close(self):
+        delattr(self.obj, self.name)
 
 
 def write_token_shards(directory: Path, seed: int, vocab: int, n_tokens: int,
@@ -2941,7 +3284,7 @@ MOE5 = dict(vocab_size=32768, hidden_size=1024, num_layers=8, num_heads=16,
 # autograd node); the rest is the remainder of the busy time
 MOE_KERNEL_GROUPS = (("flash", ("flash_",)),
                      ("LayerNorm", tuple(NORM_SYMBOLS.values())),
-                     ("AdamW", ("fused_adamw_kernel",)))
+                     ("AdamW", ("fused_adamw",)))
 MOE_GROUPS = [g for g, _ in MOE_KERNEL_GROUPS] + [
     "experts: products", "experts: bias, GELU", "routing", "the rest"]
 
@@ -3123,9 +3466,9 @@ def moe_train_slice(K, seed: int, rows):
         cfg, device="cuda", dtype=torch.bfloat16,
         generator=torch.Generator(device="cuda").manual_seed(seed + 16))
     model.train()
-    step = make_sharded_train_step(model, AdamW(
-        learning_rate=1e-4, parameters=model.named_parameters(),
-        moment_dtype="bfloat16"))
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    step = make_sharded_train_step(model, opt)
     n = sum(p.numel() for p in model.parameters())
     n_tensors = sum(1 for _ in model.parameters())
     n_active, flops = moe_active_flops(model, B, S)
@@ -3168,8 +3511,12 @@ def moe_train_slice(K, seed: int, rows):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / timed
 
+    copies0 = getattr(opt, "master_copies", None)
+    clock = HostClock(opt, "apply_gradients")
     step_s = timed_steps()
+    clock.close()
     counts = K.launch_counts()
+    copies = None if copies0 is None else opt.master_copies - copies0
     routes = check_flash_routes(K, "wgmma", "[16]")
     peak = torch.cuda.max_memory_allocated()
     ms, rest, busy, n_kernels = moe_breakdown(
@@ -3201,23 +3548,36 @@ def moe_train_slice(K, seed: int, rows):
           f"{timed} timed steps: {counts}; flash kernels by route: {routes}",
           flush=True)
     # recompute replays each dense block's forward (flash and its two
-    # LayerNorms twice); MoE blocks run outside recompute
+    # LayerNorms twice); MoE blocks run outside recompute; AdamW: one
+    # launch for the one dtype combination (all bf16), or one per tensor
+    # in a tree without the grouped launch
+    adamw = adamw_wrapper(K)
     want = {"flash_attention_fwd": 2 * L_dense + L_moe,
             "flash_attention_bwd_dq": L_dense + L_moe,
             "flash_attention_bwd_dkv": L_dense + L_moe,
             "fused_layer_norm": 4 * L_dense + 2 * L_moe + 1,
             "layer_norm_bwd": 2 * (L_dense + L_moe) + 1,
-            "fused_adamw_update": n_tensors}
+            adamw: 1 if adamw == "fused_adamw_multi" else n_tensors}
     got = {k: counts[k] / timed for k in want}
-    print(f"    launches per step {got}, as the code gives {want}",
-          flush=True)
-    check(got == want, f"[16]: launches per step {got}, not {want}")
+    print(f"    launches per step {got}, as the code gives {want}; master "
+          f"weights copied {copies} (none kept); apply_gradients "
+          f"{clock.seconds / timed * 1e3:.2f} ms host clock a step over the "
+          f"{timed} timed steps; the AdamW group {ms['AdamW']:.3f} ms of "
+          f"device time in the profiled step ({smi})", flush=True)
+    check(got == want and copies in (None, 0),
+          f"[16]: launches per step {got}, not {want}; copies {copies}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"[16]: the loss did not fall: {losses}")
     check(all(v > 0 for v in ms.values()),
           f"[16]: a group of the breakdown saw no device time: {ms}")
-    for name in TRAINING_KERNELS:
-        rows[name]["launches_moe_train"] = counts[name]
+    print(f"    digest of the {len(losses)} losses, the parameters and the "
+          f"AdamW state after them: {state_digest(losses, state_tensors(step))}",
+          flush=True)
+    for name, kname in zip(TRAINING_KERNELS, training_kernels(K)):
+        rows[name]["launches_moe_train"] = counts[kname]
+    rows["fused_adamw_multi"].update(
+        moe_apply_gradients_host_ms=clock.seconds / timed * 1e3,
+        moe_device_ms=ms["AdamW"])
     # two steps from one state, bit for bit (no atomics in the route's sums)
     snap = moe_snapshot(step)
     la = step(x, y)
@@ -3230,7 +3590,7 @@ def moe_train_slice(K, seed: int, rows):
           f"{float(lb):.6f}, every parameter bitwise equal: {same}",
           flush=True)
     check(same, "[16]: two steps from the same state differ")
-    del model, step, snap, after, seen
+    del model, opt, step, snap, after, seen
     torch.cuda.empty_cache()
     print(f"    phase 16 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -3566,8 +3926,8 @@ def dp_nccl_slice(K, seed: int, rows, step6_s):
               f"from the no-mesh steps: losses {same_loss}, {diff[:4]}")
         del ref
         timed, L = 3, cfg.num_layers
-        n_tensors = sum(1 for _ in model.parameters())
         K.reset_launch_counts()
+        copies0 = opt.master_copies
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(timed):
@@ -3616,8 +3976,11 @@ def dp_nccl_slice(K, seed: int, rows, step6_s):
               and counts["flash_attention_bwd_dkv"] == L * timed
               and counts["fused_layer_norm"] == (4 * L + 1) * timed
               and counts["layer_norm_bwd"] == (2 * L + 1) * timed
-              and counts["fused_adamw_update"] == n_tensors * timed,
-              f"[18a]: launches per step differ from [6]'s: {counts}")
+              and counts["fused_adamw_multi"] == timed
+              and opt.master_copies == copies0,
+              f"[18a]: launches per step differ from [6]'s (one AdamW, no "
+              f"master copy): {counts}, copies "
+              f"{opt.master_copies - copies0}")
         for name in TRAINING_KERNELS:
             rows[name]["launches_dp"] = counts[name]
         del model, opt, step, bufs
@@ -3957,11 +4320,13 @@ def tp_worker(directory: Path, seed: int) -> int:
     rec["warmup_loss"] = step(xm, ym).item()
     tally, restore = count_collectives()
     K.reset_launch_counts()
+    copies0 = opt.master_copies
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [step(xm, ym) for _ in range(TP_TIMED)]
     torch.cuda.synchronize()
     rec["step_s"] = (time.perf_counter() - t0) / TP_TIMED
+    rec["master_copies"] = opt.master_copies - copies0
     restore()
     rec["main_losses"] = [float(v) for v in losses]
     rec["launches"] = K.launch_counts()
@@ -4181,7 +4546,8 @@ def tp_two_ranks(K, seed: int, rows, ref, one):
                   and ln["flash_attention_bwd_dkv"] == L * TP_TIMED
                   and ln["fused_layer_norm"] == (4 * L + 1) * TP_TIMED
                   and ln["layer_norm_bwd"] == (2 * L + 1) * TP_TIMED
-                  and ln["fused_adamw_update"] > 0
+                  and ln["fused_adamw_multi"] == TP_TIMED
+                  and r["master_copies"] == 0
                   and all(v["wgmma"] == sum(v.values()) > 0
                           for v in r["flash_routes"].values())
                   and mine / theirs <= 0.55,
@@ -4432,8 +4798,8 @@ def z3_nccl_slice(K, seed: int, rows, step6_s):
               f"differ from the no-mesh steps: {same_loss}, {diff[:4]}")
         del ref
         timed, L = 3, cfg.num_layers
-        n_tensors = sum(1 for _ in model.parameters())
         K.reset_launch_counts()
+        copies0 = opt.master_copies
         model.stats.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4454,9 +4820,12 @@ def z3_nccl_slice(K, seed: int, rows, step6_s):
               and counts["flash_attention_bwd_dkv"] == L * timed
               and counts["fused_layer_norm"] == (4 * L + 1) * timed
               and counts["layer_norm_bwd"] == (2 * L + 1) * timed
-              and counts["fused_adamw_update"] == n_tensors * timed
+              and counts["fused_adamw_multi"] == timed
+              and opt.master_copies == copies0
               and model.stats.reduce_scatters == len(model.z3) * timed,
-              f"[20a] (0): launches per step differ from [6]'s: {counts}")
+              f"[20a] (0): launches per step differ from [6]'s (one AdamW, "
+              f"no master copy): {counts}, copies "
+              f"{opt.master_copies - copies0}")
         for name in TRAINING_KERNELS:
             rows[name]["launches_z3_nccl"] = counts[name]
         del model, opt, step
@@ -4552,12 +4921,14 @@ def z3_worker(directory: Path, seed: int) -> int:
         m = {"warmup_loss": step(xm, ym).item()}
         if level == "p_g_os":
             K.reset_launch_counts()
+            copies0 = opt.master_copies
             model.stats.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses = [step(xm, ym) for _ in range(Z3_TIMED)]
             torch.cuda.synchronize()
             m["step_s"] = (time.perf_counter() - t0) / Z3_TIMED
+            m["master_copies"] = opt.master_copies - copies0
             m["losses"] = [float(v) for v in losses]
             m["launches"] = K.launch_counts()
             m["flash_routes"] = {w: dict(getattr(K, w).route_launches)
@@ -4579,7 +4950,6 @@ def z3_worker(directory: Path, seed: int) -> int:
                     if f".layers.{i}." in n) for i in range(tcfg.num_layers))
             m["largest_bytes"] = max(int(np.prod(z.shape)) * 2
                                      for z in model.z3.values())
-            m["update_tensors"] = len(step.params)
         m["peak_bytes"] = torch.cuda.max_memory_allocated() - base
         m["param_bytes"] = tensor_bytes(step.params.values())
         m["grad_bytes"] = update_grad_bytes(step)
@@ -4697,8 +5067,8 @@ def z3_two_ranks(K, seed: int, rows, ref, os_g, one):
                   and ln["flash_attention_bwd_dkv"] == L * Z3_TIMED
                   and ln["fused_layer_norm"] == (4 * L + 1) * Z3_TIMED
                   and ln["layer_norm_bwd"] == (2 * L + 1) * Z3_TIMED
-                  and ln["fused_adamw_update"]
-                  == m["update_tensors"] * Z3_TIMED
+                  and ln["fused_adamw_multi"] == Z3_TIMED
+                  and m["master_copies"] == 0
                   and all(v["wgmma"] == sum(v.values()) > 0
                           for v in m["flash_routes"].values())
                   and mine / theirs <= 0.55
@@ -4946,16 +5316,21 @@ def main() -> int:
                     "ZeRO shapes, [18b] (the reference) and [19] with the "
                     "package in DIR, and exit")
     ap.add_argument("--train-of", metavar="DIR", type=Path,
-                    help="only run phase 6's step and phase 8's recompute "
-                    "policies with the package in DIR (a checkout of "
-                    "another commit, or this one), and exit")
+                    help="only run phase 3's AdamW timings, phase 6's step "
+                    "and phase 8's recompute policies with the package in "
+                    "DIR (a checkout of another commit, or this one), and "
+                    "exit")
+    ap.add_argument("--moe-of", metavar="DIR", type=Path,
+                    help="only run phase 16's GPT-MoE step with the package "
+                    "in DIR (a checkout of another commit, or this one), "
+                    "and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the "
               "card only", file=sys.stderr)
         return 2
-    repo = (args.paged_shapes_of or args.train_of or args.mp_of
-            or args.zero3_of or Path(__file__).parent).resolve()
+    repo = (args.paged_shapes_of or args.train_of or args.moe_of
+            or args.mp_of or args.zero3_of or Path(__file__).parent).resolve()
     if not (repo / "paddle_tpu_torch" / "__init__.py").exists():
         print(f"chip_smoke: no paddle_tpu_torch package in {repo}",
               file=sys.stderr)
@@ -5013,7 +5388,6 @@ def main() -> int:
         print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
         rows = {name: {} for name in ALL_KERNELS}
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        rows["fused_adamw_update"] = {}
         adamw_vs_library(K, gen, rows)
         ref = dp_two_ranks(K, args.seed, rows)
         os_g = zero_two_ranks(K, args.seed, rows, ref)
@@ -5032,11 +5406,25 @@ def main() -> int:
         print(f"[1] device: {nvidia_smi_line()}; training of {repo}",
               flush=True)
         print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
-        train_slice(K, args.seed, {name: {} for name in TRAINING_KERNELS})
+        rows = {name: {} for name in TRAINING_KERNELS}
+        adamw_vs_library(K, torch.Generator(device="cuda").manual_seed(
+            args.seed), rows)
+        train_slice(K, args.seed, rows)
         t0 = time.perf_counter()
         train_surface(K, args.seed)
         print(f"    phase 8 took {time.perf_counter() - t0:.1f} s",
               flush=True)
+        return 0
+    if args.moe_of:
+        from paddle_tpu_torch import kernels as K
+        from paddle_tpu_torch.kernels import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[1] device: {nvidia_smi_line()}; GPT-MoE training of {repo}",
+              flush=True)
+        print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
+        moe_train_slice(K, args.seed, {name: {} for name in TRAINING_KERNELS})
         return 0
 
     # ---- 1. device
@@ -5099,6 +5487,7 @@ def main() -> int:
     rows = kernel_checks(K, gen)
     norm_checks(K, gen, rows)
     train_kernel_checks(K, gen, rows)
+    flash_fp32_routes(K, gen, rows)
     mp_kernel_checks(K, gen, rows)
     adamw_vs_library(K, gen, rows)
     primitive_checks(P, ops, gen, rows)

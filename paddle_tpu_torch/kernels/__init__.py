@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Each wrapper (``fused_layer_norm``, ``fused_rms_norm`` and their backwards
-``layer_norm_bwd``, ``rms_norm_bwd``, ``flash_attention_fwd``, ``flash_attention_bwd_dq``,
-``flash_attention_bwd_dkv``, ``paged_attention``, ``fused_adamw_update``,
-and the callables made by ``primitive.elementwise_kernel`` and
+``layer_norm_bwd``, ``rms_norm_bwd``, ``flash_attention_fwd``,
+``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
+``paged_attention``, ``fused_adamw_multi`` (one launch per dtype group of
+a list of tensors), its one-tensor form ``fused_adamw_update``, and the
+callables made by ``primitive.elementwise_kernel`` and
 ``primitive.row_reduce_kernel``) runs its plain version on CPU tensors and
 launches its kernel on CUDA tensors, counting each launch in a
 ``launches`` attribute (the two factories count the launches of every
@@ -23,7 +25,7 @@ from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_dkv, flash_attention_bwd_dq,
                               flash_attention_bwd_ref, flash_attention_fwd,
                               flash_attention_ref, flash_fwd_op)
-from .fused_optim import adamw_ref, fused_adamw_update
+from .fused_optim import adamw_ref, fused_adamw_multi, fused_adamw_update
 from .norms import (LayerNormFunction, RMSNormFunction, fused_layer_norm,
                     fused_rms_norm, layer_norm_bwd, layer_norm_bwd_ref,
                     layer_norm_ref, rms_norm_bwd, rms_norm_bwd_ref,
@@ -37,8 +39,8 @@ from .quant import (dequantize_block_scaled, fit_block_size,
 #: every kernel wrapper of the package, for resetting and reading the counts
 WRAPPERS = (fused_layer_norm, layer_norm_bwd, flash_attention_fwd,
             paged_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
-            fused_adamw_update, fused_rms_norm, rms_norm_bwd,
-            elementwise_kernel, row_reduce_kernel)
+            fused_adamw_multi, fused_adamw_update, fused_rms_norm,
+            rms_norm_bwd, elementwise_kernel, row_reduce_kernel)
 
 
 def reset_launch_counts():
@@ -59,7 +61,8 @@ __all__ = ["fused_layer_norm", "layer_norm_ref", "layer_norm_bwd",
            "flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_ref", "flash_fwd_op", "paged_attention",
-           "paged_attention_ref", "fused_adamw_update", "adamw_ref",
+           "paged_attention_ref", "fused_adamw_multi", "fused_adamw_update",
+           "adamw_ref",
            "primitive", "elementwise_kernel", "row_reduce_kernel",
            "quantize_block_scaled", "dequantize_block_scaled",
            "fit_block_size", "WRAPPERS", "reset_launch_counts",

@@ -7,14 +7,18 @@ parameter (or its fp32 master weight), the moments and the step powers are
 written where they lie, which is the port's counterpart of the JAX train
 step's donated buffers. With ``multi_precision=True`` a bf16 parameter
 keeps an fp32 master copy in its state; the update runs on the master and
-the parameter is then copied from it in one ``copy_``.
+the parameter is then written from it (by the fused kernel in the same
+pass, or by one ``copy_``, counted in ``master_copies``).
 
-``Adam`` and ``AdamW`` send every float32/bfloat16 tensor with
-float32/bfloat16 moments through the fused AdamW kernel
-(``kernels/fused_optim.py``, which says why there is no size gate); Adam's
-L2 term is folded into the gradient first and it runs with no decoupled
-decay. The JAX package's plain Adam arithmetic stays only for ``amsgrad``
-(the kernel keeps no running maximum) and for other dtypes.
+``Adam`` and ``AdamW`` send every tensor whose (value, grad, moments)
+dtypes the fused AdamW kernel takes (float32/bfloat16,
+``kernels/fused_optim.py``, which says why there is no size gate) through
+it together: ``apply_gradients`` collects them and makes one launch per
+dtype combination (``fused_adamw_multi``), each tensor with its own
+learning rate, decay and step powers. Adam's L2 term is folded into the
+gradient first and it runs with no decoupled decay. The JAX package's
+plain Adam arithmetic stays only for ``amsgrad`` (the kernel keeps no
+running maximum) and for other dtypes (an fp16 gradient, say).
 ``beta1_pow``/``beta2_pow`` are fp32 scalars multiplied in fp32 on the
 host, as the JAX state multiplies them, so trajectories match.
 
@@ -25,10 +29,11 @@ state's tensors are returned as they live (no copy); ``set_state_dict``
 copies into them in place and restores the step powers to the same fp32
 bits.
 
-``lazy_mode`` (paddle: update only the rows a sparse gradient touches) and
-``use_multi_tensor`` (paddle: one fused launch over many tensors) change no
-value with the dense gradients the port makes, in paddle as here; they are
-kept on the optimizer. ``name`` is accepted and unused, as in paddle.
+``lazy_mode`` (paddle: update only the rows a sparse gradient touches)
+changes no value with the dense gradients the port makes, in paddle as
+here, and ``use_multi_tensor`` (paddle: one fused launch over many
+tensors) changes none either: the port always groups. Both are kept on the
+optimizer. ``name`` is accepted and unused, as in paddle.
 """
 
 from __future__ import annotations
@@ -37,13 +42,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_dtype
-from ..kernels.fused_optim import fused_adamw_update
+from ..kernels.fused_optim import COMBOS, fused_adamw_multi
 from ..weights import to_torch
 from .lr import LRScheduler
 
 _F32 = np.float32
 _LOW = (torch.bfloat16, torch.float16)
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _load_slot(cur, v, key):
@@ -99,6 +103,9 @@ class Optimizer:
         #: per-parameter state by name: moments, step powers, master weight
         self.state = {}
         self._step_count = 0  # eager step() calls (``global_step``)
+        #: master weights copied into their parameters by a ``copy_`` (the
+        #: fused kernel writes a contiguous bf16 parameter itself)
+        self.master_copies = 0
 
     def get_lr(self) -> float:
         if isinstance(self._lr, LRScheduler):
@@ -184,9 +191,20 @@ class Optimizer:
             self.state[name] = s
         return self.state
 
-    # ---- the per-tensor update (override) ----
+    # ---- the updates (override) ----
     def _update(self, value, grad, state, lr, name):
-        """Update ``value`` and ``state`` in place."""
+        """Update ``value`` and ``state`` in place, for one tensor the
+        grouped update does not take; ``grad`` is in ``value``'s dtype."""
+        raise NotImplementedError
+
+    def _groups(self, value, grad, state) -> bool:
+        """True when ``_update_grouped`` takes this tensor with ``grad`` at
+        its own dtype (the fused kernel casts in registers)."""
+        return False
+
+    def _update_grouped(self, items, lr):
+        """Update every ``(name, param, value, grad, state)`` of ``items``
+        in place, writing each ``param`` from a master ``value``."""
         raise NotImplementedError
 
     def _coupled_wd(self) -> float:
@@ -196,30 +214,35 @@ class Optimizer:
             return 0.0
         return float(getattr(wd, "coeff", wd))
 
-    def _takes_native_grad(self, value, state) -> bool:
-        """True when ``_update`` takes the grad at its own dtype (the fused
-        kernel casts in registers), so no fp32 copy of it is made."""
-        return False
+    def _copy_master(self, p, value):
+        p.copy_(value)
+        self.master_copies += 1
 
     @torch.no_grad()
     def apply_gradients(self, named_params, lr=None):
         """Update every parameter of ``{name: param}`` that has a ``.grad``,
-        in place (``apply_gradients`` analog; no clipping here)."""
+        in place (``apply_gradients`` analog; no clipping here): the
+        tensors ``_groups`` takes all at once, the others one by one."""
         lr = self.get_lr() if lr is None else float(lr)
         self.init_state(named_params)
+        cwd = self._coupled_wd()
+        grouped = []
         for name, p in named_params.items():
             g = p.grad
             if g is None:
                 continue
             s = self.state[name]
             value = s.get("master_weight", p)
-            gv = g if self._takes_native_grad(value, s) else g.to(value.dtype)
-            cwd = self._coupled_wd()
             if cwd:
-                gv = gv.to(value.dtype) + cwd * value
-            self._update(value, gv, s, lr, name)
+                g = g.to(value.dtype) + cwd * value
+            if self._groups(value, g, s):
+                grouped.append((name, p, value, g, s))
+                continue
+            self._update(value, g.to(value.dtype), s, lr, name)
             if value is not p:
-                p.copy_(value)
+                self._copy_master(p, value)
+        if grouped:
+            self._update_grouped(grouped, lr)
 
 
 class Adam(Optimizer):
@@ -257,27 +280,48 @@ class Adam(Optimizer):
         state["beta1_pow"], state["beta2_pow"] = b1p, b2p
         return b1p, b2p
 
-    def _use_fused_kernel(self, value, state) -> bool:
-        return (not self._amsgrad and value.dtype in _KERNEL_DTYPES
-                and state["moment1"].dtype in _KERNEL_DTYPES)
+    def _groups(self, value, grad, state) -> bool:
+        return (not self._amsgrad and (value.dtype, grad.dtype,
+                                       state["moment1"].dtype) in COMBOS
+                and state["moment2"].dtype == state["moment1"].dtype)
 
-    _takes_native_grad = _use_fused_kernel
+    def _tensor_lr(self, lr, name) -> float:
+        """The learning rate of parameter ``name``."""
+        return lr
 
     def _decay(self, name) -> float:
         """The decoupled weight decay of parameter ``name``."""
         return 0.0
 
+    def _update_grouped(self, items, lr):
+        """The fused kernel over every tensor of ``items``: one launch per
+        dtype combination. A master's bf16 parameter is written by the
+        same launch where it is contiguous, by ``copy_`` otherwise."""
+        names, params, values, grads, states = zip(*items)
+        b1p = np.array([s["beta1_pow"] for s in states], _F32) \
+            * _F32(self._beta1)
+        b2p = np.array([s["beta2_pow"] for s in states], _F32) \
+            * _F32(self._beta2)
+        low = []
+        for s, x1, x2, p, value in zip(states, b1p, b2p, params, values):
+            s["beta1_pow"], s["beta2_pow"] = x1, x2
+            low.append(p if value is not p and p.dtype == torch.bfloat16
+                       and p.is_contiguous() else None)
+        fused_adamw_multi(
+            values, grads, [s["moment1"] for s in states],
+            [s["moment2"] for s in states],
+            lr=[self._tensor_lr(lr, n) for n in names], beta1=self._beta1,
+            beta2=self._beta2, eps=self._epsilon,
+            weight_decay=[self._decay(n) for n in names],
+            beta1_pow=list(b1p), beta2_pow=list(b2p), low=low)
+        for p, value, lo in zip(params, values, low):
+            if value is not p and lo is None:
+                self._copy_master(p, value)
+
     def _update(self, value, grad, state, lr, name):
-        decay = self._decay(name)
-        if self._use_fused_kernel(value, state):
-            b1p, b2p = self._next_pows(state)
-            fused_adamw_update(
-                value, grad, state["moment1"], state["moment2"], lr=lr,
-                beta1=self._beta1, beta2=self._beta2, eps=self._epsilon,
-                weight_decay=decay, beta1_pow=b1p, beta2_pow=b2p)
-            return
-        self._adam(value, grad, state, lr,
-                   decay=float(_F32(1) - _F32(lr) * _F32(decay)))
+        lr = self._tensor_lr(lr, name)
+        self._adam(value, grad, state, lr, decay=float(
+            _F32(1) - _F32(lr) * _F32(self._decay(name))))
 
     def _adam(self, value, grad, state, lr, decay):
         """``Adam._update`` of the JAX package, written back in place, for
@@ -324,10 +368,10 @@ class AdamW(Adam):
     def _coupled_wd(self):
         return 0.0
 
-    def _update(self, value, grad, state, lr, name):
+    def _tensor_lr(self, lr, name):
         if self._lr_ratio is not None:
-            lr = lr * float(self._lr_ratio(name))
-        super()._update(value, grad, state, lr, name)
+            return lr * float(self._lr_ratio(name))
+        return lr
 
     def _decay(self, name):
         if self._apply_decay_param_fun is not None \

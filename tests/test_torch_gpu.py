@@ -453,6 +453,110 @@ def test_adamw_kernel_matches_plain_bitwise(cuda, n, dtypes):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+# the (param, grad, moments) dtype combinations the fused AdamW takes
+ADAMW_COMBOS = [(pd, gd, md) for pd in (torch.float32, torch.bfloat16)
+                for gd in (torch.float32, torch.bfloat16)
+                for md in (torch.float32, torch.bfloat16)
+                if gd == pd or gd == torch.bfloat16]
+
+
+def _adamw_leaf(gen, shape, pd, gd, md):
+    p, g, m, v = (torch.randn(shape, generator=gen, device=gen.device)
+                  for _ in range(4))
+    return [p.to(pd), g.to(gd), (0.1 * m).to(md), (0.1 * v).abs().to(md)]
+
+
+@pytest.mark.gpu
+def test_adamw_multi_launch_matches_plain_bitwise(cuda):
+    """One ``fused_adamw_multi`` call over the six dtype combinations, each
+    at sizes 0, 33, 65553 and 2048 x 8192 and as dim-0 slice views of a
+    leaf (rows 2:4 of [4, 2048], 16-byte aligned; row 1 of [3, 5], not),
+    with per-tensor learning rates, decays and step powers and a bf16 copy
+    beside every other fp32 param: one launch per combination, every
+    output (the copies too) bitwise ``adamw_ref``, the leaves' other rows
+    untouched."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    entries, leaves, aligned = [], [], set()
+    for combo in ADAMW_COMBOS:
+        for n in (0, 33, 65553, (2048, 8192)):
+            entries.append(_adamw_leaf(gen, n, *combo))
+        for shape, part in (((4, 2048), slice(2, 4)), ((3, 5), slice(1, 2))):
+            leaf = _adamw_leaf(gen, shape, *combo)
+            leaves.append((leaf, [t.clone() for t in leaf], part))
+            entries.append([t[part] for t in leaf])
+            aligned.add(all(t.data_ptr() % 16 == 0 for t in entries[-1]))
+    assert aligned == {True, False}
+    lows = [p.to(torch.bfloat16) if p.dtype == torch.float32 and i % 2
+            else None for i, (p, *_) in enumerate(entries)]
+    hp = [dict(lr=1e-3 * (1 + i % 3), weight_decay=0.01 * (i % 2),
+               beta1_pow=0.9 ** (1 + i % 4), beta2_pow=0.999 ** (1 + i % 4))
+          for i in range(len(entries))]
+    want = [K.adamw_ref(*e, beta1=0.9, beta2=0.999, eps=1e-8, **h)
+            for e, h in zip(entries, hp)]
+    before = K.fused_adamw_multi.launches
+    K.fused_adamw_multi(*zip(*entries), beta1=0.9, beta2=0.999, eps=1e-8,
+                        low=lows, **{k: [h[k] for h in hp] for k in hp[0]})
+    assert K.fused_adamw_multi.launches == before + len(ADAMW_COMBOS)
+    for (p, _, m, v), low, w in zip(entries, lows, want):
+        for a, b in zip((p, m, v), w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        if low is not None:
+            assert torch.equal(low, w[0].to(torch.bfloat16))
+    for leaf, whole, part in leaves:
+        for a, b in zip(leaf, whole):
+            assert torch.equal(a[:part.start], b[:part.start])
+            assert torch.equal(a[part.stop:], b[part.stop:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", [None, "bfloat16"])
+def test_grouped_optimizer_step_equals_the_per_tensor_path(cuda, moments):
+    """AdamW's grouped ``apply_gradients`` on the card (bf16 parameters
+    with fp32 masters, an ``lr_ratio`` and an ``apply_decay_param_fun``)
+    against the same steps tensor by tensor through ``fused_adamw_update``
+    and a ``copy_`` of each master: parameters, masters, moments and step
+    powers bitwise equal after 3 steps, one launch a step, no copy."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    shapes = [(256, 768), (768,), (33,), (5, 7)]
+    params = [torch.randn(sh, generator=gen, device=cuda).to(torch.bfloat16)
+              for sh in shapes]
+    grads = [[torch.randn(sh, generator=gen, device=cuda).to(torch.bfloat16)
+              for sh in shapes] for _ in range(3)]
+    named = {f"w{i}": p.clone() for i, p in enumerate(params)}
+    opt = AdamW(learning_rate=1e-3, parameters=named, multi_precision=True,
+                moment_dtype=moments, lr_ratio=lambda n: 0.5 if n == "w1"
+                else 1.0, apply_decay_param_fun=lambda n: n != "w2")
+    masters = [p.float() for p in params]
+    mdt = torch.bfloat16 if moments else torch.float32
+    mom = [[torch.zeros(sh, dtype=mdt, device=cuda) for sh in shapes]
+           for _ in range(2)]
+    K.reset_launch_counts()
+    copies0 = opt.master_copies
+    b1p = b2p = np.float32(1)
+    for gs in grads:
+        for p, g in zip(named.values(), gs):
+            p.grad = g
+        opt.step()
+        b1p, b2p = b1p * np.float32(0.9), b2p * np.float32(0.999)
+        for i, g in enumerate(gs):
+            K.fused_adamw_update(
+                masters[i], g, mom[0][i], mom[1][i],
+                lr=1e-3 * (0.5 if i == 1 else 1.0), beta1=0.9, beta2=0.999,
+                eps=1e-8, weight_decay=0.0 if i == 2 else 0.01,
+                beta1_pow=b1p, beta2_pow=b2p)
+            params[i].copy_(masters[i])
+    assert K.fused_adamw_multi.launches == 3 and opt.master_copies == copies0
+    for i, (name, p) in enumerate(named.items()):
+        s = opt.state[name]
+        assert torch.equal(p, params[i]) and torch.equal(
+            s["master_weight"], masters[i])
+        assert torch.equal(s["moment1"], mom[0][i])
+        assert torch.equal(s["moment2"], mom[1][i])
+        assert (s["beta1_pow"], s["beta2_pow"]) == (b1p, b2p)
+
+
 def _small_gpt(device, dtype=torch.float32):
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 
@@ -544,7 +648,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     counts = K.launch_counts()
     assert all(counts[k] > 0 for k in (
         "fused_layer_norm", "flash_attention_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "fused_adamw_update"))
+        "flash_attention_bwd_dkv", "fused_adamw_multi"))
     cpu_params = dict(models["cpu"].named_parameters())
     cfg = models["cpu"].cfg
     k_part = slice(cfg.num_heads * cfg.head_dim,
@@ -796,6 +900,7 @@ def test_scaled_step_skips_on_card(cuda):
     loss = step(x, y)
     assert not torch.isfinite(loss)
     assert K.launch_counts()["flash_attention_bwd_dq"] > 0
+    assert K.launch_counts()["fused_adamw_multi"] == 0
     assert K.launch_counts()["fused_adamw_update"] == 0
     for k, p in model.named_parameters():
         assert torch.equal(p, p0[k]), k
