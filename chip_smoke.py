@@ -19,6 +19,10 @@
         # [3]'s AdamW timing, [18b], [19b] and [20] alone
     python3 chip_smoke.py --z3-worker DIR | --reduce-worker DIR
         # one rank of [20a] | [20b]; the port's launcher starts two
+    python3 chip_smoke.py --ep-of DIR
+        # a checkout's expert parallelism ([21]) alone
+    python3 chip_smoke.py --ep-worker DIR | --ep4-worker DIR
+        # one rank of [21a] | [21b]; the port's launcher starts two | four
 
 Phases, each of which exits non-zero on failure:
 
@@ -238,7 +242,24 @@ Phases, each of which exits non-zero on failure:
    tensors at n 16.8M and at [20a] (ii)'s slice, in [6]'s dtypes with the
    bf16 copy at n 16.8M, over [6]'s list in fp32 and in its dtypes, and
    over [16]'s list in bf16, 12 interleaved CUDA-event readings each and
-   the profiler's device time.
+   the profiler's device time;
+21. expert parallelism (GPT-MoE routed over the global batch across
+   ranks), gloo ranks on the card started by the port's launcher: [21a]
+   two ranks at ep 2 (``--ep-worker``): config 5's width at depth 2 in
+   fp32, half of an 8 x 1024 batch each, 3 steps dense and 3 quant,
+   against one process on the whole batch on the card ([18b]'s
+   tolerances; quant within the CPU tests' quant bounds); then the full
+   config 5 in bf16 at 4 x 1024 a rank, dense and quant: a warm-up step
+   (the dropped share), 3 timed steps (host clock against [16]'s, the
+   exchanges' calls, received bytes and host-clock share, launches and
+   master copies), one profiled (flash on wgmma, LayerNorm and one AdamW
+   a step by kernel symbol), the loss finite and falling, dense against
+   quant (exchange bytes and the plan's wire bytes, step); [21b] four
+   ranks at sharding 2 x ep 2 at ``p_g_os`` (``--ep4-worker``): the same
+   depth-2 fp32 model on 2 x 1024 a rank, 3 steps against the same one
+   process, the expert stacks stored as stage-3 slices, each rank's bytes
+   against one process's, and the one-process restore of their
+   checkpoint bitwise equal to rank 0's gathered state.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -254,6 +275,7 @@ import gc
 import hashlib
 import importlib
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -4412,11 +4434,12 @@ def zero_worker(directory: Path, seed: int) -> int:
     return 0
 
 
-def launch_ranks(flag: str, work: Path, seed: int, what: str):
-    """Two ranks of this script (``flag DIR``) through the port's launcher
-    over gloo on the one card; every process killed on the way out. Fails
-    the phase on a nonzero exit, after printing the workers' logs;
-    returns each rank's record."""
+def launch_ranks(flag: str, work: Path, seed: int, what: str,
+                 nproc: int = 2):
+    """``nproc`` ranks of this script (``flag DIR``) through the port's
+    launcher over gloo on the one card; every process killed on the way
+    out. Fails the phase on a nonzero exit, after printing the workers'
+    logs; returns each rank's record."""
     import os
     import signal
 
@@ -4427,7 +4450,7 @@ def launch_ranks(flag: str, work: Path, seed: int, what: str):
               "PADDLE_TRAINER_ID"):
         env.pop(k, None)
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           "--nproc_per_node", "2", "--log_dir", str(work / "log"),
+           "--nproc_per_node", str(nproc), "--log_dir", str(work / "log"),
            str(Path(__file__).resolve()), "--seed", str(seed), flag,
            str(work)]
     t0 = time.perf_counter()
@@ -4451,7 +4474,7 @@ def launch_ranks(flag: str, work: Path, seed: int, what: str):
     check(proc.returncode == 0, f"{what}: the launcher exited with "
           f"{proc.returncode}")
     return [json.loads((work / f"rank{r}.json").read_text())
-            for r in range(2)]
+            for r in range(nproc)]
 
 
 def parity_errors(cfg, ref, losses, params):
@@ -5281,6 +5304,543 @@ def reduce_two_ranks(K, seed: int, rows):
           flush=True)
 
 
+# --------------------------------------------------------------- phase 21
+# [21]: expert parallelism over gloo ranks sharing the card. The parity
+# runs take BASELINE config 5's width at depth 2 (one dense block, one MoE
+# block of 8 experts) in fp32 on a global batch of EP_B x EP_S, each rank
+# on its part of it, EP_STEPS AdamW steps ([18b]'s optimizer); the main
+# path runs the full config 5 in bf16 at EP_MAIN_B x EP_S a rank (the two
+# ranks' batch is [16]'s), one warm-up step and EP_TIMED timed ones
+EP_B, EP_S, EP_STEPS, EP_MAIN_B, EP_TIMED = 8, 1024, 3, 4, 3
+# quant against one dense process: the CPU tests' bound of quant training
+# against dense (the JAX package's own, 1%) on the losses, Adam's bound
+# (2 * steps * lr) on the parameters
+EP_QUANT_LOSS_RTOL = 1e-2
+# the block collectives of the token exchange, as this script counts them:
+# where they are looked up by the route's code
+# (the dispatch's reduce-scatter, ``reduce_scatter_in_trace``, and its
+# backward run in ``mp_ops``)
+EP_EXCHANGES = {"communication": ("reduce_scatter_blocks", "gather_blocks",
+                                  "all_to_all_blocks"),
+                "mp_ops": ("reduce_scatter_blocks", "gather_blocks"),
+                "dispatch": ("all_to_all_blocks",)}
+
+
+def ep_config(**over):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(**{**MOE5, **over})
+
+
+def ep_weights(seed: int, cfg, dtype):
+    """The whole model's state from the seed, on the card (built with no
+    expert-parallel groups: call it before ``fleet.init``)."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=dtype,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    return sd
+
+
+def ep_model(cfg, whole, dtype, rank: int, n: int, **opt_kw):
+    """The model on this rank's experts of ``whole`` and its AdamW."""
+    from paddle_tpu_torch.distributed.sharding_utils import local_block
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.weights import expert_stack
+
+    model = GPTForCausalLM(cfg, device="cuda", dtype=dtype)
+    model.load_state_dict({k: local_block(v, 0, rank, n) if expert_stack(k)
+                           else v for k, v in whole.items()})
+    model.train()
+    return model, AdamW(parameters=model.named_parameters(), **opt_kw)
+
+
+def ep_parity_opt():
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    return dict(learning_rate=DP_LR, epsilon=1e-6, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def ep_batches(seed: int, vocab: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 21)
+    x = torch.randint(0, vocab, (EP_STEPS, EP_B, EP_S), generator=g,
+                      device="cuda")
+    return x, torch.roll(x, -1, dims=2)
+
+
+class ExchangeTally:
+    """Calls, receive-side bytes and host seconds of the token exchange's
+    block collectives (``EP_EXCHANGES``, wrapped until ``close``)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.distributed import communication
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
+        from paddle_tpu_torch.incubate.distributed.models.moe import dispatch
+
+        self.mods = {"communication": communication, "mp_ops": mp_ops,
+                     "dispatch": dispatch}
+        self.saved, self.ops = [], {}
+        for mod, names in EP_EXCHANGES.items():
+            for name in names:
+                fn = getattr(self.mods[mod], name)
+                self.saved.append((self.mods[mod], name, fn))
+                setattr(self.mods[mod], name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def counted(t, group):
+            n = group.nranks
+            t0 = time.perf_counter()
+            try:
+                return fn(t, group)
+            finally:
+                rec = self.ops.setdefault(name, [0, 0, 0.0])
+                whole = t.numel() * t.element_size()
+                rec[0] += 1
+                rec[1] += {"reduce_scatter_blocks": whole * (n - 1) // n,
+                           "gather_blocks": whole * (n - 1),
+                           "all_to_all_blocks": whole * (n - 1) // n}[name]
+                rec[2] += time.perf_counter() - t0
+        return counted
+
+    def reset(self):
+        self.ops = {}
+
+    def totals(self):
+        return (sum(v[0] for v in self.ops.values()),
+                sum(v[1] for v in self.ops.values()),
+                sum(v[2] for v in self.ops.values()))
+
+    def close(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class DropTally:
+    """The share of the route's choices dropped at capacity, over the
+    calls of ``gate._route`` while it is open."""
+
+    def __init__(self):
+        from paddle_tpu_torch.incubate.distributed.models.moe import \
+            moe_layer
+
+        self.mod, self.fn = moe_layer, moe_layer._route
+        self.dropped = self.choices = 0
+
+        def counted(logits, capacity, top_k, **kw):
+            out = self.fn(logits, capacity, top_k, **kw)
+            self.dropped += int((out[0] == logits.shape[1] * int(capacity))
+                                .sum())
+            self.choices += out[0].numel()
+            return out
+        moe_layer._route = counted
+
+    def close(self):
+        self.mod._route = self.fn
+        return self.dropped / max(self.choices, 1)
+
+
+def ep_parity_run(step, x, y, rows, directory, tag, rank):
+    """EP_STEPS steps on ``rows``; the losses, the launches and flash
+    routes; rank 0 keeps the gathered global parameters."""
+    from paddle_tpu_torch import kernels as K
+
+    K.reset_launch_counts()
+    losses = [step(x[k, rows], y[k, rows]).item() for k in range(EP_STEPS)]
+    rec = {"losses": losses, "launches": K.launch_counts(),
+           "flash_routes": {w: dict(getattr(K, w).route_launches)
+                            for w in FLASH_WRAPPERS}}
+    tree = step.state_for_checkpoint()
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in tree.params.items()},
+                   directory / f"{tag}_params.pt")
+    return rec, tree
+
+
+def ep_worker(directory: Path, seed: int) -> int:
+    """One rank of [21a], started by the port's launcher: ep 2 over gloo on
+    the one card. (i) config 5's width at depth 2 in fp32, this rank's
+    half of every batch, dense then quant, rank 0 keeping the gathered
+    global parameters; (ii) the full config 5 in bf16 at EP_MAIN_B x EP_S
+    a rank, dense then quant: a warm-up step (its dropped share), EP_TIMED
+    timed steps (host clock, launches, master copies, the exchanges'
+    calls, bytes and host seconds) and one profiled (its kernels)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.distributed import communication, fleet
+    from paddle_tpu_torch.incubate.distributed.models.moe.dispatch import \
+        plan_quant_dispatch
+
+    cfg2 = ep_config(num_layers=2)
+    whole2 = ep_weights(seed, cfg2, torch.float32)
+    cfg5 = ep_config()
+    whole5 = ep_weights(seed + 16, cfg5, torch.bfloat16)
+    hcg = rank_init({"ep_degree": 2})
+    rank, n = fleet.worker_index(), hcg.get_expert_parallel_world_size()
+    x, y = ep_batches(seed, cfg2.vocab_size)
+    rows = slice(rank * EP_B // 2, (rank + 1) * EP_B // 2)
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "ep": [hcg.get_expert_parallel_rank(), n,
+                  hcg.get_expert_parallel_group().ranks]}
+    for mode in ("dense", "quant"):
+        cfg = ep_config(num_layers=2, moe_dispatch=mode)
+        model, opt = ep_model(cfg, whole2, torch.float32, rank, n,
+                              **ep_parity_opt())
+        step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh())
+        rec[f"parity_{mode}"], _ = ep_parity_run(step, x, y, rows, directory,
+                                                 mode, rank)
+        rec[f"parity_{mode}"]["experts"] = sorted(step._experts)
+        del model, opt, step
+    del whole2
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17 + rank)
+    xm = torch.randint(0, cfg5.vocab_size, (EP_MAIN_B, EP_S), generator=g,
+                       device="cuda")
+    ym = torch.roll(xm, -1, dims=1)
+    for mode in ("dense", "quant"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt = ep_model(ep_config(moe_dispatch=mode), whole5,
+                              torch.bfloat16, rank, n, learning_rate=1e-4,
+                              moment_dtype="bfloat16")
+        step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh())
+        drops = DropTally()
+        losses = [step(xm, ym)]
+        m = {"dropped": drops.close()}
+        plan = None if mode == "dense" else plan_quant_dispatch(
+            EP_MAIN_B * EP_S, cfg5.moe_num_experts,
+            max(1, int(cfg5.moe_capacity_factor * EP_MAIN_B * EP_S * n
+                       / cfg5.moe_num_experts)), cfg5.hidden_size,
+            groups=model.gpt.layers[1].mlp.groups)
+        m["plan"] = None if plan is None else {
+            "block": plan.block, "bytes_wire": plan.bytes_wire,
+            "bytes_raw": plan.bytes_raw,
+            "bytes_wire_train_step": plan.bytes_wire_train_step,
+            "compression_ratio": plan.compression_ratio}
+        gc.collect()
+        K.reset_launch_counts()
+        staged0 = dict(communication.staged_ops)
+        copies0 = opt.master_copies
+        tally = ExchangeTally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EP_TIMED):
+            losses.append(step(xm, ym))
+        torch.cuda.synchronize()
+        m["step_s"] = (time.perf_counter() - t0) / EP_TIMED
+        tally.close()
+        m["exchanges"] = {k: [c / EP_TIMED, b / EP_TIMED, s / EP_TIMED]
+                          for k, (c, b, s) in tally.ops.items()}
+        m["launches"] = {k: v / EP_TIMED
+                         for k, v in K.launch_counts().items()}
+        m["master_copies"] = opt.master_copies - copies0
+        m["flash_routes"] = {w: dict(getattr(K, w).route_launches)
+                             for w in FLASH_WRAPPERS}
+        m["staged"] = {k: (v - staged0.get(k, 0)) / EP_TIMED
+                       for k, v in communication.staged_ops.items()}
+        kernels = profile_launches(lambda: losses.append(step(xm, ym)))
+        m["profiled"] = launches_of(kernels, (
+            FWD_SYMBOL, *BWD_SYMBOLS.values(), FP32_FWD_SYMBOL,
+            *FP32_BWD_SYMBOLS.values(), NORM_SYMBOLS["fwd"],
+            NORM_SYMBOLS["bwd"], "fused_adamw"))
+        m["losses"] = [float(v) for v in losses]
+        m["peak_bytes"] = torch.cuda.max_memory_allocated()
+        m["param_bytes"] = tensor_bytes(step.params.values())
+        rec[f"main_{mode}"] = m
+        del model, opt, step
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def ep4_worker(directory: Path, seed: int) -> int:
+    """One rank of [21b], started by the port's launcher: sharding 2 x ep
+    2 at ``p_g_os`` over gloo on the one card, config 5's width at depth 2
+    in fp32, this rank's quarter of every batch: the losses, launches,
+    whole parameters equal across the sharding group after each step,
+    this rank's bytes, rank 0's gathered global state, and a save by
+    every rank."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        group_sharded_parallel)
+
+    cfg = ep_config(num_layers=2)
+    whole = ep_weights(seed, cfg, torch.float32)
+    hcg = rank_init({"sharding_degree": 2, "ep_degree": 2})
+    rank = fleet.worker_index()
+    ep_r, n = (hcg.get_expert_parallel_rank(),
+               hcg.get_expert_parallel_world_size())
+    x, y = ep_batches(seed, cfg.vocab_size)
+    model, opt = ep_model(cfg, whole, torch.float32, ep_r, n,
+                          **ep_parity_opt())
+    del whole
+    model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+    step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh())
+    rows = slice(rank * EP_B // 4, (rank + 1) * EP_B // 4)
+    rec, tree = ep_parity_run(step, x, y, rows, directory, "z3", rank)
+    rec.update(rank=rank, backend=dist.get_backend(),
+               sliced=len(step._z3), experts=sorted(step._experts),
+               z3={k: [list(p.shape), p.zero3_dim]
+                   for k, p in step.params.items()
+                   if k in step._z3 and k in step._experts},
+               param_bytes=tensor_bytes(step.params.values()),
+               grad_bytes=update_grad_bytes(step),
+               opt_bytes=opt_state_bytes(step))
+    mgr = CheckpointManager(directory / "ck")
+    mgr.save(step.step_index, tree.to_tree())
+    mgr.wait_until_finished()
+    mgr.close()
+    if rank == 0:
+        flat = dict(tree.params)
+        for name, slots in tree.opt_state.items():
+            flat.update({f"{name}/{k}": v for k, v in slots.items()})
+        torch.save({k: v.detach().cpu() if torch.is_tensor(v)
+                    else torch.as_tensor(np.asarray(v))
+                    for k, v in flat.items()}, directory / "rank0_state.pt")
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def ep_reference(seed: int):
+    """One process on the whole batch, on the card: config 5's width at
+    depth 2 in fp32, EP_STEPS steps; its losses, parameters (on the host)
+    and the parameter, gradient and optimizer-state bytes."""
+    from paddle_tpu_torch.distributed.fleet import make_sharded_train_step
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = ep_config(num_layers=2)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    model.load_state_dict(ep_weights(seed, cfg, torch.float32))
+    model.train()
+    opt = AdamW(parameters=model.named_parameters(), **ep_parity_opt())
+    step = make_sharded_train_step(model, opt)
+    x, y = ep_batches(seed, cfg.vocab_size)
+    losses = [step(x[k], y[k]).item() for k in range(EP_STEPS)]
+    ref = {"losses": losses, "params": {
+        k: p.detach().cpu() for k, p in model.named_parameters()},
+        "bytes": tensor_bytes(step.params.values())
+        + tensor_bytes(p.grad for p in step.params.values())
+        + opt_state_bytes(step)}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return cfg, ref
+
+
+def ep_parity(cfg, ref, losses, params, quant=False):
+    """``parity_errors`` against the one process, and whether they hold:
+    [18b]'s trajectory tolerances, or for quant the CPU tests' quant
+    bounds (losses relative, parameters Adam's)."""
+    errs = parity_errors(cfg, ref, losses, params)
+    if not quant:
+        return errs, parity_ok(errs)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    return errs, (rel <= EP_QUANT_LOSS_RTOL
+                  and max(errs[1:]) <= 2 * EP_STEPS * DP_LR)
+
+
+def ep_two_ranks(K, seed: int, rows, step16_s):
+    """[21a]: expert parallelism at ep 2, two ranks sharing the card (see
+    ``ep_worker``): parity with one process, dense and quant; the full
+    config 5's steps, exchanges, launches, dropped share and losses, dense
+    against quant. Returns the one process's reference for [21b]."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = f"{nvidia_smi_line()}, {torch.cuda.device_count()} card(s)"
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ep_", dir=CKPT_PARENT))
+    try:
+        recs = launch_ranks("--ep-worker", work, seed,
+                            "[21a] expert parallelism at ep 2, two ranks on "
+                            "one card")
+        cfg, ref = ep_reference(seed)
+        print(f"    one process on the whole {EP_B} x {EP_S} batch (config "
+              f"5's width, depth 2, fp32, {EP_STEPS} steps): losses "
+              f"{ref['losses']} ({smi})", flush=True)
+        for mode in ("dense", "quant"):
+            params = torch.load(work / f"{mode}_params.pt")
+            errs, ok = ep_parity(cfg, ref, recs[0][f"parity_{mode}"]["losses"],
+                                 params, quant=mode == "quant")
+            for r in recs:
+                p = r[f"parity_{mode}"]
+                ln = p["launches"]
+                print(f"    (i) {mode}, rank {r['rank']} ({r['backend']}, "
+                      f"ep {r['ep']}): losses {p['losses']}; expert stacks "
+                      f"{len(p['experts'])}; launches over the steps "
+                      f"{ {k: v for k, v in ln.items() if v} }; flash routes "
+                      f"{p['flash_routes']}", flush=True)
+                check(p["losses"] == recs[0][f"parity_{mode}"]["losses"]
+                      and len(p["experts"]) == 4
+                      and all(v["cuda_cores"] == sum(v.values()) > 0
+                              for v in p["flash_routes"].values())
+                      and ln["fused_adamw_multi"] == EP_STEPS,
+                      f"[21a] (i) {mode} rank {r['rank']}: {p}")
+            tol = (f"rel {EP_QUANT_LOSS_RTOL:g} on the losses, Adam's bound "
+                   f"{2 * EP_STEPS * DP_LR:g} on the parameters"
+                   if mode == "quant" else
+                   f"{DP_LOSS_TOL:g} and {DP_PARAM_TOL:g}, the qkv biases' K "
+                   f"third Adam's bound {2 * EP_STEPS * DP_LR:g}")
+            print(f"    (i) {mode} against one process: losses "
+                  f"{errs[0]:.3e}, gathered global parameters {errs[1]:.3e}, "
+                  f"the qkv biases' K third {errs[2]:.3e} (tol {tol}) "
+                  f"({smi})", flush=True)
+            check(ok, f"[21a] (i) {mode}: {errs} beyond tolerance")
+            del params
+        L = MOE5["num_layers"]
+        L_moe = L // MOE5["moe_every_k"]
+        L_dense = L - L_moe
+        want = {FWD_SYMBOL: 2 * L_dense + L_moe,
+                BWD_SYMBOLS["dq"]: L_dense + L_moe,
+                BWD_SYMBOLS["dkv"]: L_dense + L_moe,
+                FP32_FWD_SYMBOL: 0, FP32_BWD_SYMBOLS["dq"]: 0,
+                FP32_BWD_SYMBOLS["dkv"]: 0,
+                NORM_SYMBOLS["fwd"]: 4 * L_dense + 2 * L_moe + 1,
+                NORM_SYMBOLS["bwd"]: 2 * (L_dense + L_moe) + 1,
+                "fused_adamw": 1}
+        steps = {}
+        for mode in ("dense", "quant"):
+            for r in recs:
+                m = r[f"main_{mode}"]
+                calls, nbytes, secs = (sum(v[i] for v in
+                                           m["exchanges"].values())
+                                       for i in range(3))
+                steps[mode, r["rank"]] = m["step_s"]
+                ln = {k: v for k, v in m["launches"].items() if v}
+                print(f"    (ii) {mode}, rank {r['rank']}: the full config 5 "
+                      f"in bf16 ({L} layers, {L_moe} MoE blocks of "
+                      f"{MOE5['moe_num_experts']} experts, this rank's "
+                      f"{MOE5['moe_num_experts'] // 2}), {EP_MAIN_B} x {EP_S}"
+                      f" a rank: step {m['step_s'] * 1e3:.1f} ms host clock "
+                      f"over {EP_TIMED} ([16], one process on the two ranks' "
+                      f"{2 * EP_MAIN_B} x {EP_S}: {step16_s * 1e3:.1f} ms); "
+                      f"losses {[round(v, 4) for v in m['losses']]}; dropped "
+                      f"share of this rank's choices in the warm-up step "
+                      f"{m['dropped']:.4f} (its tokens queue after the "
+                      f"earlier ranks') ({smi})", flush=True)
+                print(f"    (ii) {mode}, rank {r['rank']}: exchanges a step "
+                      f"{calls:g} calls, {nbytes / 2**20:.2f} MiB received, "
+                      f"{secs * 1e3:.1f} ms host clock = "
+                      f"{secs / m['step_s']:.3f} of the step; by op "
+                      f"{ {k: [round(v[0], 2), round(v[1] / 2**20, 3), round(v[2] * 1e3, 2)] for k, v in m['exchanges'].items()} }"
+                      f" (calls, MiB, ms); staged through the host a step "
+                      f"{m['staged']}; plan {m['plan']}", flush=True)
+                print(f"    (ii) {mode}, rank {r['rank']}: wrapper launches "
+                      f"a step {ln}; master copies {m['master_copies']}; the "
+                      f"profiled step's kernels {m['profiled']} (as the code "
+                      f"gives {want}); flash routes {m['flash_routes']}; "
+                      f"peak memory {m['peak_bytes'] / 2**30:.2f} GiB, "
+                      f"parameters {m['param_bytes'] / 2**30:.3f} GiB",
+                      flush=True)
+                check(all(math.isfinite(v) for v in m["losses"])
+                      and m["losses"][-1] < m["losses"][0]
+                      and m["profiled"] == want
+                      and m["launches"].get("fused_adamw_multi") == 1
+                      and m["master_copies"] == 0
+                      and all(v["wgmma"] == sum(v.values()) > 0
+                              for v in m["flash_routes"].values())
+                      and calls > 0,
+                      f"[21a] (ii) {mode} rank {r['rank']}: {m}")
+        dense, quant = recs[0]["main_dense"], recs[0]["main_quant"]
+        for mode in ("dense", "quant"):
+            print(f"    (ii) {mode}: dropped share of the global batch's "
+                  f"choices in the warm-up step "
+                  f"{sum(r[f'main_{mode}']['dropped'] for r in recs) / len(recs):.4f}"
+                  f" (as many choices a rank)", flush=True)
+        d_bytes = sum(v[1] for v in dense["exchanges"].values())
+        q_bytes = sum(v[1] for v in quant["exchanges"].values())
+        plan = quant["plan"]
+        print(f"    (ii) dense against quant, rank 0: exchange bytes a step "
+              f"{d_bytes / 2**20:.2f} / {q_bytes / 2**20:.2f} MiB = "
+              f"{d_bytes / q_bytes:.3f}x (predicted 1.94x); the plan's wire "
+              f"bytes a train step per MoE block "
+              f"{plan['bytes_wire_train_step'] / 2**20:.3f} MiB (block "
+              f"{plan['block']}, {plan['compression_ratio']:.3f}x of fp32); "
+              f"step {dense['step_s'] * 1e3:.1f} / "
+              f"{quant['step_s'] * 1e3:.1f} ms ({smi})", flush=True)
+        check(dense["plan"] is None and plan is not None and q_bytes < d_bytes,
+              f"[21a] (ii): plans {dense['plan']} / {plan}, bytes "
+              f"{d_bytes} / {q_bytes}")
+        for name in TRAINING_KERNELS:
+            rows[name]["launches_ep"] = dense["launches"].get(name, 0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"    phase 21a took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return cfg, ref
+
+
+def ep_four_ranks(K, seed: int, rows, cfg, ref):
+    """[21b]: sharding 2 x ep 2 at ``p_g_os``, four ranks sharing the card
+    (see ``ep4_worker``): parity with [21a]'s one process, each rank's
+    bytes against its, and the one-process restore of their checkpoint."""
+    import tempfile
+
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    smi = f"{nvidia_smi_line()}, {torch.cuda.device_count()} card(s)"
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ep4_", dir=CKPT_PARENT))
+    try:
+        recs = launch_ranks(
+            "--ep4-worker", work, seed,
+            f"[21b] sharding 2 x ep 2 at p_g_os (config 5's width cut to "
+            f"depth 2, fp32; {EP_B // 4} x {EP_S} a rank), four ranks on "
+            f"one card", nproc=4)
+        params = torch.load(work / "z3_params.pt")
+        errs, ok = ep_parity(cfg, ref, recs[0]["losses"], params)
+        for r in recs:
+            mine = r["param_bytes"] + r["grad_bytes"] + r["opt_bytes"]
+            print(f"    rank {r['rank']} ({r['backend']}): losses "
+                  f"{r['losses']}; {r['sliced']} parameters held as slices, "
+                  f"the expert stacks' (shape, dim) {r['z3']}; parameters, "
+                  f"gradients, optimizer state "
+                  f"{r['param_bytes'] / 2**20:.1f} + "
+                  f"{r['grad_bytes'] / 2**20:.1f} + "
+                  f"{r['opt_bytes'] / 2**20:.1f} MiB = "
+                  f"{mine / ref['bytes']:.3f} of one process's "
+                  f"{ref['bytes'] / 2**20:.1f} MiB; launches "
+                  f"{ {k: v for k, v in r['launches'].items() if v} }",
+                  flush=True)
+            check(r["losses"] == recs[0]["losses"] and r["sliced"] > 0
+                  and all(d == 1 for _, d in r["z3"].values())
+                  and len(r["z3"]) == 4 and mine < ref["bytes"] / 2
+                  and r["launches"]["fused_adamw_multi"] == EP_STEPS,
+                  f"[21b] rank {r['rank']}: {r}")
+        print(f"    against one process on the whole batch: losses "
+              f"{errs[0]:.3e}, gathered global parameters {errs[1]:.3e} "
+              f"(tol {DP_LOSS_TOL:g}, {DP_PARAM_TOL:g}), the qkv biases' K "
+              f"third {errs[2]:.3e} ({smi})", flush=True)
+        check(ok, f"[21b]: {errs} beyond tolerance")
+        restored = CheckpointManager(work / "ck").restore()
+        rank0 = torch.load(work / "rank0_state.pt")
+        flat = dict(restored["params"])
+        for name, slots in restored["opt_state"].items():
+            flat.update({f"{name}/{k}": v for k, v in slots.items()})
+        differ = [k for k, v in rank0.items() if not (
+            flat[k].dtype == v.dtype and torch.equal(flat[k], v))]
+        print(f"    one-process restore of the four ranks' checkpoint: "
+              f"{len(rank0) - len(differ)} of {len(rank0)} tensors bitwise "
+              f"equal to the gathered global state", flush=True)
+        check(not differ and int(restored["step"]) == EP_STEPS,
+              f"[21b]: the restore differs: {differ[:4]}")
+        for name in TRAINING_KERNELS:
+            rows[name]["launches_ep_z3"] = recs[0]["launches"][name]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"    phase 21b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5307,6 +5867,15 @@ def main() -> int:
     ap.add_argument("--reduce-worker", metavar="DIR", type=Path,
                     help="run as one rank of phase 20b (the port's launcher "
                     "starts two), writing its results into DIR")
+    ap.add_argument("--ep-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 21a (the port's launcher "
+                    "starts two), writing its results into DIR")
+    ap.add_argument("--ep4-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 21b (the port's launcher "
+                    "starts four), writing its results into DIR")
+    ap.add_argument("--ep-of", metavar="DIR", type=Path,
+                    help="only build and run phase 21 with the package in "
+                    "DIR, and exit")
     ap.add_argument("--zero3-of", metavar="DIR", type=Path,
                     help="only build, run phase 3's AdamW timing, [18b] and "
                     "[19b] (the references) and [20] with the package in "
@@ -5330,7 +5899,8 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 2
     repo = (args.paged_shapes_of or args.train_of or args.moe_of
-            or args.mp_of or args.zero3_of or Path(__file__).parent).resolve()
+            or args.mp_of or args.zero3_of or args.ep_of
+            or Path(__file__).parent).resolve()
     if not (repo / "paddle_tpu_torch" / "__init__.py").exists():
         print(f"chip_smoke: no paddle_tpu_torch package in {repo}",
               file=sys.stderr)
@@ -5346,6 +5916,10 @@ def main() -> int:
         return z3_worker(args.z3_worker, args.seed)
     if args.reduce_worker:
         return reduce_worker(args.reduce_worker, args.seed)
+    if args.ep_worker:
+        return ep_worker(args.ep_worker, args.seed)
+    if args.ep4_worker:
+        return ep4_worker(args.ep4_worker, args.seed)
     t_start = time.perf_counter()
     if args.paged_shapes_of:
         from paddle_tpu_torch import kernels as K
@@ -5395,6 +5969,20 @@ def main() -> int:
         z3_two_ranks(K, args.seed, rows, ref, os_g,
                      one_process_main(args.seed))
         reduce_two_ranks(K, args.seed, rows)
+        print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.ep_of:
+        from paddle_tpu_torch import kernels as K
+        from paddle_tpu_torch.kernels import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[1] device: {nvidia_smi_line()}; expert parallelism of "
+              f"{repo}", flush=True)
+        print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
+        rows = {name: {} for name in ALL_KERNELS}
+        cfg_ep, ref_ep = ep_two_ranks(K, args.seed, rows, float("nan"))
+        ep_four_ranks(K, args.seed, rows, cfg_ep, ref_ep)
         print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.train_of:
@@ -5706,7 +6294,7 @@ def main() -> int:
     dropout_resume(args.seed)
 
     # ---- 16. GPT-MoE training (config 5); 17. GPT-MoE serving
-    moe_train_slice(K, args.seed, rows)
+    step16_s = moe_train_slice(K, args.seed, rows)
     moe_train_vs_plain(K, args.seed)
     moe_serve_slice(K, args.seed, rows)
     moe_serve_vs_plain(K, args.seed)
@@ -5725,6 +6313,10 @@ def main() -> int:
     z3_nccl_slice(K, args.seed, rows, step6_s)
     z3_two_ranks(K, args.seed, rows, ref, os_g, one)
     reduce_two_ranks(K, args.seed, rows)
+
+    # ---- 21. expert parallelism: ep 2, and sharding 2 x ep 2 at p_g_os
+    cfg_ep, ref_ep = ep_two_ranks(K, args.seed, rows, step16_s)
+    ep_four_ranks(K, args.seed, rows, cfg_ep, ref_ep)
 
     # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

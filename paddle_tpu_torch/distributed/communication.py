@@ -21,8 +21,14 @@ The collectives the JAX package runs inside ``shard_map`` (``psum``,
 ``pmean``, ``pmax``, ``pmin``, ``axis_index``, ``all_gather_in_trace``,
 ``reduce_scatter_in_trace``) are differentiable calls here on this rank's
 tensor over its group along a mesh axis (``fleet.meta_parallel.mp_ops``).
-``ppermute`` (ring attention, ROADMAP queue A item A5.7) and
-``all_to_all_in_trace`` (expert parallelism, A5.4b) raise.
+``all_to_all_in_trace`` (the token exchange of expert parallelism) is
+one as well, whose backward is the inverse exchange; ``ppermute`` (ring
+attention, ROADMAP queue A item A5.7) raises. ``gather_rows`` and
+``sum_over`` are the all-gather and all-reduce of the MoE token exchange
+(its reduce-scatter is ``reduce_scatter_in_trace``), each with its
+transpose as its backward (a reduce-scatter, an all-reduce): the
+cotangents of a gathered or replicated value differ from rank to rank
+there, so each backward sums them.
 ``gather_blocks``, ``gather_along``, ``reduce_scatter_blocks`` and
 ``all_to_all_blocks`` are the block collectives of the mp, ZeRO and
 gradient-reduction paths; on a gloo group, ops other than all-reduce and
@@ -245,6 +251,15 @@ def alltoall_single(in_tensor, out_tensor, in_split_sizes=None,
     if in_split_sizes is None and in_tensor.shape[0] % g.nranks:
         raise ValueError(f"alltoall_single needs rows ({in_tensor.shape[0]})"
                          f" divisible by nranks ({g.nranks})")
+    if _through_host(_pg(g), in_tensor, "all_to_all_single"):
+        host = torch.empty(out_tensor.shape, dtype=out_tensor.dtype,
+                           pin_memory=True)
+        dist.all_to_all_single(host, _pinned(in_tensor.contiguous()),
+                               output_split_sizes=out_split_sizes,
+                               input_split_sizes=in_split_sizes,
+                               group=_pg(g))
+        out_tensor.copy_(host)
+        return Task()
     task = Task(out_tensor, work=dist.all_to_all_single(
         out_tensor, in_tensor.contiguous(), output_split_sizes=out_split_sizes,
         input_split_sizes=in_split_sizes, group=_pg(g), async_op=True))
@@ -450,7 +465,6 @@ def all_to_all_blocks(stacked: torch.Tensor, group) -> torch.Tensor:
 # ``axis_name`` (a name of the hybrid topology's axes, or a ``Group``),
 # built on ``fleet.meta_parallel.mp_ops``. A group of one rank changes
 # nothing.
-_A54 = "ROADMAP queue A item A5.4b (expert parallelism)"
 _A57 = "ROADMAP queue A item A5.7 (ring attention)"
 
 
@@ -522,8 +536,78 @@ def reduce_scatter_in_trace(x, axis_name, scatter_dimension: int = 0,
     return out if tiled else out.squeeze(scatter_dimension)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, tiled):
+        ctx.args = (group, concat_axis, split_axis, tiled)
+        return _all_to_all(x, group, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def _all_to_all(x, group, split_axis, concat_axis, tiled):
+    n = group.nranks
+    if tiled:
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all_in_trace: dimension {split_axis} "
+                             f"of {tuple(x.shape)} does not split over {n} "
+                             "ranks")
+        sent = torch.stack(x.chunk(n, dim=split_axis))
+    else:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all_in_trace(tiled=False): dimension "
+                             f"{split_axis} of {tuple(x.shape)} must be the "
+                             f"group's size {n}")
+        sent = x.movedim(split_axis, 0)
+    got = all_to_all_blocks(sent, group)
+    if tiled:
+        return torch.cat(got.unbind(0), dim=concat_axis)
+    return got.movedim(0, concat_axis)
+
+
 def all_to_all_in_trace(x, axis_name, split_axis: int, concat_axis: int,
                         tiled: bool = True):
-    raise NotImplementedError(
-        f"all_to_all_in_trace: the token exchange of expert parallelism, "
-        f"not ported yet ({_A54})")
+    """``lax.all_to_all`` on this rank's ``x``: chunk ``j`` of
+    ``split_axis`` goes to rank ``j``, and what each rank sent this one is
+    joined along ``concat_axis`` in rank order (without ``tiled``,
+    ``split_axis`` has the group's size and is dropped, and the received
+    pieces stack on a new ``concat_axis``). Backward is the inverse
+    exchange."""
+    from .collective import axis_group
+
+    g = axis_group(axis_name)
+    if g.nranks == 1:
+        return x if tiled else x.movedim(split_axis, concat_axis)
+    return _AllToAll.apply(x, g, split_axis % x.dim(),
+                           concat_axis % x.dim(), tiled)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return gather_along(x.contiguous(), group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.group.nranks
+        rows = g.contiguous().view((n, g.shape[0] // n) + tuple(g.shape[1:]))
+        return reduce_scatter_blocks(rows, ctx.group), None
+
+
+def gather_rows(x, group):
+    """Every rank's ``x`` joined along dimension 0 (an all-gather);
+    backward is its transpose: the SUM over the group of the cotangents,
+    block ``rank`` kept (a reduce-scatter). ``all_gather_in_trace``'s
+    backward keeps this rank's block alone, which is right only where
+    every rank's cotangent is the same."""
+    return x if group.nranks == 1 else _GatherRows.apply(x, group)
+
+
+def sum_over(x, group):
+    """The SUM over ``group`` (an all-reduce) whose result each rank uses
+    on its own: backward sums the ranks' cotangents (an all-reduce)."""
+    mp_ops = _mp_ops()
+    return mp_ops.mp_allreduce(mp_ops.c_identity(x, group), group)

@@ -6,8 +6,8 @@
 package does: the rank mesh with named data, pipe, sharding, sep, expert
 and model axes, and a group per axis; then it seeds the model-parallel RNG
 tracker (``tensor_parallel_configs["tensor_init_seed"]``, 1024 by
-default). The data, model and sharding axes may exceed 1 (the others
-raise naming their ROADMAP items). ``distributed_model`` wraps the model
+default). The data, model, sharding and expert axes may exceed 1 (the
+others raise naming their ROADMAP items). ``distributed_model`` wraps the model
 as the JAX package does: ``TensorParallel`` at mp above 1,
 ``ShardingParallel`` at sharding, ``DataParallel`` at dp;
 ``distributed_optimizer`` wraps the optimizer so its clip is the hybrid
@@ -115,11 +115,17 @@ def init(role_maker=None, is_collective: bool = True,
 def distributed_model(model):
     """``TensorParallel(model)`` at mp above 1, ``ShardingParallel`` in
     the sharding mode, ``DataParallel`` in the data mode (the hybrid
-    topology's ``get_parallel_mode()``), else the model itself."""
+    topology's ``get_parallel_mode()``), else the model itself; at an ep
+    degree above 1 without sharding, the model itself too (the train step
+    reduces the experts' gradients over their replicas only, which a
+    ``DataParallel`` over the data axes would not)."""
     from .meta_parallel import ShardingParallel, TensorParallel
 
     hcg = get_hybrid_communicate_group()
     if hcg is None:
+        return model
+    if hcg.get_expert_parallel_world_size() > 1 \
+            and hcg.get_parallel_mode() == "data":
         return model
     if hcg.get_model_parallel_world_size() > 1:
         return TensorParallel(model, hcg=hcg, strategy=_strategy)

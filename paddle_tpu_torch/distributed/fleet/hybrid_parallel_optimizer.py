@@ -8,8 +8,10 @@ parallelism a rank holds blocks of the mp-split parameters, and under
 ZeRO-2 slices of the gradients, so ``HybridParallelClipGrad`` (and
 ``hybrid_clip_``, which the train step calls) sums the squares of each
 kind where it lives: the mp blocks' over the mp group, each replicated
-gradient's once, and ZeRO-2 slices' over the sharding group first. The
-norm is then the one over the global arrays that the JAX step computes.
+gradient's once, and ZeRO-2 slices' over the sharding group first; under
+expert parallelism a rank holds its ep rank's experts, whose squares are
+summed over the ep group. The norm is then the one over the global arrays
+that the JAX step computes.
 The wrapper keeps the inner optimizer's API (the train step calls
 ``apply_gradients`` through it) and its gradient merge over
 ``strategy.gradient_merge_configs["k_steps"]`` eager steps.
@@ -26,22 +28,31 @@ from ..parallel import grad_buffers
 
 @torch.no_grad()
 def hybrid_clip_(clip, grads, *, mp_split, sliced, mp_group,
-                 sharding_group):
+                 sharding_group, ep_split=None, ep_group=None):
     """``clip``'s global-norm clip over ``grads`` held across ranks:
     ``mp_split[i]`` says gradient ``i`` is this rank's block of an
-    mp-split parameter (its squares are summed over ``mp_group``), and
+    mp-split parameter (its squares are summed over ``mp_group``),
     ``sliced[i]`` that it is a ZeRO-2 slice (summed over
-    ``sharding_group`` first). Every gradient is scaled in place."""
+    ``sharding_group`` first), and ``ep_split[i]`` that it is this ep
+    rank's block of an expert stack (summed over ``ep_group`` last).
+    Every gradient is scaled in place."""
     dev = grads[0].device if grads else None
-    sums = torch.zeros(2, 2, dtype=torch.float32, device=dev)
-    for g, m, s in zip(grads, mp_split, sliced):
-        sums[int(s), int(m)] += g.float().square().sum()
-    part = sums[1].clone()
+    ep_split = ep_split or [False] * len(grads)
+    sums = torch.zeros(2, 2, 2, dtype=torch.float32, device=dev)
+    for g, m, s, e in zip(grads, mp_split, sliced, ep_split):
+        sums[int(e), int(s), int(m)] += g.float().square().sum()
+    part = sums[:, 1].clone()
     all_reduce(part, group=sharding_group)
-    whole = sums[0] + part
-    split = whole[1:].clone()
+    whole = sums[:, 0] + part
+    split = whole[:, 1:].clone()
     all_reduce(split, group=mp_group)
-    norm = torch.sqrt(whole[0] + split[0])
+    total = whole[:, 0] + split[:, 0]
+    if any(ep_split):
+        experts = total[1:].clone()
+        all_reduce(experts, group=ep_group)
+        norm = torch.sqrt(total[0] + experts[0])
+    else:
+        norm = torch.sqrt(total[0])
     if clip.auto_skip_clip and float(norm) <= clip.clip_norm:
         return
     scale = clip.clip_norm / torch.clamp(norm, min=clip.clip_norm)

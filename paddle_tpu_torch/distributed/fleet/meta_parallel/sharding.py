@@ -21,6 +21,13 @@ the stage's collectives over the sharding group:
   reduce-scatters its gradient into the slice's; the other parameters
   are stage 2's.
 
+Under expert parallelism a rank's expert stacks are its ep rank's
+``[E/ep, ...]`` blocks, placed ``P("ep", ...)``: their state, and at stage
+3 the stacks themselves, are sliced along the first other dimension the
+degree divides, where ``_state_sharding_like`` places the state of a
+``P("ep", None, None)`` parameter; the sharding group's ranks share the ep
+rank, so they hold the same experts.
+
 The slices of dimension 0 are views into the parameter (the fused AdamW
 kernel updates them in place, at their storage offset); another
 dimension's slice is a copy written back after the update. A stage-3
@@ -31,6 +38,7 @@ update.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -145,9 +153,9 @@ class GroupShardedStage2(nn.Module):
 class Stage3Stats:
     """What stage 3 did since ``reset()``: all-gathers of parameters
     (``gathers``), reduce-scatters of their gradients
-    (``reduce_scatters``), and the bytes of gathered weights whose storage
-    was alive at a gather, at most (``peak_bytes``; read at every gather,
-    where the count can only have grown)."""
+    (``reduce_scatters``), and the bytes of gathered weights the port
+    held at a gather, at most (``peak_bytes``; read at every
+    gather, where the count can only have grown)."""
 
     def __init__(self):
         self.reset()
@@ -193,6 +201,7 @@ class _Z3Param:
 
     def __init__(self, param, dim, shape, owner):
         self.param, self.dim, self.shape, self.w = param, dim, shape, owner
+        self.expert = False   # an ep rank's expert stack (train step's)
         self.pending = 0      # uses of this forward not yet back-propagated
         self.cur = None       # this backward's sum of the uses' gradients
         self.acc = None       # the step's whole gradient (deferred mode)
@@ -201,7 +210,10 @@ class _Z3Param:
         if self.w.group.nranks == 1:  # the slice is the whole
             self.w.stats.gathers += 1
             return self.param.detach()
-        full = gather_along(self.param.detach(), self.w.group, self.dim)
+        # a root alias of the gathered buffer: the collective's own
+        # reference to the buffer is not the port's (``_track``)
+        full = gather_along(self.param.detach(), self.w.group,
+                            self.dim).detach()
         self.w._track(self, full)
         return full
 
@@ -236,15 +248,18 @@ class _Z3Param:
     @torch.no_grad()
     def reduce_scatter(self, g):
         """``g`` (the whole gradient) averaged over the data group first
-        when the train step has one, then reduce-scattered over the
-        wrapper's group: this rank's chunk of the SUM, times ``1/n``,
-        added into the slice's ``.grad`` (so accumulation microbatches
-        add up there)."""
+        when the train step has one (an expert stack's summed over the
+        replicas of its ep rank there and divided by the data group's
+        size), then reduce-scattered over the wrapper's group: this rank's
+        chunk of the SUM, times ``1/n``, added into the slice's ``.grad``
+        (so accumulation microbatches add up there)."""
         w = self.w
-        if w._dp_group is not None:
+        group, count = w._reduce[self.expert]
+        if count > 1:
             g = g.contiguous()
-            all_reduce(g, ReduceOp.SUM, group=w._dp_group)
-            g.mul_(1.0 / w._dp_group.nranks)
+            if group is not None:
+                all_reduce(g, ReduceOp.SUM, group=group)
+            g.mul_(1.0 / count)
         n, d = w.group.nranks, self.dim
         rows = _moved(g, d).reshape(n, -1)
         flat = reduce_scatter_blocks(rows, w.group)
@@ -350,7 +365,7 @@ class GroupShardedStage3(nn.Module):
         self._live = {}
         self._counting = False
         self._defer = False
-        self._dp_group = None
+        self._reduce = {False: (None, 1), True: (None, 1)}
         self._in_step = False
         self._flush_queued = False
         self.z3 = {}  # name -> _Z3Param
@@ -431,20 +446,24 @@ class GroupShardedStage3(nn.Module):
             self._counting = prev
 
     def _track(self, z, full):
-        """Record a gathered weight's storage (weakly) for ``_pack`` and the
-        live count."""
+        """Record a gathered weight (weakly): its storage for ``_pack``,
+        the tensor for the live count."""
         st = full.untyped_storage()
         self._live = {k: v for k, v in self._live.items()
-                      if not v[1].expired()}
-        self._live[st.data_ptr()] = (z, StorageWeakRef(st), st.nbytes())
+                      if v[3]() is not None}
+        self._live[st.data_ptr()] = (z, StorageWeakRef(st), st.nbytes(),
+                                     weakref.ref(full))
         self.stats.gathers += 1
         self.stats.peak_bytes = max(self.stats.peak_bytes, self.live_bytes)
 
     @property
     def live_bytes(self) -> int:
-        """Bytes of gathered weights whose storage is alive now."""
-        return sum(n for _, ref, n in self._live.values()
-                   if not ref.expired())
+        """Bytes of gathered weights the port holds now: the tensor
+        ``gather`` returned, or a view of it, is alive. The storage may
+        outlive them a moment: gloo's worker thread drops its reference
+        to an all-gather's output after the call has returned."""
+        return sum(n for _, _, n, ref in self._live.values()
+                   if ref() is not None)
 
     def _pack(self, t):
         try:
@@ -484,14 +503,22 @@ class GroupShardedStage3(nn.Module):
                         all_reduce(p.grad, ReduceOp.SUM, group=self.group)
                         p.grad.mul_(inv)
 
-    def step_mode(self, dp_group=None, defer=False):
+    def step_mode(self, dp_group=None, defer=False, *, experts=(),
+                  expert_group=None):
         """Hand the reductions to the train step: the whole gradients are
-        averaged over ``dp_group`` before the reduce-scatter, or, with
-        ``defer`` (for the gradient reducer), summed over the step's
+        averaged over ``dp_group`` before the reduce-scatter (those of
+        the parameters named in ``experts`` summed over ``expert_group``,
+        their ep rank's replicas, and divided by ``dp_group``'s size), or,
+        with ``defer`` (for the gradient reducer), summed over the step's
         backwards and left to ``whole_grads``."""
         self._in_step = True
-        self._dp_group = dp_group if dp_group is not None \
-            and dp_group.nranks > 1 else None
+        n = dp_group.nranks if dp_group is not None else 1
+        self._reduce = {
+            False: (dp_group if n > 1 else None, n),
+            True: (expert_group if expert_group is not None
+                   and expert_group.nranks > 1 else None, n)}
+        for name, z in self.z3.items():
+            z.expert = name in experts
         self._defer = bool(defer)
 
     def whole_grads(self, scale=None):

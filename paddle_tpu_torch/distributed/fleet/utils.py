@@ -45,7 +45,7 @@ Over a mesh (``mesh=``, by default the ``fleet.init`` topology's, else
 the whole world as one ``dp`` axis) the step runs the parallelisms of its
 axes:
 
-- data (``dp``, and ``sharding``, which carries data as well):
+- data (``dp``, and ``sharding`` and ``ep``, which carry data as well):
   ``batch_spec`` names the mesh axes dim 0 of a batch is split over (the
   JAX step's default ``PartitionSpec(("dp", "sharding", "ep"))``), and
   each rank passes its *local* rows, the JAX package's multi-process
@@ -82,7 +82,17 @@ axes:
   backward (after an average over the other data axes), and updates the
   slices in place with nothing gathered after the update; with
   ``accumulate_steps`` above 1 the whole gradients are summed over the
-  microbatches first.
+  microbatches first;
+- expert parallelism (``ep``, with a GPT-MoE model built after
+  ``fleet.init``): each rank holds its ep rank's experts and routes its
+  rows over the data axes (``models.gpt.GPTMoEMLP``). The expert stacks'
+  gradients are summed over the ranks holding the same experts (dp and
+  sharding, never ``ep``) and divided by the whole data group's size,
+  through flat buffers of their own; every other gradient is averaged
+  over the data group as above. The clip sums the stacks' squares over
+  the ep group; ZeRO slices the stacks (and at stage 3 stores them) along
+  the dimension ``_state_sharding_like`` gives a ``P("ep", None, None)``
+  parameter's state.
 
 ``grad_reduce`` (``None``, a shorthand of ``comm_opt.normalize_grad_reduce``,
 a dict or a ``GradReduceConfig``) replaces the all-reduce over the data
@@ -107,7 +117,7 @@ an mp linear (the whole weight on every rank: ``replicate_weight``); and a
 parameter's optimizer state there. Any other spec raises
 ``NotImplementedError`` naming ROADMAP queue A item A7 (autoshard's
 layouts). ``state_for_checkpoint()`` gathers the global arrays in the JAX
-package's layout over mp and sharding (collective: every rank calls it),
+package's layout over mp, ep and sharding (collective: every rank calls it),
 ``restore_from_checkpoint`` keeps this rank's blocks of whole arrays, and
 ``checkpoint_shardings()`` reports the placements. At a world of one with
 a process group (NCCL at world size 1) the reductions run and change no
@@ -115,11 +125,11 @@ bit.
 
 Options of the JAX step that the port has not reached raise
 ``NotImplementedError`` naming their ROADMAP items: a mesh axis of size
-above 1 for expert (A5.4b), pipeline (A5.6) or context (A5.7)
-parallelism, a batch split along another dimension than dim 0 (A5.7), a
-GPT-MoE model at a data world above 1 (A5.4b: the JAX package routes over
-the global token count), the pipeline options (A5.6) and
-``health_stats`` (A6). None is silently ignored.
+above 1 for pipeline (A5.6) or context (A5.7) parallelism, a batch split
+along another dimension than dim 0 (A5.7), ``grad_reduce`` or a
+``MoELayer``'s expert modules at an ep degree above 1 (A5.4c), the
+pipeline options (A5.6) and ``health_stats`` (A6).
+None is silently ignored.
 """
 
 from __future__ import annotations
@@ -140,8 +150,8 @@ from ..comm_opt import normalize_grad_reduce, reducer_for_step
 from ..communication import ReduceOp, all_reduce, gather_blocks
 from ..mesh import (DeviceMesh, NamedSharding, PartitionSpec, device_count,
                     spec_axes)
-from ..parallel import DataParallel, get_rank, grad_buffers
-from ..sharding_utils import (assemble, local_block, resolve_spec,
+from ..parallel import DataParallel, GradBuffers, get_rank, grad_buffers
+from ..sharding_utils import (EP_AXIS, assemble, local_block, resolve_spec,
                               spec_dim)
 from ..topology import LATER_AXES, get_hybrid_communicate_group
 from .hybrid_parallel_optimizer import hybrid_clip_
@@ -288,8 +298,12 @@ class ShardedTrainStep:
             if n > 1 and axis in LATER_AXES:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {n}: the train step runs "
-                    f"data, tensor and ZeRO parallelism ({_ITEM} "
+                    f"data, tensor, ZeRO and expert parallelism ({_ITEM} "
                     f"{LATER_AXES[axis]})")
+        if self._grad_reduce.active and mesh.shape.get(EP_AXIS, 1) > 1:
+            raise NotImplementedError(
+                f"grad_reduce at ep degree {mesh.shape[EP_AXIS]}: the "
+                f"explicit reduction of expert slices is {_ITEM} A5.4c")
         if mesh.shape.get(SHARDING_AXIS, 1) > 1 \
                 and SHARDING_AXIS not in data_axes:
             raise ValueError(f"batch_spec {spec} leaves out the sharding "
@@ -302,19 +316,15 @@ class ShardedTrainStep:
         self._sh = self._axis_group(
             (SHARDING_AXIS,) if SHARDING_AXIS in mesh.shape else (),
             "sharding_group")
+        self._ep = self._axis_group(
+            (EP_AXIS,) if EP_AXIS in mesh.shape else (), "ep_group")
         if wrapper is not None and wrapper != self._dp.ranks:
             raise ValueError(
                 f"the model's DataParallel averages over ranks "
                 f"{wrapper}, the step's dp group is {self._dp.ranks}: "
                 "pass the mesh whose data axes are the wrapper's ranks")
         self._dp_world, self._dp_rank = self._dp.nranks, self._dp.rank
-        moe = getattr(getattr(self.model, "cfg", None), "moe_num_experts", 0)
-        if moe and self._dp_world > 1:
-            raise NotImplementedError(
-                "a GPT-MoE model at a data world above 1: the JAX package "
-                "routes over the global batch's tokens (capacity cf*T/E), "
-                "which per-rank routing would change; expert parallelism "
-                f"is {_ITEM} A5.4b")
+        self._check_moe()
         for mod in self.model.modules():
             g = getattr(mod, "mp_group", None)
             if g is not None and g.ranks != self._mp.ranks:
@@ -346,10 +356,17 @@ class ShardedTrainStep:
                                        z3=self._z3)
         # stages 2 and 3 average over the data axes but sharding in the
         # buffers and reduce-scatter over sharding after them
-        grads_group = self._dp
+        grads_group, grads_axes = self._dp, data_axes
         if self._zero is not None and self._zero.stage >= 2:
-            grads_group = self._axis_group(
-                tuple(a for a in data_axes if a != SHARDING_AXIS), "dp_only")
+            grads_axes = tuple(a for a in data_axes if a != SHARDING_AXIS)
+            grads_group = self._axis_group(grads_axes, "dp_only")
+        # an ep rank's expert stacks: summed over its replicas only
+        self._experts = {n for n, p in self.params.items()
+                         if self._ep.nranks > 1 and EP_AXIS in spec_axes(
+                             getattr(p, "dist_spec", None) or ())}
+        expert_group = self._axis_group(
+            tuple(a for a in grads_axes if a != EP_AXIS), "ep_replicas") \
+            if self._experts else None
         self._reducer = None
         cfg = self._grad_reduce
         if cfg.active:
@@ -368,11 +385,21 @@ class ShardedTrainStep:
         if self._stage3 is not None:  # the reducer takes whole gradients
             self._stage3.step_mode(
                 dp_group=grads_group if red is None else None,
-                defer=red is not None)
-        # the reducer packs the gradients itself: no flat buffers then
-        self._grads = None if red is not None else grad_buffers(
-            [p for n, p in self.params.items() if n not in self._z3],
-            grads_group)
+                defer=red is not None, experts=self._experts,
+                expert_group=expert_group)
+        # the reducer packs the gradients itself: no flat buffers then;
+        # the expert stacks' gradients have buffers of their own
+        self._grads = self._expert_grads = None
+        if red is None:
+            self._grads = grad_buffers(
+                [p for n, p in self.params.items()
+                 if n not in self._z3 and n not in self._experts],
+                grads_group)
+            stacks = [p for n, p in self.params.items()
+                      if n in self._experts and n not in self._z3]
+            if stacks and grads_group.nranks > 1:
+                self._expert_grads = GradBuffers(stacks, expert_group,
+                                                 divisor=grads_group.nranks)
         self._host = None
         if self._dp_world > 1:
             # the rows check runs on the host, on a gloo group of its own
@@ -380,6 +407,36 @@ class ShardedTrainStep:
                 g = group_of(ranks, backend="gloo")
                 if me in ranks:
                     self._host = g
+
+    def _check_moe(self):
+        """A MoE block routes over the step's data group and ep group: one
+        built before ``fleet.init`` (routing its rank's rows alone) or on
+        another mesh cannot join a data world above one. At an ep degree
+        above 1 the step reduces, clips and gathers as experts only the
+        parameters placed over ``ep`` (GPT-MoE's stacks): a block whose
+        other parameters are its rank's experts (``MoELayer``'s expert
+        modules) raises."""
+        for mod in self.model.modules():
+            if not hasattr(mod, "gate_weight") or not hasattr(mod, "groups"):
+                continue
+            g = mod.groups
+            data = g.data.ranks if g is not None else [get_rank()]
+            ep = g.ep.ranks if g is not None else [get_rank()]
+            if data != self._dp.ranks or ep != self._ep.ranks:
+                raise ValueError(
+                    f"a MoE block routes over ranks {data} (experts split "
+                    f"over {ep}), the step's data group is {self._dp.ranks} "
+                    f"(ep group {self._ep.ranks}): build the model after "
+                    "fleet.init, on the step's mesh")
+            loose = [n for n, p in mod.named_parameters()
+                     if n != "gate_weight" and EP_AXIS not in spec_axes(
+                         getattr(p, "dist_spec", None) or ())]
+            if len(ep) > 1 and loose:
+                raise NotImplementedError(
+                    f"a MoE block whose experts are modules of their own "
+                    f"({loose[0]}, ...) at ep degree {len(ep)}: the step "
+                    "trains expert stacks placed P('ep', ...) (GPT-MoE's); "
+                    f"MoELayer's experts over ep are {_ITEM} A5.4c")
 
     def _realise_specs(self, param_specs):
         """Each parameter's placement: its layer's spec, or the one
@@ -584,7 +641,7 @@ class ShardedTrainStep:
         or ZeRO-2 slices."""
         zero = self._zero
         sliced = zero is not None and zero.stage >= 2 and zero.n > 1
-        if self._mp.nranks == 1 and not sliced:
+        if self._mp.nranks == 1 and not sliced and not self._experts:
             self._clip.clip_(list(grads.values()))
             return
         names = [k for k, g in grads.items() if g is not None]
@@ -592,14 +649,18 @@ class ShardedTrainStep:
             self._clip, [grads[k] for k in names],
             mp_split=[_mp_split(self.params[k]) for k in names],
             sliced=[sliced and k in zero.dims for k in names],
-            mp_group=self._mp, sharding_group=self._sh)
+            mp_group=self._mp, sharding_group=self._sh,
+            ep_split=[k in self._experts for k in names], ep_group=self._ep)
+
+    def _buffers(self):
+        return [b for b in (self._grads, self._expert_grads) if b is not None]
 
     def _keyed_step(self, x, y, lr):
         for n, p in self.params.items():
             if self._grads is None or n in self._z3:
                 p.grad = None
-        if self._grads is not None:
-            self._grads.attach()
+        for buffers in self._buffers():
+            buffers.attach()
         sc = self._scaler
         scale = sc._scale if sc is not None else None
         zero, ef = self._zero, None
@@ -607,8 +668,8 @@ class ShardedTrainStep:
             loss, ef = self._reduce_explicitly(x, y, scale)
         else:
             loss = self._forward_backward(x, y, scale)
-            if self._grads is not None:
-                self._grads.reduce()
+            for buffers in self._buffers():
+                buffers.reduce()
             if zero is not None and zero.stage >= 2:
                 zero.reduce_scatter_grads()
         if zero is not None and zero.stage >= 2:
@@ -670,13 +731,16 @@ class ShardedTrainStep:
     def _global(self, name, t, sliced=False):
         """The global array of parameter ``name``'s tensor ``t`` (the
         parameter, or a state leaf shaped like it, ``sliced`` under
-        ZeRO): gathered over sharding, then over mp (collective)."""
+        ZeRO): gathered over sharding, then over mp or ep
+        (collective)."""
         if sliced:
             t = self._zero.whole(name, gather_blocks(t, self._sh))
         p = self.params[name]
         if self._mp.nranks > 1 and _mp_split(p):
             t = assemble(gather_blocks(t, self._mp), p.mp_dim,
                          p.mp_segments)
+        if name in self._experts:
+            t = torch.cat(gather_blocks(t.contiguous(), self._ep))
         return t
 
     def _local(self, name, t, sliced=False):
@@ -686,6 +750,8 @@ class ShardedTrainStep:
         if self._mp.nranks > 1 and _mp_split(p):
             t = local_block(t, p.mp_dim, self._mp.rank, self._mp.nranks,
                             p.mp_segments)
+        if name in self._experts:
+            t = local_block(t, 0, self._ep.rank, self._ep.nranks)
         if sliced:
             t = self._zero.slice(name, t)
         return t
@@ -748,7 +814,8 @@ class ShardedTrainStep:
     def checkpoint_shardings(self):
         """Placements aligned with ``state_for_checkpoint().to_tree()``'s
         params and optimizer state: each parameter's spec (mp blocks over
-        ``mp``), each state leaf's with its ZeRO slice over ``sharding``.
+        ``mp``, expert stacks over ``ep``), each state leaf's with its ZeRO
+        slice over ``sharding``.
         ``CheckpointManager.restore`` accepts replicated ones only (a
         sharded restore is ROADMAP queue A item A5.5): restore whole
         arrays and ``restore_from_checkpoint`` keeps this rank's

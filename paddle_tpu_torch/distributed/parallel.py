@@ -106,12 +106,16 @@ class GradBuffers:
     boundary so that a kernel's vector loads stay aligned. Each buffer is
     one all-reduce, or with ``bucket_bytes`` the runs of up to that many
     bytes (a larger gradient is a bucket alone): ``DataParallel``'s
-    ``comm_buffer_size``. Every rank must build it over the same shapes in
-    the same order."""
+    ``comm_buffer_size``. ``divisor`` replaces the group's size as what
+    the sums are divided by (an expert stack's gradients are summed over
+    its ep rank's replicas and divided by the whole data group's size).
+    Every rank must build it over the same shapes in the same order."""
 
     def __init__(self, params, group: Group,
-                 bucket_bytes: Optional[int] = None):
+                 bucket_bytes: Optional[int] = None, *,
+                 divisor: Optional[int] = None):
         self.group = group
+        self.divisor = group.nranks if divisor is None else int(divisor)
         keyed = {}
         for p in params:
             if p.requires_grad:
@@ -155,8 +159,9 @@ class GradBuffers:
         """Average the gradients over the group in place: a gradient that
         is not its view (a loop that set ``.grad`` to None or to a new
         tensor) is copied in first, None as zeros, and the view becomes
-        its ``.grad``; then a SUM all-reduce of each bucket and ``1/nranks``
-        over each buffer in its dtype (not at all for one rank)."""
+        its ``.grad``; then a SUM all-reduce of each bucket and
+        ``1/divisor`` over each buffer in its dtype (not at all for a
+        divisor of one)."""
         from .communication import all_reduce
 
         for p, v in zip(self.params, self.views):
@@ -170,9 +175,9 @@ class GradBuffers:
             p.grad = v
         for bucket in self.buckets:
             all_reduce(bucket, group=self.group)
-        if self.group.nranks > 1:
+        if self.divisor > 1:
             for flat in self.buffers:
-                flat.mul_(1.0 / self.group.nranks)
+                flat.mul_(1.0 / self.divisor)
 
 
 def grad_buffers(params, group: Group, bucket_bytes: Optional[int] = None

@@ -21,10 +21,12 @@ import torch
 
 from .mesh import PartitionSpec, spec_axes
 
+#: the expert-parallel mesh axis: it splits the experts and carries data
+EP_AXIS = "ep"
 #: the mesh axes that carry the global batch on dim 0, in the train step's
 #: ``batch_spec`` order: dp, the ZeRO axis (a sharded optimizer is data
 #: parallelism for activations) and ep
-DATA_AXES = ("dp", "sharding", "ep")
+DATA_AXES = ("dp", "sharding", EP_AXIS)
 
 
 def data_axes(*, mesh=None):

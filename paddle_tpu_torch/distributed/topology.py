@@ -8,20 +8,24 @@ grid, the model axis varying fastest. ``HybridCommunicateGroup`` builds the
 ``collective.group_of`` (a process group for each set of ranks that varies
 along the axis; every rank builds all of them, in one order).
 
-Data, tensor (``model``) and ZeRO (``sharding``) parallelism are ported;
-a degree above 1 on any other axis raises ``NotImplementedError`` naming
-its ROADMAP item (``expert`` A5.4b, ``pipe`` A5.6, ``sep`` A5.7).
+Data, tensor (``model``), ZeRO (``sharding``) and expert (``expert``)
+parallelism are ported; a degree above 1 on any other axis raises
+``NotImplementedError`` naming its ROADMAP item (``pipe`` A5.6, ``sep``
+A5.7). ``moe_groups()`` gives the groups a MoE block routes over
+(``MoEGroups``), built with the axes' groups.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .collective import Group, group_of
 from .mesh import DeviceMesh, build_mesh, set_global_mesh
+from .sharding_utils import DATA_AXES, EP_AXIS
 
 # paddle axis naming -> mesh axis names
 _AXIS_ALIAS = {"data": "dp", "pipe": "pp", "sharding": "sharding",
@@ -29,10 +33,21 @@ _AXIS_ALIAS = {"data": "dp", "pipe": "pp", "sharding": "sharding",
 
 #: the ROADMAP item that ports parallelism over each axis not ported yet,
 #: by paddle and by mesh name
-LATER_AXES = {"expert": "A5.4b (expert parallelism)",
-              "pipe": "A5.6 (pipeline parallelism)",
+LATER_AXES = {"pipe": "A5.6 (pipeline parallelism)",
               "sep": "A5.7 (context parallelism)"}
 LATER_AXES.update({_AXIS_ALIAS[k]: v for k, v in list(LATER_AXES.items())})
+
+
+@dataclass(frozen=True)
+class MoEGroups:
+    """The groups a MoE block routes over: ``data``, every rank that
+    carries rows of the batch (the mesh's ``data_axes``); ``ep``, the
+    ranks that split the experts; ``replica``, the ranks holding this
+    rank's experts, along the data axes other than ``ep``."""
+    data: Group
+    ep: Group
+    replica: Group
+    data_axes: Tuple[str, ...] = (EP_AXIS,)
 
 
 class CommunicateTopology:
@@ -98,8 +113,8 @@ class HybridCommunicateGroup:
         for name in names:
             if topology.get_dim(name) > 1 and name in LATER_AXES:
                 raise NotImplementedError(
-                    f"{name} degree {topology.get_dim(name)}: data, tensor "
-                    f"and ZeRO parallelism are ported (ROADMAP queue A "
+                    f"{name} degree {topology.get_dim(name)}: data, tensor, "
+                    f"ZeRO and expert parallelism are ported (ROADMAP queue A "
                     f"item {LATER_AXES[name]})")
         self._topo = topology
         self.global_rank = global_rank
@@ -126,6 +141,29 @@ class HybridCommunicateGroup:
                 g = group_of(ranks, self.mesh, axis, name=f"{axis}_group")
                 if global_rank in ranks:
                     self._groups[axis] = g
+        self._moe = self._build_moe_groups()
+
+    def _build_moe_groups(self) -> Optional[MoEGroups]:
+        """``moe_groups()``'s groups, None when the data axes hold one
+        rank: an axis's own group where the axes are one, else a group
+        over several axes, every rank building every one in one order."""
+        data = tuple(a for a in DATA_AXES if self._axes.get(a, 1) > 1)
+        if not data:
+            return None
+        mine = {}
+        for key, axes in (("data", data),
+                          ("replica", tuple(a for a in data if a != EP_AXIS))):
+            if len(axes) == 1:
+                mine[key] = self._groups[axes[0]]
+                continue
+            for ranks in self.mesh.groups_along(axes):
+                g = group_of(ranks, self.mesh, ",".join(axes) or None,
+                             name=f"moe_{key}_group")
+                if self.global_rank in ranks:
+                    mine[key] = g
+        ep = self._groups.get(EP_AXIS) or group_of(
+            [self.global_rank], self.mesh, EP_AXIS)
+        return MoEGroups(mine["data"], ep, mine["replica"], data)
 
     # ---- topology accessors (topology.py:348-404 parity) ----
     def get_parallel_mode(self):
@@ -208,6 +246,12 @@ class HybridCommunicateGroup:
 
     def get_expert_parallel_group(self) -> Optional[Group]:
         return self._groups.get("ep")
+
+    def moe_groups(self) -> Optional[MoEGroups]:
+        """The groups a MoE block routes over: the data axes', the ep
+        group, and the ep rank's replicas along dp and sharding; None when
+        the data axes hold one rank."""
+        return self._moe
 
     # sep (the sequence-parallel axis)
     def get_sep_parallel_rank(self) -> int:

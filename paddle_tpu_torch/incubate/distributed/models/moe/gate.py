@@ -13,11 +13,24 @@ mask, the ``max(w1 + w2, 1e-9)`` renormalisation); ``moe_route`` routes
 through it and never builds a ``[T, E, C]`` tensor. ``gshard_gating`` and
 ``switch_gating`` keep the reference's signature and return its dense
 triple, built from the index form.
+
+Over a data group (``group`` of ``W`` ranks, each with its own ``T``
+tokens) ``_route`` routes the global batch, the ranks' tokens in rank
+order, as the JAX package's gate does under GSPMD: positions count the
+earlier ranks' choices of the expert (first choices after every earlier
+rank's first choices, second choices after every first choice and every
+earlier rank's second choices), ``capacity`` is the global batch's, and
+the aux loss comes from the global sums of the pre-capacity mask and of
+the probabilities. The counts are one all-gather of a ``[2, E]`` integer
+tensor (``[1, E]`` for Switch), the probabilities' sum one all-reduce
+whose backward sums the ranks' cotangents: nothing is read on the host.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .....distributed.communication import gather_blocks, sum_over
 
 
 def _positions_in_expert(mask):
@@ -35,7 +48,7 @@ def _one_hot(index, E):
     return (index[:, None] == torch.arange(E, device=index.device)).long()
 
 
-def _route(logits, capacity: int, top_k: int):
+def _route(logits, capacity: int, top_k: int, *, group=None):
     """Index routing of ``logits`` ``[T, E]`` (any float dtype; the gate
     runs in fp32) into experts of ``capacity`` slots each.
 
@@ -44,33 +57,60 @@ def _route(logits, capacity: int, top_k: int):
     where it was dropped; ``weights`` ``[T, top_k]`` fp32, the combine
     weights (0 for a dropped choice); ``aux`` the load-balancing loss.
     ``top_k`` 2 is GShard, 1 Switch. Gradients reach ``logits`` through
-    the weights and ``aux``."""
+    the weights and ``aux``. With ``group`` (more than one rank) the
+    positions and the aux loss are the global batch's (module
+    docstring); ``capacity`` is then the global batch's too."""
     T, E = logits.shape
     C = int(capacity)
     probs = torch.softmax(logits.float(), dim=-1)
     g1 = torch.argmax(probs, dim=-1)
     mask1 = _one_hot(g1, E)
-    # load-balancing aux loss (Switch eq. 4), from the pre-capacity mask
-    density = mask1.float().mean(dim=0)
-    aux = (density * probs.mean(dim=0)).sum() * E
+    masks = [mask1]
+    if top_k != 1:
+        g2 = torch.argmax(probs * (1 - mask1), dim=-1)
+        masks.append(_one_hot(g2, E))
+    before = None  # earlier ranks' choices of each expert
+    if group is not None and group.nranks > 1:
+        aux, before, used1 = _global_counts(probs, masks, group)
+    else:
+        # load-balancing aux loss (Switch eq. 4), from the pre-capacity mask
+        density = mask1.float().mean(dim=0)
+        aux = (density * probs.mean(dim=0)).sum() * E
+        used1 = mask1.sum(dim=0) if top_k != 1 else None
     pos1 = _positions_in_expert(mask1).gather(1, g1[:, None])[:, 0]
+    if before is not None:
+        pos1 = pos1 + before[0][g1]
     keep1 = pos1 < C
     w1 = probs.gather(1, g1[:, None])[:, 0] * keep1
     s1 = torch.where(keep1, g1 * C + pos1, E * C)
     if top_k == 1:
         return s1[:, None], w1[:, None], aux
-    g2 = torch.argmax(probs * (1 - mask1), dim=-1)
-    mask2 = _one_hot(g2, E)
     # second choices queue after every first choice of their expert
-    used1 = mask1.sum(dim=0)
-    pos2 = _positions_in_expert(mask2).gather(1, g2[:, None])[:, 0] \
+    pos2 = _positions_in_expert(masks[1]).gather(1, g2[:, None])[:, 0] \
         + used1[g2]
+    if before is not None:
+        pos2 = pos2 + before[1][g2]
     keep2 = pos2 < C
     w2 = probs.gather(1, g2[:, None])[:, 0] * keep2
     s2 = torch.where(keep2, g2 * C + pos2, E * C)
     denom = torch.clamp_min(w1 + w2, 1e-9)
     return (torch.stack([s1, s2], dim=1),
             torch.stack([w1 / denom, w2 / denom], dim=1), aux)
+
+
+def _global_counts(probs, masks, group):
+    """The global batch's aux loss, this rank's offsets (the earlier
+    ranks' choices of each expert, ``[k, E]``) and every rank's first
+    choices of each expert, from one all-gather of the ``[k, E]`` counts
+    and one all-reduce of the probabilities' sum."""
+    T, E = probs.shape
+    counts = torch.stack(gather_blocks(torch.stack(
+        [m.sum(dim=0) for m in masks]), group))  # [W, k, E]
+    used1 = counts[:, 0].sum(dim=0)
+    Tg = T * group.nranks
+    aux = (used1.float() / Tg
+           * (sum_over(probs.sum(dim=0), group) / Tg)).sum() * E
+    return aux, counts[:group.rank].sum(dim=0), used1
 
 
 def _dense(slots, weights, E: int, capacity: int):

@@ -1,5 +1,5 @@
 """MoELayer (``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``
-analog), one device.
+analog).
 
 ``moe_route`` is the shared routing core of ``MoELayer`` and
 ``models.gpt.GPTMoEMLP``: the gate product, the gate (``gate._route``:
@@ -14,25 +14,67 @@ are gathers forward and backward (no atomic adds: the same bits every
 run); the dispatch's backward sums each token's two slot gradients in
 fp32, as the einsum's transpose does.
 
-Expert parallelism (the ``ep`` mesh axis, ``global_scatter`` /
-``global_gather`` beyond one rank, the ``quant`` dispatch's int8
-exchanges) is ROADMAP queue A item A5.4b: on one device the ``quant`` mode has no
-exchange to compress and routes as ``dense`` does, as the JAX package's
-``plan_quant_dispatch`` returns None without an ``ep`` axis.
+Expert parallelism (``groups``, a ``MoEGroups``: the data axes' group,
+the ``ep`` group and the ep rank's replicas along the other data axes)
+runs the JAX package's dataflow, which GSPMD derives from its ``ep``
+placement: each rank routes its own tokens at their places in the global
+batch (``gate._route`` over the data group), gathers them into a partial
+``[E, C, d]`` stack (zeros in every other rank's slots), reduce-scatters
+it over ``ep`` into its ``[E/ep, C, d]`` and sums that over the replicas,
+runs its experts, all-gathers their outputs over ``ep`` and combines its
+own tokens. Each slot holds one token of the whole batch, so every sum
+has one non-zero term: the values are the one-hot einsums' bit for bit.
+Each collective's backward is its transpose (``communication``'s
+``reduce_scatter_in_trace``, ``sum_over``, ``gather_rows``): a replica receives the
+cotangents of its own tokens only, and the sum over the replicas in the
+dispatch's backward gives every token the whole gradient of its slots.
+``dispatch_mode="quant"`` runs the two exchanges block-scaled int8
+(``dispatch.py``); without an ``ep`` group of more than one rank it
+routes as ``"dense"``, as the JAX package's ``plan_quant_dispatch``
+returns None without an ``ep`` axis. ``global_scatter`` and
+``global_gather`` are the reference's count-routed exchange across the
+ranks of a group.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from .....distributed.collective import Group, _resolve_group, group_of
+from .....distributed.communication import (alltoall_single, gather_rows,
+                                            reduce_scatter_in_trace, sum_over)
 from .....distributed.fleet.meta_parallel.mp_layers import _Linear
+from .....distributed.topology import MoEGroups
 from .....nn import functional as F
 from .gate import _route
 
-_A5 = "ROADMAP queue A item A5.4b (expert parallelism)"
+
+def moe_groups(group=None) -> Optional[MoEGroups]:
+    """The groups of a MoE block: those of ``group`` (an expert-parallel
+    group, which alone carries the data unless it is the hybrid
+    topology's ``ep`` group), else the hybrid topology's; None (one rank's
+    routing) without a topology or when its data axes hold one rank."""
+    from .....distributed.topology import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    if group is None:
+        return hcg.moe_groups() if hcg is not None else None
+    g = _resolve_group(group)
+    if not isinstance(g, Group):
+        raise TypeError(f"group must be a Group (a fleet topology's "
+                        f"get_expert_parallel_group()), got "
+                        f"{type(group).__name__}")
+    if hcg is not None and g is hcg.get_expert_parallel_group():
+        return hcg.moe_groups()
+    if g.nranks == 1:
+        return None
+    from .....distributed.parallel import get_rank
+
+    return MoEGroups(g, g, group_of([get_rank()], axis_name="replica"))
 
 
 def _slot_choices(slots, n_slots: int):
@@ -105,24 +147,49 @@ class _Combine(torch.autograd.Function):
 
 
 def moe_route(xt, gate_weight, gate_type: str, capacity: int, run_experts,
-              dispatch_mode: str = "dense", quant_block: int = 128):
+              dispatch_mode: str = "dense", quant_block: int = 128, *,
+              groups: Optional[MoEGroups] = None):
     """Shared routing core (GShard/Switch): gate -> dispatch ->
     ``run_experts([E, C, d] -> [E, C, d'])`` -> combine. Returns
     ``(out [T, d'], aux)``. ``gate_type`` ``"gshard"`` is top-2, anything
-    else top-1 (Switch). ``dispatch_mode`` ``"quant"`` routes as
-    ``"dense"`` on one device (no exchange to compress; ``quant_block``
-    is then unused)."""
+    else top-1 (Switch). With ``groups`` the tokens are this rank's,
+    ``capacity`` the global batch's and ``run_experts`` takes this ep
+    rank's ``[E/ep, C, d]`` (module docstring). ``dispatch_mode``
+    ``"quant"`` runs the exchanges block-scaled int8 at ``quant_block``
+    when there is an ``ep`` exchange (``dispatch.plan_quant_dispatch``),
+    else routes as ``"dense"``."""
     if dispatch_mode not in ("dense", "quant"):
         raise ValueError(
             f"dispatch_mode must be 'dense' or 'quant', got {dispatch_mode!r}")
     E = gate_weight.shape[-1]
     logits = torch.matmul(xt, gate_weight)  # [T, E]
     slots, weights, aux = _route(logits, capacity,
-                                 2 if gate_type == "gshard" else 1)
+                                 2 if gate_type == "gshard" else 1,
+                                 group=groups.data if groups else None)
     choice = _slot_choices(slots, E * capacity)
-    ein = _Dispatch.apply(xt, slots, choice)
-    eout = run_experts(ein.view(E, capacity, xt.shape[-1]))
-    out = _Combine.apply(eout.reshape(E * capacity, -1), weights, slots,
+    d = xt.shape[-1]
+    if groups is None:
+        ein = _Dispatch.apply(xt, slots, choice)
+        eout = run_experts(ein.view(E, capacity, d))
+        out = _Combine.apply(eout.reshape(E * capacity, -1), weights, slots,
+                             choice)
+        return out, aux
+    plan = None
+    if dispatch_mode == "quant":
+        from .dispatch import plan_quant_dispatch
+
+        plan = plan_quant_dispatch(int(xt.shape[0]), int(E), int(capacity),
+                                   int(d), block=quant_block, groups=groups)
+    if plan is not None:
+        from .dispatch import quant_combine, quant_dispatch
+
+        eout = run_experts(quant_dispatch(plan, (slots, choice), xt))
+        return quant_combine(plan, (weights, slots, choice), eout), aux
+    part = _Dispatch.apply(xt, slots, choice).view(E, capacity, d)
+    ein = sum_over(reduce_scatter_in_trace(part, groups.ep, 0),
+                   groups.replica)
+    full = gather_rows(run_experts(ein), groups.ep)  # [E, C, d']
+    out = _Combine.apply(full.reshape(E * capacity, -1), weights, slots,
                          choice)
     return out, aux
 
@@ -144,8 +211,15 @@ class MoELayer(nn.Module):
     holds the gate's load-balancing term of the last forward. When every
     expert is an ``ExpertMLP`` of one shape and activation, the experts
     run as one batched fp32 product over their stacked weights; otherwise
-    one by one. ``group`` (an expert-parallel group) raises, naming A5.4b.
-    ``gate_weight [d_model, E]`` is drawn Xavier-uniform."""
+    one by one. ``gate_weight [d_model, E]`` is drawn Xavier-uniform.
+
+    With ``group``, an expert-parallel group of ``n`` ranks (the hybrid
+    topology's ``get_expert_parallel_group()``, or any group, whose ranks
+    then carry the data alone), ``experts`` are this rank's, as in the
+    reference: ``E = n * len(experts)`` experts in rank order, the gate
+    over all of them, and the tokens this rank's rows of the global batch
+    (``moe_route`` over ``moe_groups(group)``). A group of one rank routes
+    as no group does."""
 
     def __init__(self, d_model: int, experts: Sequence[nn.Module],
                  gate="gshard", top_k: Optional[int] = None,
@@ -153,12 +227,11 @@ class MoELayer(nn.Module):
                  recompute_interval: int = 0, dispatch: str = "dense",
                  name=None, *, device=None, dtype=None):
         super().__init__()
-        if group is not None:
-            raise NotImplementedError(f"MoELayer(group=...): expert-parallel "
-                                      f"groups are not ported yet ({_A5})")
+        self.groups = moe_groups(group)
         self.dispatch_mode = dispatch
         self.d_model = d_model
-        self.num_experts = len(experts)
+        self.num_experts = len(experts) * (self.groups.ep.nranks
+                                           if self.groups else 1)
         self.experts = list(experts)
         for i, e in enumerate(self.experts):
             self.add_module(f"expert_{i}", e)
@@ -208,7 +281,7 @@ class MoELayer(nn.Module):
     def forward(self, x):
         shape = x.shape
         xt = x.reshape(-1, shape[-1])  # [T, d]
-        T = xt.shape[0]
+        T = xt.shape[0] * (self.groups.data.nranks if self.groups else 1)
         capacity = max(1, int(self.capacity_factor * T / self.num_experts))
         run_experts = self._fused_experts()
         if run_experts is None:
@@ -216,7 +289,8 @@ class MoELayer(nn.Module):
                 return torch.stack([e(ein[i])
                                     for i, e in enumerate(self.experts)])
         out, aux = moe_route(xt, self.gate_weight, self.gate_type, capacity,
-                             run_experts, dispatch_mode=self.dispatch_mode)
+                             run_experts, dispatch_mode=self.dispatch_mode,
+                             groups=self.groups)
         self.aux_loss = aux
         return out.reshape(*shape[:-1], out.shape[-1])
 
@@ -247,25 +321,81 @@ class ExpertMLP(nn.Module):
         return self.fc2(self.act(self.fc1(x)))
 
 
-def _check_world(what: str, group):
-    if group is not None or (torch.distributed.is_available()
-                             and torch.distributed.is_initialized()
-                             and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f"{what} across ranks is not ported yet ({_A5}); on one rank "
-            "it is the identity")
+def _host_counts(c):
+    if isinstance(c, torch.Tensor):
+        c = c.detach().cpu().numpy()
+    return np.asarray(c).astype(np.int64).reshape(-1)
+
+
+def _exchange_plan(local_count, global_count, g, device):
+    """Each rank's rows: ``local_count[i]`` rows for global expert ``i``
+    (rank ``i // n_local``'s local expert ``i % n_local``), and
+    ``global_count[s * n_local + e]`` rows received from rank ``s`` for
+    local expert ``e``. Returns the send and receive split sizes and the
+    received rows' order as the reference lays them out (local-expert
+    major, then source rank). Counts left None are exchanged on
+    ``device``, the rows' (NCCL takes no host tensor), and read back."""
+    lc = _host_counts(local_count)
+    n = g.nranks
+    n_local = lc.size // n
+    if global_count is None:  # what every rank sends this one
+        got = torch.empty(lc.size, dtype=torch.int64, device=device)
+        alltoall_single(torch.from_numpy(lc).to(device), got, group=g)
+        global_count = got
+    gc = _host_counts(global_count).reshape(n, n_local)  # [source, e]
+    send = lc.reshape(n, n_local).sum(axis=1).tolist()
+    recv = gc.sum(axis=1).tolist()
+    starts = np.concatenate([[0], np.cumsum(gc.reshape(-1))[:-1]]).reshape(
+        n, n_local)
+    order = np.concatenate([np.arange(starts[s, e], starts[s, e] + gc[s, e])
+                            for e in range(n_local) for s in range(n)]
+                           ).astype(np.int64)
+    return send, recv, torch.from_numpy(order)
+
+
+def _exchange_group(group):
+    """The group of a count-routed exchange, or None where it is the
+    identity (one rank, or no world and no group)."""
+    if group is None and not torch.distributed.is_initialized():
+        return None
+    g = _resolve_group(group)
+    return g if g.nranks > 1 and g.process_group is not None else None
+
+
+def _exchange(x, send, recv, g):
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    alltoall_single(x.contiguous(), out, in_split_sizes=send,
+                    out_split_sizes=recv, group=g)
+    return out
 
 
 def global_scatter(x, local_count, global_count, group=None):
-    """Count-routed token exchange (``global_scatter_op`` analog). On one
-    rank the identity, as in the reference; across ranks it raises,
-    naming A5.4b."""
-    _check_world("global_scatter", group)
-    return x
+    """Count-routed token exchange (``global_scatter_op`` analog): ``x``
+    holds this rank's rows in chunks of ``local_count[i]`` rows (``i``
+    over ``world * n_local`` global experts, rank-major: chunk ``i`` goes
+    to rank ``i // n_local``'s local expert ``i % n_local``);
+    ``global_count[s * n_local + e]`` is what rank ``s`` sends this one
+    for its expert ``e`` (exchanged when None). The received rows are
+    ordered local-expert major, then source rank. One
+    ``all_to_all_single`` with split sizes from the counts, which are
+    read on the host, as the reference reads them. On one rank the
+    identity."""
+    g = _exchange_group(group)
+    if g is None:
+        return x
+    send, recv, order = _exchange_plan(local_count, global_count, g,
+                                       x.device)
+    return _exchange(x, send, recv, g).index_select(0, order.to(x.device))
 
 
 def global_gather(x, local_count, global_count, group=None):
-    """Inverse of ``global_scatter``: the identity on one rank; across
-    ranks it raises, naming A5.4b."""
-    _check_world("global_gather", group)
-    return x
+    """The inverse of ``global_scatter`` with the same counts: each rank's
+    rows go back to their source in their original chunk order."""
+    g = _exchange_group(group)
+    if g is None:
+        return x
+    send, recv, order = _exchange_plan(local_count, global_count, g,
+                                       x.device)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel())
+    return _exchange(x.index_select(0, back.to(x.device)), recv, send, g)

@@ -17,7 +17,10 @@ layout the multi-token ``extend_step`` of prefix-cache suffix prefills and
 speculative verify), ``generate``, and GPT-MoE on one device
 (``GPTMoEMLP`` in every ``moe_every_k``-th block, routed by
 ``incubate.distributed.models.moe.moe_route``). Data parallelism is the
-train step's. Under tensor parallelism (an mp group of more than one
+train step's. Under expert parallelism (the ``fleet.init`` topology's
+``ep`` axis) each GPT-MoE block holds its ep rank's ``E/ep`` experts and
+routes this rank's tokens at their places in the global batch over the
+data axes, the gate whole on every rank. Under tensor parallelism (an mp group of more than one
 rank, the ``fleet.init`` topology's) each rank holds its block of the mp
 layers, as the JAX package's ``gpt.py`` annotates them: attention over
 its ``num_heads/mp`` query and ``num_kv_heads/mp`` K/V heads (the fused
@@ -26,8 +29,8 @@ head), the MLP column- then row-parallel, the vocabulary-parallel
 embedding and tied logits ``c_identity(h) @ W_local.T`` of
 ``[B, S, V/mp]``, and the loss through the vocabulary-parallel cross
 entropy (``forward_with_loss`` unchunked, as the JAX package's at mp).
-Serving an mp-split model (ROADMAP queue A item A5.5), MoE blocks at mp
-(A5.4b), pipeline and sequence parallelism (A5.6, A5.7) raise.
+Serving an mp- or ep-split model (ROADMAP queue A item A5.5), MoE blocks
+at mp (A5.4c), pipeline and sequence parallelism (A5.6, A5.7) raise.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from ..distributed.fleet.meta_parallel import (
 )
 from ..distributed.fleet.meta_parallel.mp_layers import mp_group_of
 from ..distributed.fleet.recompute import recompute
+from ..distributed.mesh import PartitionSpec
+from ..distributed.sharding_utils import annotate_parameter
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn import functional as F
 
@@ -229,29 +234,44 @@ class GPTMoEMLP(nn.Module):
     ``b2 [E, d]``) behind a gate ``gate_weight [d, E]``, routed by
     ``moe_route`` (GShard when ``moe_top_k`` is 2, else Switch) at
     capacity ``max(1, int(moe_capacity_factor * T / E))`` for the ``T``
-    tokens of the call. The experts run in the activation dtype: two
-    batched products with the tanh GELU between them. ``aux_loss`` holds
-    the gate's load-balancing term of the last forward."""
+    tokens of the global batch. The experts run in the activation dtype:
+    two batched products with the tanh GELU between them. ``aux_loss``
+    holds the gate's load-balancing term of the last forward.
+
+    Built after ``fleet.init`` with an ``ep`` axis of ``n`` ranks, the
+    block holds its ep rank's ``E/n`` experts (the stacks' dim 0, placed
+    ``P("ep", ...)`` as the JAX package annotates them) and routes over
+    the topology's ``moe_groups()``; the gate is whole."""
 
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
+        from ..incubate.distributed.models.moe.moe_layer import moe_groups
+
         E, d, f = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
         self.cfg = cfg
         self.mp_group = mp_group_of(None)
-        _no_mp(self, "a GPT-MoE block", "A5.4b (expert parallelism)")
+        _no_mp(self, "a GPT-MoE block", "A5.4c (GPT-MoE at mp)")
+        self.groups = moe_groups()
+        n = self.groups.ep.nranks if self.groups is not None else 1
+        if E % n:
+            raise ValueError(f"moe_num_experts {E} must divide by the ep "
+                             f"degree {n}")
 
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, device=device,
                                             dtype=dtype))
 
         self.gate_weight = param(d, E)
-        self.w1, self.b1 = param(E, d, f), param(E, f)
-        self.w2, self.b2 = param(E, f, d), param(E, d)
+        self.w1, self.b1 = param(E // n, d, f), param(E // n, f)
+        self.w2, self.b2 = param(E // n, f, d), param(E // n, d)
+        for p in (self.w1, self.b1, self.w2, self.b2):
+            annotate_parameter(p, PartitionSpec(
+                "ep", *[None] * (p.dim() - 1)))
         self.dropout = Dropout(cfg.dropout)
         self.aux_loss = None
 
     def _experts(self, ein):
-        """``[E, C, d]`` -> ``[E, C, d]``, every expert at once."""
+        """``[E, C, d]`` -> ``[E, C, d]``, every (local) expert at once."""
         dt = ein.dtype
         h = torch.bmm(ein, self.w1.to(dt)) + self.b1.to(dt)[:, None]
         h = F.gelu(h, approximate=True)
@@ -263,11 +283,13 @@ class GPTMoEMLP(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         xt = x.reshape(-1, d)
-        capacity = max(1, int(cfg.moe_capacity_factor * xt.shape[0]
+        T = xt.shape[0] * (self.groups.data.nranks if self.groups else 1)
+        capacity = max(1, int(cfg.moe_capacity_factor * T
                               / cfg.moe_num_experts))
         out, aux = moe_route(
             xt, self.gate_weight, "gshard" if cfg.moe_top_k == 2 else "switch",
-            capacity, self._experts, dispatch_mode=cfg.moe_dispatch)
+            capacity, self._experts, dispatch_mode=cfg.moe_dispatch,
+            groups=self.groups)
         self.aux_loss = aux
         return self.dropout(out.reshape(B, S, d))
 
@@ -288,6 +310,11 @@ class GPTBlock(nn.Module):
     def forward(self, x, kv_cache=None, cache_positions=None,
                 return_kv=False):
         if return_kv or kv_cache is not None:
+            if getattr(self.mlp, "groups", None) is not None:
+                raise NotImplementedError(
+                    "serving a GPT-MoE model that routes over ranks (built "
+                    "after fleet.init at a data world above 1) is not "
+                    "ported yet (ROADMAP queue A item A5.5)")
             a, kv = self.attn(self.ln1(x), kv_cache=kv_cache,
                               cache_positions=cache_positions,
                               return_kv=return_kv)

@@ -13,6 +13,14 @@ v thirds, not the contiguous column chunk a ``P(None, 'mp')`` placement
 gives a device in the JAX package), the row-parallel weights' rows; the
 rest whole. ``to_paddle_tpu`` assembles the global arrays from every
 rank's blocks.
+
+For a GPT-MoE model split over ``ep_degree`` expert-parallel ranks,
+``from_paddle_tpu(params, ep_rank=r, ep_degree=n)`` gives rank ``r``'s
+block of dim 0 of each expert stack (``mlp.w1``, ``b1``, ``w2``, ``b2``:
+its ``E/n`` experts) and every other parameter whole; ``to_paddle_tpu``
+joins the stacks of every ep rank's dict, or gathers them over a model's
+ep group (collective) when given the model. A MoE block split
+over mp raises (ROADMAP queue A item A5.4c).
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ _LAYER = ("ln1.weight", "ln1.bias", "attn.qkv.weight", "attn.qkv.bias",
 _DENSE_MLP = ("mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
               "mlp.fc2.bias")
 _MOE_MLP = ("mlp.gate_weight", "mlp.w1", "mlp.b1", "mlp.w2", "mlp.b2")
+#: the expert stacks, split over ep along dim 0
+_EXPERT_STACKS = _MOE_MLP[1:]
 _FINAL = ("gpt.final_ln.weight", "gpt.final_ln.bias")
 _HEAD = "lm_head.weight"
 _LAYER_RE = re.compile(r"^gpt\.layers\.(\d+)\.")
@@ -81,7 +91,7 @@ def mp_layout(name: str, shapes: Dict[str, tuple]):
     suffix = name[m.end():]
     if suffix in _MOE_MLP:
         raise NotImplementedError("a GPT-MoE block split over mp is not "
-                                  "ported yet (ROADMAP queue A item A5.4b)")
+                                  "ported yet (ROADMAP queue A item A5.4c)")
     if suffix not in _MP_SPLIT:
         return None
     segments = None
@@ -92,19 +102,55 @@ def mp_layout(name: str, shapes: Dict[str, tuple]):
     return _MP_SPLIT[suffix], segments
 
 
+def expert_stack(name: str) -> bool:
+    """Whether GPT parameter ``name`` is an expert stack (split over
+    ep)."""
+    m = _LAYER_RE.match(name)
+    return bool(m) and name[m.end():] in _EXPERT_STACKS
+
+
+def _gathered_state(model):
+    """``model.state_dict()`` with each ep-split expert stack gathered
+    over its block's ep group (collective)."""
+    from .distributed.communication import gather_along
+
+    sd = model.state_dict()
+    inner = model  # fleet's and ZeRO's wrappers give the inner names
+    while isinstance(getattr(inner, "_layers", None), torch.nn.Module):
+        inner = inner._layers
+    for name, mod in inner.named_modules():
+        groups = getattr(mod, "groups", None)
+        if groups is None or groups.ep.nranks == 1 \
+                or not hasattr(mod, "w1"):
+            continue
+        for k in ("w1", "b1", "w2", "b2"):
+            key = f"{name}.{k}" if name else k
+            sd[key] = gather_along(sd[key].contiguous(), groups.ep, 0)
+    return sd
+
+
 def to_paddle_tpu(blocks) -> Dict[str, torch.Tensor]:
     """The global arrays (CPU tensors, under the JAX package's names and
-    layout) from every mp rank's state dict, in rank order: the inverse of
-    ``from_paddle_tpu(..., mp_rank=r, mp_degree=len(blocks))``. A model
+    layout) from every rank's state dict, in rank order: the inverse of
+    ``from_paddle_tpu(..., mp_rank=r, mp_degree=len(blocks))``, or, where
+    the dicts hold expert stacks (a MoE block cannot be split over mp),
+    of ``from_paddle_tpu(..., ep_rank=r, ep_degree=len(blocks))``. A model
     (or a list of them) stands for its ``state_dict()``: a ZeRO stage-3
-    model's gathers its slices (collective over its sharding group)."""
+    model's gathers its slices (collective over its sharding group), an
+    ep-split GPT-MoE model's its expert stacks (collective over its ep
+    group)."""
     if isinstance(blocks, torch.nn.Module):
         blocks = [blocks]
-    blocks = [b.state_dict() if isinstance(b, torch.nn.Module) else b
+    blocks = [_gathered_state(b) if isinstance(b, torch.nn.Module) else b
               for b in blocks]
     blocks = [{k: torch.as_tensor(v).detach().cpu() for k, v in b.items()}
               for b in blocks]
     n = len(blocks)
+    if n == 1:
+        return {k: v.clone() for k, v in blocks[0].items()}
+    if any(expert_stack(k) for k in blocks[0]):
+        return {k: torch.cat([b[k] for b in blocks]) if expert_stack(k)
+                else blocks[0][k].clone() for k in blocks[0]}
     whole = {k: tuple(v.shape) for k, v in blocks[0].items()}
     for k, layout in ((k, mp_layout(k, whole)) for k in whole):
         if layout is not None:
@@ -113,16 +159,19 @@ def to_paddle_tpu(blocks) -> Dict[str, torch.Tensor]:
     out = {}
     for k in blocks[0]:
         layout = mp_layout(k, whole)
-        out[k] = blocks[0][k].clone() if layout is None or n == 1 \
+        out[k] = blocks[0][k].clone() if layout is None \
             else assemble([b[k] for b in blocks], *layout)
     return out
 
 
 def from_paddle_tpu(params: Dict[str, np.ndarray], *, mp_rank: int = 0,
-                    mp_degree: int = 1) -> Dict[str, torch.Tensor]:
+                    mp_degree: int = 1, ep_rank: int = 0,
+                    ep_degree: int = 1) -> Dict[str, torch.Tensor]:
     """Convert a ``paddle_tpu`` GPT parameter dict (numpy values) into a
     state dict for ``paddle_tpu_torch.models.gpt.GPTForCausalLM``; with
-    ``mp_degree`` above 1, rank ``mp_rank``'s blocks of it (``mp_layout``).
+    ``mp_degree`` above 1, rank ``mp_rank``'s blocks of it (``mp_layout``);
+    with ``ep_degree`` above 1, ep rank ``ep_rank``'s block of dim 0 of
+    each expert stack.
     dtypes are kept. The block count, and which blocks hold the MoE FFN
     (those with an ``mlp.gate_weight``), are read from the names; a name
     missing from that structure, or one outside it (a block mixing the
@@ -139,6 +188,11 @@ def from_paddle_tpu(params: Dict[str, np.ndarray], *, mp_rank: int = 0,
         raise KeyError(f"from_paddle_tpu: missing {missing[:6]}, "
                        f"unexpected {extra[:6]}")
     out = {name: to_torch(np.asarray(params[name])) for name in want}
+    if ep_degree > 1:
+        for name in want:
+            if expert_stack(name):
+                out[name] = local_block(out[name], 0, ep_rank,
+                                        ep_degree).contiguous()
     if mp_degree == 1:
         return out
     shapes = {k: tuple(v.shape) for k, v in out.items()}

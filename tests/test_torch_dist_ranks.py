@@ -228,33 +228,44 @@ def job_collectives(directory, inp, rank):
     D.barrier()
 
     # degrees left to later items raise before any group forms
-    for key in ("pp_degree", "sep_degree", "ep_degree"):
+    for key in ("pp_degree", "sep_degree"):
         st = fleet.DistributedStrategy()
         st.hybrid_configs = {"dp_degree": 1, key: 2}
         out[f"refuse_{key}"] = _raises(lambda: fleet.init(
             is_collective=True, strategy=st, device="cpu"))
 
+    def record(hcg):
+        topo = hcg.topology()
+        return {
+            "coords": [hcg.get_data_parallel_rank(), hcg.get_stage_id(),
+                       hcg.get_sharding_parallel_rank(),
+                       hcg.get_sep_parallel_rank(),
+                       hcg.get_expert_parallel_rank(),
+                       hcg.get_model_parallel_rank()],
+            "groups": {a: g.ranks for a, g in hcg._groups.items()},
+            "axis_sizes": hcg.axis_sizes(),
+            "mode": hcg.get_parallel_mode(),
+            "comm_lists": {n: topo.get_comm_list(n)
+                           for n in topo.get_hybrid_group_names()},
+            "dp_world": hcg.get_data_parallel_world_size(),
+            "ep": [hcg.get_expert_parallel_rank(),
+                   hcg.get_expert_parallel_world_size(),
+                   hcg.get_expert_parallel_group().ranks],
+            "mesh": hcg.get_mesh().devices.tolist(),
+        }
+
+    out["ep_hcg"] = record(_hybrid_init({"ep_degree": 2}))
     hcg = _dp_init()
-    topo = hcg.topology()
-    out["hcg"] = {
-        "coords": [hcg.get_data_parallel_rank(), hcg.get_stage_id(),
-                   hcg.get_sharding_parallel_rank(),
-                   hcg.get_sep_parallel_rank(),
-                   hcg.get_expert_parallel_rank(),
-                   hcg.get_model_parallel_rank()],
-        "groups": {a: g.ranks for a, g in hcg._groups.items()},
-        "axis_sizes": hcg.axis_sizes(),
-        "mode": hcg.get_parallel_mode(),
-        "comm_lists": {n: topo.get_comm_list(n)
-                       for n in topo.get_hybrid_group_names()},
-        "dp_world": hcg.get_data_parallel_world_size(),
-        "mesh": hcg.get_mesh().devices.tolist(),
-    }
+    out["hcg"] = record(hcg)
+    # a GPT-MoE step at dp 2 routes the global batch: its first loss is
+    # one process's on the whole batch
     moe = GPTForCausalLM(GPTConfig(**{**TINY, "moe_num_experts": 4,
                                       "moe_every_k": 2}), device="cpu")
-    out["refuse_moe"] = _raises(lambda: fleet.make_sharded_train_step(
-        moe, AdamW(parameters=moe.named_parameters()),
-        mesh=hcg.get_mesh(), device="cpu"))
+    step = fleet.make_sharded_train_step(
+        moe, AdamW(parameters=moe.named_parameters()), mesh=hcg.get_mesh(),
+        device="cpu")
+    x = inp["x"][0][2 * rank:2 * rank + 2]
+    out["moe_loss"] = step(x, torch.roll(x, -1, 1)).item()
     step = _dp_step(inp["params"], hcg)
     x = inp["x"][0][:2 - rank]  # rank 0 two rows, rank 1 one
     out["refuse_rows"] = _raises(lambda: step(x, torch.roll(x, -1, 1)))
@@ -750,16 +761,26 @@ def test_data_parallel_wrapper_in_one_process(fresh_world):
 
 
 def test_later_items_raise(fresh_world):
-    """The in-trace collectives of ring attention (A5.7) and expert
-    parallelism (A5.4), the planner (A7), role makers and
-    parameter-server mode (A8) and the hybrid degrees each name their
-    item; the launcher's PS mode (A8) and elastic restarts (A5.8) too."""
+    """The in-trace collective of ring attention (A5.7), the planner (A7),
+    role makers and parameter-server mode (A8) and the hybrid degrees
+    each name their item; the launcher's PS mode (A8) and elastic
+    restarts (A5.8) too. Expert parallelism's exchange and axis are
+    ported: on one rank the all-to-all is the identity (a new axis moves
+    to ``concat_axis`` untiled), and the ``expert`` axis builds."""
     from paddle_tpu_torch.distributed.launch.main import _parse_args, launch
 
-    for fn, item in ((lambda: D.ppermute(1, "dp", []), "A5.7"),
-                     (lambda: D.all_to_all_in_trace(1, "dp", 0, 0), "A5.4")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    with pytest.raises(NotImplementedError, match="A5.7"):
+        D.ppermute(1, "dp", [])
+    x = torch.arange(6.0).view(1, 2, 3)
+    assert D.all_to_all_in_trace(x, "ep", 0, 0) is x
+    assert torch.equal(D.all_to_all_in_trace(x, "ep", 0, 2, tiled=False),
+                       x.movedim(0, 2))
+    hcg = D.HybridCommunicateGroup(D.CommunicateTopology(["data", "expert"],
+                                                         [1, 1]))
+    assert (hcg.get_expert_parallel_world_size(),
+            hcg.get_expert_parallel_rank(),
+            hcg.get_expert_parallel_group().ranks) == (1, 0, [0])
+    assert hcg.moe_groups() is None  # one rank's routing
     with pytest.raises(NotImplementedError, match="A7"):
         fleet.plan_hybrid_configs({})
     st = fleet.DistributedStrategy()
@@ -771,7 +792,6 @@ def test_later_items_raise(fresh_world):
     with pytest.raises(NotImplementedError, match="A8"):
         fleet.PaddleCloudRoleMaker(is_collective=True)
     for names, item in ((["data", "pipe"], "A5.6"),
-                        (["data", "expert"], "A5.4"),
                         (["data", "sep"], "A5.7")):
         with pytest.raises(NotImplementedError, match=item):
             D.HybridCommunicateGroup(D.CommunicateTopology(names, [1, 2]))

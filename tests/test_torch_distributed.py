@@ -216,8 +216,8 @@ def _jax_collectives(vals, chunks, scatter):
     return out
 
 
-def _jax_hcg(rank):
-    topo = jtopology.CommunicateTopology(NAMES, [2, 1, 1, 1, 1, 1])
+def _jax_hcg(rank, dims=(2, 1, 1, 1, 1, 1)):
+    topo = jtopology.CommunicateTopology(NAMES, list(dims))
     h = jtopology.HybridCommunicateGroup(topo, global_rank=rank)
     return {
         "coords": [h.get_data_parallel_rank(), h.get_stage_id(),
@@ -228,6 +228,9 @@ def _jax_hcg(rank):
         "mode": h.get_parallel_mode(),
         "comm_lists": {n: topo.get_comm_list(n) for n in NAMES},
         "dp_world": h.get_data_parallel_world_size(),
+        "ep": [h.get_expert_parallel_rank(),
+               h.get_expert_parallel_world_size(),
+               h.get_expert_parallel_group().ranks],
         "mesh_shape": tuple(h.get_mesh().devices.shape),
     }
 
@@ -248,7 +251,14 @@ def test_collectives_topology_and_data_match_the_reference(tmp_path):
     with R.Ranks("collectives", tmp_path) as ranks:
         want = _jax_collectives(vals, chunks, scatter)
         hcgs = [_jax_hcg(r) for r in range(2)]
+        ep_hcgs = [_jax_hcg(r, (1, 1, 1, 1, 2, 1)) for r in range(2)]
         _reset_jax_world()
+        # the GPT-MoE step's first loss at dp 2 is one process's
+        moe = GPTForCausalLM(GPTConfig(**{**R.TINY, "moe_num_experts": 4,
+                                          "moe_every_k": 2}), device="cpu")
+        xm = torch.from_numpy(x[0])
+        with torch.no_grad():
+            moe_loss = moe.forward_with_loss(xm, torch.roll(xm, -1, 1))
         batches = []
         for r in range(2):
             it = iter(j_pipeline(paths, 2, 24, eos_id=EOS, seed=4,
@@ -267,19 +277,19 @@ def test_collectives_topology_and_data_match_the_reference(tmp_path):
                 (name, r, got, ref_r)
         assert out["all_gather_object"] == [0, 1]
         assert out["broadcast_object_list"] == ["from 1"]
-        for key, item in (("pp_degree", "A5.6"), ("sep_degree", "A5.7"),
-                          ("ep_degree", "A5.4")):
+        for key, item in (("pp_degree", "A5.6"), ("sep_degree", "A5.7")):
             assert "NotImplementedError" in out[f"refuse_{key}"] \
                 and item in out[f"refuse_{key}"], out[f"refuse_{key}"]
-        assert out["refuse_moe"].startswith("NotImplementedError") \
-            and "A5.4" in out["refuse_moe"], out["refuse_moe"]
+        assert abs(out["moe_loss"] - float(moe_loss)) <= ROUNDING, (
+            out["moe_loss"], float(moe_loss))
         assert out["refuse_rows"].startswith("ValueError") \
             and "rows" in out["refuse_rows"], out["refuse_rows"]
 
-        ref = hcgs[r]
-        got = dict(out["hcg"])
-        assert tuple(np.shape(got.pop("mesh"))) == ref.pop("mesh_shape")
-        assert got == ref
+        for key, refs in (("hcg", hcgs), ("ep_hcg", ep_hcgs)):
+            ref = dict(refs[r])
+            got = dict(out[key])
+            assert tuple(np.shape(got.pop("mesh"))) == ref.pop("mesh_shape")
+            assert got == ref, key
 
         for jb, b in zip(batches[r], out["batches"]):
             assert set(jb) == set(b)

@@ -1551,3 +1551,63 @@ def test_mp_layers_over_an_nccl_group_of_one_rank(cuda, tmp_path,
             assert torch.equal(layer.weight.grad, w.grad)
     finally:
         dist.destroy_process_group()
+
+
+def _exchange_rank(rank, store, out_dir):
+    """One of two ranks, each on its own card over NCCL: the count-routed
+    exchange with the counts given and with them exchanged (None)."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed.collective import group_of
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        global_gather, global_scatter)
+
+    torch.cuda.set_device(rank)
+    tdist.init_process_group("nccl", init_method=f"file://{store}",
+                             world_size=2, rank=rank)
+    try:
+        g = group_of([0, 1])
+        counts = torch.tensor([[3, 0, 2, 5], [1, 4, 0, 2]])
+        lc = counts[rank]
+        gc = counts.reshape(2, 2, 2)[:, rank].reshape(-1)
+        x = (torch.arange(int(lc.sum()) * 8, dtype=torch.float32)
+             .view(-1, 8) + 1000 * rank).cuda()
+        given = global_scatter(x, lc, gc, group=g)
+        counted = global_scatter(x, lc.cuda(), None, group=g)
+        back = global_gather(counted, lc, None, group=g)
+        torch.cuda.synchronize()
+        torch.save({"x": x.cpu(), "given": given.cpu(),
+                    "counted": counted.cpu(), "back": back.cpu(),
+                    "backend": tdist.get_backend()},
+                   f"{out_dir}/out.{rank}.pt")
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_global_scatter_and_gather_over_nccl_across_two_cards(cuda,
+                                                              tmp_path):
+    """``global_scatter``/``global_gather`` between two ranks on two cards
+    over NCCL: the counts, given or exchanged on the card, route each
+    rank's chunks to their expert's rank, ordered local-expert major then
+    source rank, and the gather returns every row to its source bit for
+    bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL refuses two ranks on one)")
+    import torch.multiprocessing as mp
+
+    mp.spawn(_exchange_rank, args=(str(tmp_path / "store"), str(tmp_path)),
+              nprocs=2, join=True)
+    outs = [torch.load(tmp_path / f"out.{r}.pt") for r in range(2)]
+    counts = [[3, 0, 2, 5], [1, 4, 0, 2]]
+    chunks = []  # chunks[s][i]: source s's rows for global expert i
+    for s, out in enumerate(outs):
+        starts = np.cumsum([0] + counts[s])
+        chunks.append([out["x"][starts[i]:starts[i + 1]] for i in range(4)])
+    for d, out in enumerate(outs):
+        want = torch.cat([chunks[s][2 * d + e] for e in range(2)
+                          for s in range(2)])
+        assert out["backend"] == "nccl"
+        assert torch.equal(out["given"], want), d
+        assert torch.equal(out["counted"], want), d
+        assert torch.equal(out["back"], out["x"]), d

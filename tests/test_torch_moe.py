@@ -536,17 +536,34 @@ def test_from_paddle_tpu_reads_the_moe_blocks(moe_models):
 
 
 def test_unported_moe_options_raise():
-    """Expert parallelism and the other distributed options name their A5
-    item; an activation without a port names A8."""
-    with pytest.raises(NotImplementedError, match="A5"):
-        tmoe.MoELayer(8, [tmoe.ExpertMLP(8, 8, device="cpu")],
-                      group=object(), device="cpu")
+    """A group of one rank routes as no group does, bit for bit, and the
+    exchanges over it are the identity; the other distributed options name
+    their A5 item; an activation without a port names A8."""
+    from paddle_tpu_torch.distributed.collective import Group
+
+    one = Group([0])
+    layers = []
+    for group in (None, one):
+        torch.manual_seed(0)
+        layers.append(tmoe.MoELayer(
+            8, [tmoe.ExpertMLP(8, 16, device="cpu") for _ in range(4)],
+            group=group, device="cpu"))
+    assert layers[1].num_experts == 4 and layers[1].groups is None
+    xs = torch.randn(2, 5, 8, requires_grad=True)
+    outs = []
+    for layer in layers:
+        out = layer(xs)
+        (out * torch.arange(out.numel()).view_as(out)).sum().backward()
+        outs.append((out.detach(), layer.aux_loss.detach(), xs.grad.clone(),
+                     {k: p.grad for k, p in layer.named_parameters()}))
+        xs.grad = None
+    (o0, a0, g0, p0), (o1, a1, g1, p1) = outs
+    assert torch.equal(o0, o1) and torch.equal(a0, a1) and torch.equal(g0, g1)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
     x = torch.ones(3, 4)
-    assert tmoe.global_scatter(x, None, None) is x
-    assert tmoe.global_gather(x, None, None) is x
-    for fn in (tmoe.global_scatter, tmoe.global_gather):
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn(x, None, None, group=object())
+    for group in (None, one):
+        assert tmoe.global_scatter(x, [3], [3], group=group) is x
+        assert tmoe.global_gather(x, [3], [3], group=group) is x
     with pytest.raises(NotImplementedError, match="A5.6"):
         gpt_moe_tiny(device="cpu").pipeline_spec()
     for over in (dict(sequence_parallel=True),

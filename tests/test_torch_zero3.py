@@ -12,7 +12,7 @@ on ``tests/conftest.py``'s CPU devices:
   state (``shard_spec_for``'s for the position table, which the JAX
   package slices too), vectors whole; 3 AdamW
   steps with the clip, each rank on its half of every batch, give losses
-  within ``Z3_TOL`` and whole parameters within
+  within ``LOSS_TOL`` and whole parameters within
   ``tests/test_torch_checkpoint.py``'s trajectory tolerances of the JAX
   step with ``p_g_os`` on its 2-device mesh, and losses and parameters
   bitwise equal to the port's ``os_g`` run, under
@@ -60,17 +60,26 @@ from paddle_tpu_torch.optimizer import AdamW
 import test_torch_dist_ranks as R
 from test_torch_comm_opt import (_assert_reducer_runs, _reducer_inputs,
                                  _update_error)
-from test_torch_distributed import (_assert_state_bitwise,
+from test_torch_distributed import (LOSS_TOL, _assert_state_bitwise,
                                     _assert_trajectory, _batches,
                                     _jax_model, _reset_jax_world)
 from test_torch_tensor_parallel import _jax_run, _jax_step, _mesh
 
-#: two ranks' losses against the JAX step's: the same sums in another
-#: order (the local means' average), fp32 rounding. The parameters are
-#: held to the trajectory tolerances (``PARAM_TOL``): AdamW divides each
-#: gradient by its own root mean square, so an entry whose gradient is
-#: near its tensor's rounding level moves by up to lr on summation order
-#: alone (3.3e-6 on the word embedding here, the same as ``os_g``'s)
+#: the port against the port: p_g_os against os_g on other schedules
+#: (``ACCUM_*``). Against the JAX ``p_g_os`` step the losses are held
+#: within ``LOSS_TOL`` (1e-5), as every other parity test of this step
+#: holds them: the gap is the two packages' fp32 forwards (MKL against
+#: XLA, the order of the local means) and is there before stage 3 runs.
+#: The port's plain one-process step reads its first loss, before any
+#: update, one fp32 ulp (4.77e-07 at 5.8-6.5) below the JAX step's, two
+#: ulps at two ranks; the three steps read 9.537e-07 each against the JAX
+#: step on one JAX build, and a third ulp on another failed 1e-6. What
+#: stage 3 itself computes is held bitwise to the port's os_g run. The
+#: parameters are held to the trajectory tolerances (``PARAM_TOL``):
+#: AdamW divides each gradient by its own root mean square, so an entry
+#: whose gradient is near its tensor's rounding level moves by up to lr
+#: on summation order alone (3.3e-6 on the word embedding here, the same
+#: as ``os_g``'s)
 Z3_TOL = 1e-6
 #: p_g_os against os_g, both with accumulate_steps=2: stage 3 reduce-
 #: scatters each microbatch's gradient and sums the slices, os_g sums
@@ -195,7 +204,7 @@ def test_zero3_matches_the_reference(tmp_path):
             assert all(torch.equal(rec["params"][k], og["params"][k])
                        for k in og["params"]), pol
             assert np.abs(np.array(rec["losses"]) - np.array(jlosses)
-                          ).max() <= Z3_TOL, (pol, rec["losses"], jlosses)
+                          ).max() <= LOSS_TOL, (pol, rec["losses"], jlosses)
             _assert_trajectory(jstep.params, rec["params"], 3)
             gathers, scatters, peak, live = rec["stats"]
             # per step: 10 sliced weights reduce-scattered once each

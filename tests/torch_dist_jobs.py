@@ -1,5 +1,6 @@
-"""The rank jobs of the port's ZeRO-3 and gradient-reduction tests
-(``tests/test_torch_zero3.py``, ``tests/test_torch_comm_opt.py``).
+"""The rank jobs of the port's ZeRO-3, gradient-reduction and expert-
+parallel tests (``tests/test_torch_zero3.py``,
+``tests/test_torch_comm_opt.py``, ``tests/test_torch_expert_parallel.py``).
 Imports no JAX: ``tests/test_torch_dist_ranks.py``, the script each rank
 runs, looks a job up here when it is not one of its own.
 """
@@ -16,8 +17,13 @@ from paddle_tpu_torch.distributed.comm_opt import (GradReduceConfig,
                                                    reducer_for_step)
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     group_sharded_parallel, save_group_sharded_model)
-from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.incubate.distributed.models.moe import (
+    ExpertMLP, MoELayer, global_gather, global_scatter)
+from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import \
+    moe_route
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM, gpt_moe_tiny
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import from_paddle_tpu, to_paddle_tpu
 
@@ -143,16 +149,23 @@ def job_grad_reduce(directory, inp, rank):
                      "first": first}
     sc.set_init_loss_scaling(2.0 ** 10)
     out["scaler"]["losses"] = run(step, 1, 3)
-    # expert parallelism is left to a later item
+    # a GPT-MoE step at dp 2 (no ep axis: the experts are replicated)
+    # with the explicit fp32 reduction, and without one; a MoELayer whose
+    # experts split over the dp group
     from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 
-    moe = GPTForCausalLM(GPTConfig(**{**R.TINY, "moe_num_experts": 4,
-                                      "moe_every_k": 1}), device="cpu")
-    out["moe_step"] = R._raises(lambda: fleet.make_sharded_train_step(
-        moe, AdamW(parameters=moe.named_parameters()), mesh=hcg.get_mesh(),
-        device="cpu"))
-    out["moe_group"] = R._raises(lambda: MoELayer(
-        64, [torch.nn.Identity()] * 2, group=hcg.get_data_parallel_group()))
+    out["moe_step"] = []
+    for mode in (None, "fp32"):
+        moe = GPTForCausalLM(GPTConfig(**{**R.TINY, "moe_num_experts": 4,
+                                          "moe_every_k": 1}), device="cpu")
+        step = fleet.make_sharded_train_step(
+            moe, AdamW(parameters=moe.named_parameters()),
+            mesh=hcg.get_mesh(), grad_reduce=mode, device="cpu")
+        out["moe_step"].append({"losses": run(step, 0, 2),
+                                "params": R._snapshot(step)})
+    out["moe_group"] = MoELayer(64, [torch.nn.Identity()] * 2,
+                                group=hcg.get_data_parallel_group()
+                                ).num_experts
     return out
 
 
@@ -320,7 +333,167 @@ def job_dp_mp_4(directory, inp, rank):
     return out
 
 
+# ---------------- expert parallelism ---------------------------------------
+def _moe_model(params, mode="dense", hcg=None, clip=R.CLIP):
+    """The tiny GPT-MoE on ``params`` (whole arrays; an ep rank takes its
+    experts) and its AdamW."""
+    ep = (hcg.get_expert_parallel_rank(), hcg.get_expert_parallel_world_size()
+          ) if hcg is not None else (0, 1)
+    model = gpt_moe_tiny(dropout=0.0, moe_dispatch=mode, device="cpu")
+    model.load_state_dict(from_paddle_tpu(
+        {k: v.numpy() for k, v in params.items()}, ep_rank=ep[0],
+        ep_degree=ep[1]))
+    model.train()
+    return model, AdamW(learning_rate=R.LR, epsilon=R.EPS, weight_decay=0.01,
+                        parameters=model.named_parameters(),
+                        grad_clip=ClipGradByGlobalNorm(clip))
+
+
+def _ep_record(hcg):
+    return {**R._hcg_record(hcg),
+            "ep": [hcg.get_expert_parallel_rank(),
+                   hcg.get_expert_parallel_world_size(),
+                   hcg.get_expert_parallel_group().ranks]}
+
+
+def _route_runs(ri, groups, rank, n):
+    """``moe_route`` on this rank's rows of ``ri["x"]`` with its experts
+    (GShard and Switch, dense and quant): outputs, aux, and the gradients
+    of ``sum(out * cot) + c * aux``."""
+    Tl = ri["x"].shape[0] // n
+    E = ri["gw"].shape[1]
+    rows, es = slice(rank * Tl, (rank + 1) * Tl), slice(
+        rank * E // n, (rank + 1) * E // n)
+    out = {}
+    for gate in ("gshard", "switch"):
+        for mode in ("dense", "quant"):
+            x = ri["x"][rows].clone().requires_grad_()
+            gw = ri["gw"].clone().requires_grad_()
+            ws = [ri[k][es].clone().requires_grad_()
+                  for k in ("w1", "b1", "w2", "b2")]
+
+            def experts(ein):
+                h = F.gelu(torch.bmm(ein, ws[0]) + ws[1][:, None],
+                           approximate=True)
+                return torch.bmm(h, ws[2]) + ws[3][:, None]
+
+            y, aux = moe_route(x, gw, gate, int(ri["C"]), experts,
+                               dispatch_mode=mode, groups=groups)
+            ((y * ri["cot"][rows]).sum() + float(ri["c"]) * aux).backward()
+            out[f"{gate}_{mode}"] = {
+                "out": y.detach(), "aux": aux.detach(), "dx": x.grad,
+                "dgw": gw.grad, "dw": [w.grad for w in ws]}
+    return out
+
+
+def job_ep2(directory, inp, rank):
+    """Two ranks at ep 2: the topology; ``moe_route`` over the ranks
+    (GShard and Switch, dense and quant); ``MoELayer(group=)``, and the
+    train step's refusal of it; ``global_scatter``/``global_gather``; 3 steps of the tiny GPT-MoE,
+    dense and quant, each rank on its half of every batch; the clipped
+    gradients of a first step against one process's on the whole batch;
+    ``to_paddle_tpu`` of the model."""
+    params, xs, ys = inp["params"], inp["x"], inp["y"]
+    # one process on the whole batch, before the world forms: its
+    # clipped gradients after a first step
+    ref, ref_opt = _moe_model(params, clip=inp["clip"])
+    ref_step = fleet.make_sharded_train_step(ref, ref_opt, device="cpu")
+    ref_step(xs[0], ys[0])
+    ref_grads = {k: p.grad.clone() for k, p in ref.named_parameters()}
+
+    hcg = R._hybrid_init({"ep_degree": 2})
+    out = {"hcg": _ep_record(hcg)}
+    out["route"] = _route_runs(inp["route"], hcg.moe_groups(), rank, 2)
+
+    li = inp["layer"]
+    n_loc = li["fc1_w"].shape[0] // 2
+    experts = [ExpertMLP(*li["fc1_w"].shape[1:], device="cpu")
+               for _ in range(n_loc)]
+    layer = MoELayer(li["fc1_w"].shape[1], experts,
+                     group=hcg.get_expert_parallel_group(), device="cpu")
+    with torch.no_grad():
+        layer.gate_weight.copy_(li["gate"])
+        for i, e in enumerate(experts):
+            for fc in ("fc1", "fc2"):
+                getattr(e, fc).weight.copy_(li[f"{fc}_w"][rank * n_loc + i])
+                getattr(e, fc).bias.copy_(li[f"{fc}_b"][rank * n_loc + i])
+    Tl = li["x"].shape[0] // 2
+    out["layer"] = {"out": layer(li["x"][rank * Tl:(rank + 1) * Tl]).detach(),
+                    "aux": layer.aux_loss.detach(), "E": layer.num_experts}
+    # its experts are modules of their own, placed over nothing: the step
+    # refuses to train them
+    wrapped = torch.nn.Sequential(layer)
+    try:
+        fleet.make_sharded_train_step(
+            wrapped, AdamW(learning_rate=R.LR,
+                           parameters=wrapped.named_parameters()),
+            loss_fn=lambda o, y: o.float().square().mean(),
+            mesh=hcg.get_mesh(), device="cpu")
+        out["layer"]["step"] = None
+    except NotImplementedError as e:
+        out["layer"]["step"] = str(e)
+
+    gi = inp["scatter"]
+    g = hcg.get_expert_parallel_group()
+    lc = gi["counts"][rank]
+    gc = gi["counts"].reshape(2, 2, -1)[:, rank].reshape(-1)
+    sc = global_scatter(gi["xs"][rank], lc, gc, group=g)
+    out["scatter"] = {"out": sc,
+                      "counted": global_scatter(gi["xs"][rank], lc, None,
+                                                group=g),
+                      "back": global_gather(sc, lc, gc, group=g)}
+
+    rows = slice(rank * xs.shape[1] // 2, (rank + 1) * xs.shape[1] // 2)
+    for mode in ("dense", "quant"):
+        model, opt = _moe_model(params, mode, hcg)
+        step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                             device="cpu")
+        out[f"step_{mode}"] = R._run_global(step, xs, ys, rows)
+        out[f"step_{mode}"]["opt_state"] = R._tree_copy(
+            step.state_for_checkpoint().to_tree()["opt_state"])
+        if mode == "dense":
+            out["to_paddle_tpu"] = to_paddle_tpu(model)
+            out["experts"] = sorted(step._experts)
+    model, opt = _moe_model(params, clip=inp["clip"], hcg=hcg)
+    step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                         device="cpu")
+    step(xs[0][rows], ys[0][rows])
+    out["clip"] = {"ref": ref_grads, "ep": {
+        k: p.grad.clone() for k, p in model.named_parameters()}}
+    return out
+
+
+def job_ep4(directory, inp, rank):
+    """Four ranks: 3 steps of the tiny GPT-MoE at dp 2 x ep 2 and at
+    sharding 2 x ep 2 with ``p_g_os``, each rank on its quarter of every
+    batch; the topologies; the ``p_g_os`` run's placements and a save."""
+    params, xs, ys = inp["params"], inp["x"], inp["y"]
+    out = {}
+    for key, dims, level in (
+            ("dp_ep", {"dp_degree": 2, "ep_degree": 2}, None),
+            ("sharding_ep", {"sharding_degree": 2, "ep_degree": 2},
+             "p_g_os")):
+        hcg = R._hybrid_init(dims)
+        model, opt = _moe_model(params, hcg=hcg)
+        if level is not None:
+            model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                             device="cpu")
+        res = R._run_global(step, xs, ys, slice(rank, rank + 1))
+        tree = step.state_for_checkpoint().to_tree()
+        res["opt_state"] = R._tree_copy(tree["opt_state"])
+        res["hcg"] = _ep_record(hcg)
+        res["experts"] = sorted(step._experts)
+        if level is not None:
+            res["z3"] = {k: (tuple(p.shape), p.zero3_dim)
+                         for k, p in step.params.items() if k in step._z3}
+            _save(step, directory / "ep_ck", 3)
+            res["saved"] = R._tree_copy(tree)
+        out[key] = res
+    return out
+
+
 JOBS = {"reducer": job_reducer, "grad_reduce": job_grad_reduce,
         "zero3": job_zero3, "zero3_state": job_zero3_state,
         "dp_sharding_4": job_dp_sharding_4,
-        "dp_mp_4": job_dp_mp_4}
+        "dp_mp_4": job_dp_mp_4, "ep2": job_ep2, "ep4": job_ep4}
