@@ -18,19 +18,35 @@ under the name the JAX package's ``ml_dtypes`` arrays carry, so the bytes
 are the same on both sides. Restored arrays come back as CPU tensors
 (``torch.frombuffer`` over the validated bytes), whatever their dtype.
 
-Across the ranks of a data-parallel job every array is replicated, and
-the JAX package's replica-0 rule applies: rank 0 writes every shard, the
-other ranks none (their manifests list each array with no shards), and
-``merge_manifests`` unions the per-rank manifests. Every rank restores the
-whole array; a replicated ``NamedSharding`` in ``shardings`` is accepted as
-such. A sharded layout and ``live_state`` (restore onto a mesh, device to
-device) are ROADMAP queue A item A5.5 and raise.
+Across the ranks of a job every array is saved whole, and the JAX
+package's replica-0 rule applies: rank 0 writes every shard, the other
+ranks none (their manifests list each array with no shards), and
+``merge_manifests`` unions the per-rank manifests.
+
+A restore gives each array whole unless ``shardings`` places it: then
+each rank gets its block of the placement as a ``ShardedTensor`` (the
+block and the ``NamedSharding`` of the port's mesh it belongs to,
+``segments`` honoured; ``restore_array``), read from the shard files that
+overlap the block, whether the save wrote whole arrays (the port's) or
+per-device shards (the JAX package's). With ``validate`` (the default)
+each such file is read whole once and its CRC32 checked, as the JAX
+package's ``read_index`` does: the manifest's CRC32 covers a whole file.
+Without it only the byte ranges the block needs are read, and nothing
+else (``tools/ckpt_inspect.py --verify`` checks the files on their own).
+``read_stats()`` counts the bytes and ranges this process read.
+``live_state`` (``load_tree``) moves a leaf that a live ``ShardedTensor``
+still holds device to device through the resharding executor instead of
+reading it, as the JAX package's ``_live_reshard`` does; a leaf whose live
+block does not match the checkpoint, or whose move the planner cannot
+plan, is read from the files.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -57,7 +73,28 @@ _TORCH_DTYPES = {
 }
 _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
-_A55 = "ROADMAP queue A item A5.5 (resharding)"
+_READ = {"bytes": 0, "ranges": 0, "live": 0, "files": 0}
+_READ_LOCK = threading.Lock()
+
+
+def read_stats() -> dict:
+    """Bytes and byte ranges this process read from shard files since
+    ``reset_read_stats()``, and the leaves ``load_tree`` moved live and
+    read from files."""
+    with _READ_LOCK:
+        return dict(_READ)
+
+
+def reset_read_stats():
+    with _READ_LOCK:
+        for k in _READ:
+            _READ[k] = 0
+
+
+def _count(**kw):
+    with _READ_LOCK:
+        for k, v in kw.items():
+            _READ[k] += v
 
 
 def map_files(fn: Callable, items) -> list:
@@ -282,17 +319,17 @@ def merge_manifests(parts) -> dict:
     return merged
 
 
-def _check_placement(path: str, sharding):
-    """A restore places every array whole on each rank: a replicated
-    ``NamedSharding`` (or None) is that; anything else waits for A5.5."""
+def _whole(sharding) -> bool:
+    """Whether ``sharding`` places the array whole on every rank (None, or
+    a replicated ``NamedSharding``)."""
     from ..distributed.mesh import NamedSharding
 
-    if sharding is not None and not (isinstance(sharding, NamedSharding)
-                                     and sharding.is_replicated):
-        raise NotImplementedError(
-            f"restore of {path!r} onto {sharding!r}: only replicated "
-            f"placements are ported (data parallelism); sharded layouts "
-            f"are not yet ({_A55})")
+    if sharding is None:
+        return True
+    if not isinstance(sharding, NamedSharding):
+        raise TypeError(f"a restore places arrays by the port's "
+                        f"NamedSharding, got {type(sharding).__name__}")
+    return sharding.is_replicated
 
 
 # transient-I/O policy for restore reads: a flaky network filesystem fails
@@ -303,9 +340,10 @@ RESTORE_RETRY_BACKOFF_S = 0.05   # doubles per attempt
 
 
 class _ShardReader:
-    """Checksum-validating access to one array's saved shards: each shard
-    file is read once into a buffer, its CRC32 checked, and viewed as a CPU
-    tensor of the entry's dtype."""
+    """Access to one array's saved shards: a whole shard file is read once
+    into a buffer, its CRC32 checked (with ``validate``), and viewed as a
+    CPU tensor of the entry's dtype; without ``validate`` a box of a file
+    is read by its byte ranges alone."""
 
     def __init__(self, directory: str, path: str, entry: dict,
                  validate: bool = True):
@@ -315,6 +353,7 @@ class _ShardReader:
         self.validate = validate
         self.dtype = torch_dtype(entry["dtype"])
         self.global_shape = tuple(entry["global_shape"])
+        self._cache: Dict[str, torch.Tensor] = {}
 
     def _read_validated(self, fpath: str, shard: dict) -> bytearray:
         with open(fpath, "rb") as f:
@@ -330,6 +369,8 @@ class _ShardReader:
         return raw
 
     def _load(self, shard: dict) -> torch.Tensor:
+        if shard["file"] in self._cache:
+            return self._cache[shard["file"]]
         fpath = os.path.join(self.directory, shard["file"])
         retries = max(0, int(RESTORE_READ_RETRIES))
         for attempt in range(retries + 1):
@@ -346,9 +387,78 @@ class _ShardReader:
                         f"{e}") from e
                 time.sleep(RESTORE_RETRY_BACKOFF_S * (2.0 ** attempt))
         shape = tuple(shard["shape"])
-        if not raw:
-            return torch.empty(shape, dtype=self.dtype)
-        return torch.frombuffer(raw, dtype=self.dtype).reshape(shape)
+        _count(bytes=len(raw), ranges=1)
+        out = torch.empty(shape, dtype=self.dtype) if not raw else \
+            torch.frombuffer(raw, dtype=self.dtype).reshape(shape)
+        self._cache[shard["file"]] = out
+        return out
+
+    def _read_ranges(self, shard: dict, lo, hi) -> torch.Tensor:
+        """The box ``[lo, hi)`` (the shard's own coordinates) of one shard
+        file. With ``validate``, or for the whole file, the file through
+        ``_load`` (read once, its CRC32 checked); else the box's C-order
+        runs of contiguous bytes and nothing else: one run by one read,
+        several copied out of a read-only map of the file (the page cache
+        pages in what they touch)."""
+        shape = list(shard["shape"])
+        if self.validate or (list(lo) == [0] * len(shape)
+                             and list(hi) == shape):
+            return self._load(shard)[tuple(slice(a, b)
+                                           for a, b in zip(lo, hi))]
+        item = torch.empty((), dtype=self.dtype).element_size()
+        box = [b - a for a, b in zip(lo, hi)]
+        k = len(shape) - 1  # the runs: dims k.. contiguous in the file
+        while k > 0 and lo[k] == 0 and hi[k] == shape[k]:
+            k -= 1
+        runs = math.prod(box[:k])
+        fpath = os.path.join(self.directory, shard["file"])
+        if runs == 1:
+            buf = np.empty(math.prod(box) * item, dtype=np.uint8)
+            off = sum(a * math.prod(shape[j + 1:]) for j, a in enumerate(lo))
+            with open(fpath, "rb") as f:
+                got = 0
+                while got < buf.nbytes:
+                    n = os.preadv(f.fileno(), [memoryview(buf)[got:]],
+                                  off * item + got)
+                    if n <= 0:
+                        raise IOError(f"short read of {fpath} for "
+                                      f"{self.path!r}")
+                    got += n
+        else:
+            mm = np.memmap(fpath, dtype=np.uint8, mode="r",
+                           shape=(math.prod(shape) * item,))
+            rows = mm.reshape(shape[:-1] + [shape[-1] * item])
+            buf = rows[tuple(slice(a, b) for a, b in zip(lo[:-1], hi[:-1]))
+                       + (slice(lo[-1] * item, hi[-1] * item),)].copy()
+            del rows, mm
+        _count(bytes=buf.nbytes, ranges=runs if buf.size else 0)
+        return torch.from_numpy(buf).view(-1).view(self.dtype).reshape(box)
+
+    def read_box(self, index) -> torch.Tensor:
+        """The global slice ``index`` (a tuple of slices), from the byte
+        ranges of the shard files that overlap it (``read_index``'s
+        contract in the JAX package, at the granularity of ranges)."""
+        starts = [sl.start for sl in index]
+        stops = [sl.stop for sl in index]
+        out = torch.empty([b - a for a, b in zip(starts, stops)],
+                          dtype=self.dtype)
+        covered = 0
+        for shard in self.entry["shards"]:
+            off, shp = shard["offset"], shard["shape"]
+            lo = [max(a, o) for a, o in zip(starts, off)]
+            hi = [min(b, o + n) for b, o, n in zip(stops, off, shp)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            piece = self._read_ranges(shard, [a - o for a, o in zip(lo, off)],
+                                      [b - o for b, o in zip(hi, off)])
+            out[tuple(slice(a - s, b - s) for a, b, s in
+                      zip(lo, hi, starts))] = piece
+            covered += math.prod(b - a for a, b in zip(lo, hi))
+        if covered != out.numel():
+            raise IOError(f"checkpoint for {self.path!r} is missing shard "
+                          f"data for {index} (torn or foreign-topology save "
+                          "without a merged manifest?)")
+        return out
 
     def read_full(self) -> torch.Tensor:
         shards = self.entry["shards"]
@@ -371,33 +481,82 @@ class _ShardReader:
 
 
 def restore_array(directory: str, path: str, entry: dict, sharding=None,
-                  validate: bool = True) -> torch.Tensor:
-    """One array back, whole, as a CPU tensor (assembled from its shards
-    when a save wrote several). ``sharding`` may be None or a replicated
-    ``NamedSharding``; a sharded layout raises (A5.5)."""
-    _check_placement(path, sharding)
-    return _ShardReader(directory, path, entry, validate=validate).read_full()
+                  validate: bool = True):
+    """One array back as a CPU tensor, whole (assembled from its shards
+    when a save wrote several), for no ``sharding`` or a replicated one;
+    else this rank's block of the placement as a ``ShardedTensor``, read
+    from the shard files it overlaps (from their byte ranges alone without
+    ``validate``)."""
+    reader = _ShardReader(directory, path, entry, validate=validate)
+    if _whole(sharding):
+        return reader.read_full()
+    from ..distributed.resharding import ShardedTensor, block_of
+
+    rank = _world()[0]
+    flat = [int(r) for r in sharding.mesh.devices.reshape(-1)]
+    if rank not in flat:
+        raise ValueError(f"restore of {path!r} onto {sharding!r}: rank "
+                         f"{rank} is not on its mesh")
+    return ShardedTensor(block_of(reader.read_box, reader.global_shape,
+                                  sharding, flat.index(rank)),
+                         sharding, reader.global_shape)
+
+
+def _live_reshard(leaf, entry: dict, sharding):
+    """The resharding executor's device-to-device move of one live leaf
+    (collective), or None when the leaf is not a ``ShardedTensor`` that
+    matches the checkpoint's shape and dtype, or its move is not
+    plannable: the caller then reads files."""
+    from ..distributed import resharding as _rs
+    from ..distributed.mesh import NamedSharding
+
+    if not (isinstance(leaf, _rs.ShardedTensor)
+            and isinstance(sharding, NamedSharding)):
+        return None
+    if list(leaf.shape) != list(entry["global_shape"]) \
+            or _DTYPE_NAMES.get(leaf.dtype) != entry["dtype"]:
+        return None
+    try:
+        plan = _rs.plan_for(leaf, sharding)
+    except _rs.Unplannable:
+        return None
+    out = _rs.reshard(leaf, sharding, plan=plan)
+    return out.block if sharding.is_replicated else out
 
 
 def load_tree(directory: str, shardings=None, validate: bool = True,
               manifest: Optional[dict] = None, live_state=None):
-    """Restore the full state tree: array leaves as whole CPU tensors,
-    JSON scalars as they were. ``shardings`` (a flat ``{path: sharding}``
-    dict or a tree mirroring the state, None leaves allowed) may hold
-    replicated placements only; ``live_state`` (restore onto a mesh,
-    device to device) raises (A5.5)."""
-    if live_state is not None:
-        raise NotImplementedError(f"load_tree(live_state=) is not ported "
-                                  f"yet ({_A55})")
-    for path, sh in flatten_tree(shardings or {}).items():
-        _check_placement(path, sh)
+    """Restore the full state tree: array leaves as CPU tensors (whole),
+    or where ``shardings`` splits them this rank's block as a
+    ``ShardedTensor``; JSON scalars as they were. ``shardings`` is a flat
+    ``{path: NamedSharding}`` dict or a tree mirroring the state (None
+    leaves: whole).
+
+    ``live_state`` (a tree of the same structure, such as a train step's
+    ``live_state()``) holds leaves still live on the ranks as
+    ``ShardedTensor`` blocks: each one the checkpoint matches moves device
+    to device through the resharding executor onto its placement, bitwise
+    the file read (collective: every rank passes the same structure); any
+    other leaf is read from the files."""
     m = manifest if manifest is not None else read_manifest(directory)
+    flat_sh = {p: s for p, s in flatten_tree(shardings or {}).items()
+               if s is not None}
+    flat_live = flatten_tree(live_state) if live_state is not None else {}
     paths = []
     _unstructure(m["structure"], paths.append)
     missing = [p for p in paths if p not in m["arrays"]]
     if missing:
         raise KeyError(f"array {missing[0]!r} not present in checkpoint")
-    arrays = dict(zip(paths, map_files(
+    arrays = {}
+    for p in paths:  # collectives: one leaf at a time, in path order
+        if p in flat_live and p in flat_sh:
+            out = _live_reshard(flat_live[p], m["arrays"][p], flat_sh[p])
+            if out is not None:
+                arrays[p] = out
+    _count(live=len(arrays), files=len(paths) - len(arrays))
+    rest = [p for p in paths if p not in arrays]
+    arrays.update(zip(rest, map_files(
         lambda p: restore_array(directory, p, m["arrays"][p],
-                                validate=validate), paths)))
+                                sharding=flat_sh.get(p), validate=validate),
+        rest)))
     return _unstructure(m["structure"], arrays.__getitem__)

@@ -31,8 +31,9 @@ the manifest, writes COMMIT and removes the parts; a last barrier ends the
 save on every rank. The barriers run on a gloo group of the manager's own,
 made at construction: the writer thread calls them while the training
 step's collectives run on the default group, and two threads issuing
-collectives on one NCCL communicator can deadlock. Restores onto a sharded
-layout or from live state are ROADMAP queue A item A5.5.
+collectives on one NCCL communicator can deadlock. ``restore`` takes a
+layout on any mesh (each rank reads its blocks' byte ranges) and live
+state to move device to device (``arrays.load_tree``).
 """
 
 from __future__ import annotations
@@ -215,11 +216,15 @@ class CheckpointManager:
     # ---------------- restore ----------------
     def restore(self, step: Optional[int] = None, shardings=None,
                 live_state=None):
-        """Restore a committed step (default: the latest) as a tree whose
-        arrays are whole CPU tensors, on every rank. ``shardings`` (such as
-        the train step's ``checkpoint_shardings()``) may hold replicated
-        placements only; a sharded layout and ``live_state`` raise (ROADMAP
-        queue A item A5.5)."""
+        """Restore a committed step (default: the latest) as a tree of CPU
+        tensors on every rank: whole arrays, or where ``shardings`` (such
+        as a train step's ``checkpoint_shardings()``, on any mesh) splits a
+        leaf, this rank's block of it as a ``ShardedTensor``, read from the
+        shard files it overlaps (CRC-checked whole; from the byte ranges
+        the block needs alone when ``validate_on_restore`` is off).
+        ``live_state`` (such as another step's ``live_state()``) moves the
+        leaves it still holds device to device instead
+        (``arrays.load_tree``)."""
         self.wait_until_finished()
         steps = self.all_steps()
         if step is None:

@@ -65,8 +65,8 @@ class TrainState:
     def shardings_like(self, param_shardings=None, state_shardings=None
                        ) -> Dict[str, Any]:
         """A shardings tree aligned with ``to_tree()``: params/opt_state
-        get the supplied layouts (``restore`` accepts replicated ones; a
-        sharded layout is ROADMAP queue A item A5.5)."""
+        get the supplied layouts, which ``restore`` honours (each rank's
+        block of a sharded one)."""
         out: Dict[str, Any] = {}
         if param_shardings is not None:
             out["params"] = param_shardings

@@ -7,9 +7,10 @@ through the launcher, ``python -m paddle_tpu_torch.distributed.launch
 --nproc_per_node N script.py``, and each process calls ``fleet.init`` (or
 ``init_parallel_env``). NCCL carries CUDA tensors, gloo the CPU's
 (``PADDLE_DISTRI_BACKEND`` overrides). Data, tensor and ZeRO (stages 1
-to 3) parallelism and the gradient reductions of ``comm_opt`` are ported
-(ROADMAP queue A items A5.2, A5.3, A5.3b, A5.4a); the other parallelisms
-raise naming their items.
+to 3), expert parallelism, the gradient reductions of ``comm_opt`` and
+``resharding`` (moves between layouts, and the checkpoint's restore onto
+another one) are ported (ROADMAP queue A items A5.2 to A5.5a); the other
+parallelisms raise naming their items.
 """
 
 from .collective import (  # noqa: F401
@@ -78,7 +79,7 @@ from .topology import (  # noqa: F401
     get_hybrid_communicate_group,
     set_hybrid_communicate_group,
 )
-from . import comm_opt, fleet, launch  # noqa: F401,E402
+from . import comm_opt, fleet, launch, resharding  # noqa: F401,E402
 
 
 def spawn(func, args=(), nprocs=-1, **kwargs):

@@ -92,7 +92,12 @@ axes:
   over the data group as above. The clip sums the stacks' squares over
   the ep group; ZeRO slices the stacks (and at stage 3 stores them) along
   the dimension ``_state_sharding_like`` gives a ``P("ep", None, None)``
-  parameter's state.
+  parameter's state. Over mp the experts are whole on every mp rank, so
+  their gradients are not reduced there and their squares are counted
+  once. A ``MoELayer(group=)``'s expert modules are its ep rank's
+  ``E/n`` experts and are trained as the stacks are; the checkpoint names
+  them as the JAX package's layer names all ``E`` (local ``expert_i`` of
+  ep rank ``r`` is ``expert_{r*E/n+i}``).
 
 ``grad_reduce`` (``None``, a shorthand of ``comm_opt.normalize_grad_reduce``,
 a dict or a ``GradReduceConfig``) replaces the all-reduce over the data
@@ -108,7 +113,15 @@ the reduced means averaged. The residuals (this rank's row of each
 bucket) travel in ``state_for_checkpoint().extra["grad_reduce_ef"]`` as
 the JAX package writes them, one ``[world * groups, padded]`` array per
 bucket, and ``restore_from_checkpoint`` reads them back (a plan they do
-not fit resets them, as in the JAX package).
+not fit resets them, as in the JAX package). At an ep degree above 1 the
+reduction takes the JAX step's semantics, whose fully-manual region gets
+the parameters whole: each rank routes its own rows alone over the whole
+expert stacks (gathered over ep for the step's own forward only,
+``GPTMoEMLP.local_ep``), the reducer sums the whole stacks' gradients over
+every data axis, ep included, and each rank keeps its ep slice.
+``moe_dispatch="quant"`` raises there (no ep exchange is left to
+compress; the JAX step fails), and so does a ``MoELayer``'s expert
+modules at ep (A5.4d).
 
 ``param_specs`` (``{name: PartitionSpec}``) is honoured where the port can
 realise the spec: the layer's own; ``PartitionSpec()`` on the weight of
@@ -117,17 +130,22 @@ an mp linear (the whole weight on every rank: ``replicate_weight``); and a
 parameter's optimizer state there. Any other spec raises
 ``NotImplementedError`` naming ROADMAP queue A item A7 (autoshard's
 layouts). ``state_for_checkpoint()`` gathers the global arrays in the JAX
-package's layout over mp, ep and sharding (collective: every rank calls it),
-``restore_from_checkpoint`` keeps this rank's blocks of whole arrays, and
-``checkpoint_shardings()`` reports the placements. At a world of one with
-a process group (NCCL at world size 1) the reductions run and change no
-bit.
+package's layout over mp, ep and sharding (collective: every rank calls
+it). ``checkpoint_shardings()`` gives the step's placements, which
+``CheckpointManager.restore`` honours on any mesh (each rank reads its
+blocks, as ``ShardedTensor`` leaves); ``live_state()`` gives the live
+blocks as ``ShardedTensor`` leaves, which ``restore(live_state=)`` moves
+device to device onto another step's layout through the resharding
+executor. ``restore_from_checkpoint`` slices whole arrays, adopts a
+``ShardedTensor`` placed as its own and reshards one placed otherwise.
+At a world of one with a process group (NCCL at world size 1) the
+reductions run and change no bit.
 
 Options of the JAX step that the port has not reached raise
 ``NotImplementedError`` naming their ROADMAP items: a mesh axis of size
 above 1 for pipeline (A5.6) or context (A5.7) parallelism, a batch split
-along another dimension than dim 0 (A5.7), ``grad_reduce`` or a
-``MoELayer``'s expert modules at an ep degree above 1 (A5.4c), the
+along another dimension than dim 0 (A5.7), ``grad_reduce`` with a
+``MoELayer``'s expert modules at an ep degree above 1 (A5.4d), the
 pipeline options (A5.6) and ``health_stats`` (A6).
 None is silently ignored.
 """
@@ -300,10 +318,6 @@ class ShardedTrainStep:
                     f"mesh axis {axis!r} of size {n}: the train step runs "
                     f"data, tensor, ZeRO and expert parallelism ({_ITEM} "
                     f"{LATER_AXES[axis]})")
-        if self._grad_reduce.active and mesh.shape.get(EP_AXIS, 1) > 1:
-            raise NotImplementedError(
-                f"grad_reduce at ep degree {mesh.shape[EP_AXIS]}: the "
-                f"explicit reduction of expert slices is {_ITEM} A5.4c")
         if mesh.shape.get(SHARDING_AXIS, 1) > 1 \
                 and SHARDING_AXIS not in data_axes:
             raise ValueError(f"batch_spec {spec} leaves out the sharding "
@@ -360,22 +374,29 @@ class ShardedTrainStep:
         if self._zero is not None and self._zero.stage >= 2:
             grads_axes = tuple(a for a in data_axes if a != SHARDING_AXIS)
             grads_group = self._axis_group(grads_axes, "dp_only")
-        # an ep rank's expert stacks: summed over its replicas only
+        # an ep rank's expert stacks and MoELayer expert modules: summed
+        # over its replicas only
         self._experts = {n for n, p in self.params.items()
                          if self._ep.nranks > 1 and EP_AXIS in spec_axes(
                              getattr(p, "dist_spec", None) or ())}
+        self._experts |= set(self._ep_local)
         expert_group = self._axis_group(
             tuple(a for a in grads_axes if a != EP_AXIS), "ep_replicas") \
             if self._experts else None
         self._reducer = None
         cfg = self._grad_reduce
+        # under the explicit reduction at ep every rank routes its own rows
+        # over the whole stacks, whose whole gradients the reducer sums
+        self._whole = self._local_routes() if cfg.active else {}
         if cfg.active:
             self._reducer = reducer_for_step(
                 cfg, mesh, data_axes, {
-                    n: (tuple(getattr(p, "zero3_shape", p.shape)), p.dtype)
+                    n: (self._reduced_shape(n, p), p.dtype)
                     for n, p in self.params.items() if p.requires_grad},
                 group_fn=lambda axes: self._axis_group(axes, "grad_reduce"))
         red = self._reducer
+        if red is None:
+            self._whole = {}
         self.ef_state = red.local_ef(red.init_ef(), self.device) \
             if red is not None else {}
         # with overlap, every accumulation microbatch reduces its own
@@ -412,11 +433,13 @@ class ShardedTrainStep:
         """A MoE block routes over the step's data group and ep group: one
         built before ``fleet.init`` (routing its rank's rows alone) or on
         another mesh cannot join a data world above one. At an ep degree
-        above 1 the step reduces, clips and gathers as experts only the
-        parameters placed over ``ep`` (GPT-MoE's stacks): a block whose
-        other parameters are its rank's experts (``MoELayer``'s expert
-        modules) raises."""
-        for mod in self.model.modules():
+        above 1 a ``MoELayer``'s expert modules are its ep rank's
+        ``E/n`` experts: ``_ep_local`` maps each of their parameters to
+        ``(prefix, i, rest, n)`` (``{prefix}expert_{i}.{rest}``, ``n``
+        local experts), the global expert being ``r * n + i`` on ep rank
+        ``r``, as the JAX package's layer names all ``E``."""
+        self._ep_local = {}
+        for mname, mod in self.model.named_modules():
             if not hasattr(mod, "gate_weight") or not hasattr(mod, "groups"):
                 continue
             g = mod.groups
@@ -428,15 +451,60 @@ class ShardedTrainStep:
                     f"over {ep}), the step's data group is {self._dp.ranks} "
                     f"(ep group {self._ep.ranks}): build the model after "
                     "fleet.init, on the step's mesh")
-            loose = [n for n, p in mod.named_parameters()
-                     if n != "gate_weight" and EP_AXIS not in spec_axes(
-                         getattr(p, "dist_spec", None) or ())]
-            if len(ep) > 1 and loose:
-                raise NotImplementedError(
-                    f"a MoE block whose experts are modules of their own "
-                    f"({loose[0]}, ...) at ep degree {len(ep)}: the step "
-                    "trains expert stacks placed P('ep', ...) (GPT-MoE's); "
-                    f"MoELayer's experts over ep are {_ITEM} A5.4c")
+            experts = getattr(mod, "experts", None)
+            if len(ep) == 1 or not isinstance(experts, list):
+                continue
+            prefix = f"{mname}." if mname else ""
+            for i, e in enumerate(experts):
+                for rest, _ in e.named_parameters():
+                    self._ep_local[f"{prefix}expert_{i}.{rest}"] = (
+                        prefix, i, rest, len(experts))
+
+    def _global_names(self, name):
+        """The checkpoint names of parameter ``name`` on every ep rank, in
+        rank order: a MoELayer expert's global names, else ``[name]``."""
+        if name not in self._ep_local:
+            return [name]
+        prefix, i, rest, n = self._ep_local[name]
+        return [f"{prefix}expert_{r * n + i}.{rest}"
+                for r in range(self._ep.nranks)]
+
+    def _local_routes(self):
+        """``{name: (block, key)}`` of the expert stacks whose blocks route
+        locally under the explicit reduction at an ep degree above 1 (the
+        JAX step's fully-manual region: parameters whole, each device's
+        rows routed alone)."""
+        if self._ep.nranks == 1:
+            return {}
+        if self._ep_local:
+            raise NotImplementedError(
+                "grad_reduce at ep degree above 1 with a MoELayer's expert "
+                "modules split over ep: the reduction of every rank's "
+                f"experts by their global names is {_ITEM} A5.4d")
+        out = {}
+        for mname, mod in self.model.named_modules():
+            if not hasattr(mod, "whole_grads"):
+                continue
+            if mod.cfg.moe_dispatch == "quant":
+                raise ValueError(
+                    "moe_dispatch='quant' with grad_reduce at ep degree "
+                    f"{self._ep.nranks}: each rank routes its own rows over "
+                    "the whole expert stacks there, so no ep exchange is "
+                    "left to compress (the JAX step fails at this "
+                    "combination: its region hands whole stacks an ep "
+                    "rank's dispatch slots); route dense")
+            for key in ("w1", "b1", "w2", "b2"):
+                out[f"{mname}.{key}"] = (mod, key)
+        return out
+
+    def _reduced_shape(self, name, p):
+        """The shape of ``name``'s gradient in the explicit reduction: the
+        whole parameter (a stage-3 slice's whole, a locally routed
+        stack's every expert)."""
+        shape = tuple(getattr(p, "zero3_shape", p.shape))
+        if name in self._whole:
+            shape = (shape[0] * self._ep.nranks,) + shape[1:]
+        return shape
 
     def _realise_specs(self, param_specs):
         """Each parameter's placement: its layer's spec, or the one
@@ -505,10 +573,24 @@ class ShardedTrainStep:
     def _batch(self, a):
         return torch.as_tensor(a).to(self.device)
 
+    @contextlib.contextmanager
+    def _routed_locally(self):
+        """The step's own forward under the explicit reduction at ep: each
+        GPT-MoE block routes this rank's rows alone over its whole stacks
+        (``GPTMoEMLP.local_ep``), and routes globally again after it."""
+        mods = {id(m): m for m, _ in self._whole.values()}.values()
+        for m in mods:
+            m.local_ep = self._ep
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.local_ep = None
+
     def _loss(self, x, y):
         scope = self._stage3.forward_scope() if self._stage3 is not None \
             else contextlib.nullcontext()
-        with scope:
+        with scope, self._routed_locally():
             if self._use_fwl:
                 return self.model.forward_with_loss(x, y).float()
             return self.loss_fn(self.model(x), y).float()
@@ -539,6 +621,9 @@ class ShardedTrainStep:
             for p in self.params.values():
                 if p.grad is not None:
                     p.grad.mul_(inv)
+            for mod, key in self._whole.values():
+                if key in mod.whole_grads:
+                    mod.whole_grads[key].mul_(inv)
         return loss * inv
 
     def _whole_grads(self, scale=None):
@@ -551,12 +636,20 @@ class ShardedTrainStep:
         for n, p in self.params.items():
             if not p.requires_grad:
                 continue
-            g = z3.get(n) if n in self._z3 else p.grad
+            if n in self._whole:
+                mod, key = self._whole[n]
+                g = mod.whole_grads.get(key)
+            else:
+                g = z3.get(n) if n in self._z3 else p.grad
             if g is None:
-                g = torch.zeros(getattr(p, "zero3_shape", p.shape),
-                                dtype=p.dtype, device=p.device)
+                g = torch.zeros(self._reduced_shape(n, p), dtype=p.dtype,
+                                device=p.device)
             out[n] = g
         return out
+
+    def _clear_whole(self):
+        for mod, _ in self._whole.values():
+            mod.whole_grads.clear()
 
     def _inv_scale(self, scale):
         return None if scale is None else torch.tensor(
@@ -582,6 +675,7 @@ class ShardedTrainStep:
             for m in range(M):
                 for p in self.params.values():
                     p.grad = None
+                self._clear_whole()
                 lm = self._loss(x[m::M], y[m::M])
                 if scale is not None:
                     lm = lm * scale
@@ -592,6 +686,9 @@ class ShardedTrainStep:
                     k: reduced[k] + g[k] for k in g}
             loss = loss * (1.0 / M)
             reduced = {k: g * (1.0 / M) for k, g in reduced.items()}
+        for n in self._whole:  # this ep rank's experts of the whole stack
+            reduced[n] = local_block(reduced[n], 0, self._ep.rank,
+                                     self._ep.nranks).contiguous()
         zero = self._zero
         if zero is not None and zero.stage >= 2:
             zero.take_slices(reduced)
@@ -659,6 +756,7 @@ class ShardedTrainStep:
         for n, p in self.params.items():
             if self._grads is None or n in self._z3:
                 p.grad = None
+        self._clear_whole()
         for buffers in self._buffers():
             buffers.attach()
         sc = self._scaler
@@ -728,10 +826,11 @@ class ShardedTrainStep:
         return self._step_i
 
     # ---------- checkpointing (paddle_tpu_torch.checkpoint) ----------
-    def _global(self, name, t, sliced=False):
-        """The global array of parameter ``name``'s tensor ``t`` (the
-        parameter, or a state leaf shaped like it, ``sliced`` under
-        ZeRO): gathered over sharding, then over mp or ep
+    def _globals(self, name, t, sliced=False):
+        """``{checkpoint name: global array}`` of parameter ``name``'s
+        tensor ``t`` (the parameter, or a state leaf shaped like it,
+        ``sliced`` under ZeRO): gathered over sharding, then over mp or ep;
+        a MoELayer expert's every ep rank's under its global name
         (collective)."""
         if sliced:
             t = self._zero.whole(name, gather_blocks(t, self._sh))
@@ -739,9 +838,12 @@ class ShardedTrainStep:
         if self._mp.nranks > 1 and _mp_split(p):
             t = assemble(gather_blocks(t, self._mp), p.mp_dim,
                          p.mp_segments)
+        if name in self._ep_local:
+            return dict(zip(self._global_names(name),
+                            gather_blocks(t.contiguous(), self._ep)))
         if name in self._experts:
             t = torch.cat(gather_blocks(t.contiguous(), self._ep))
-        return t
+        return {name: t}
 
     def _local(self, name, t, sliced=False):
         """This rank's block of the global array ``t`` (the inverse of
@@ -750,7 +852,7 @@ class ShardedTrainStep:
         if self._mp.nranks > 1 and _mp_split(p):
             t = local_block(t, p.mp_dim, self._mp.rank, self._mp.nranks,
                             p.mp_segments)
-        if name in self._experts:
+        if name in self._experts and name not in self._ep_local:
             t = local_block(t, 0, self._ep.rank, self._ep.nranks)
         if sliced:
             t = self._zero.slice(name, t)
@@ -781,13 +883,17 @@ class ShardedTrainStep:
             extra["grad_reduce_ef"] = self._reducer.global_ef(self.ef_state)
         extra = extra or None
         with torch.no_grad():
-            params = {n: self._global(n, p.detach(), n in self._z3)
-                      for n, p in self.params.items()}
-            opt_state = {
-                n: {k: self._global(n, v, self._sliced(n))
-                    if isinstance(v, torch.Tensor) else v
-                    for k, v in s.items()}
-                for n, s in self.optimizer.state.items()}
+            params = {}
+            for n, p in self.params.items():
+                params.update(self._globals(n, p.detach(), n in self._z3))
+            opt_state = {}
+            for n, s in self.optimizer.state.items():
+                slots = {k: self._globals(n, v, self._sliced(n))
+                         if isinstance(v, torch.Tensor) else None
+                         for k, v in s.items()}
+                for g in self._global_names(n):
+                    opt_state[g] = {k: s[k] if v is None else v[g]
+                                    for k, v in slots.items()}
         return TrainState(
             params=params,
             opt_state=opt_state,
@@ -803,67 +909,140 @@ class ShardedTrainStep:
 
     def _placement(self, name, sliced):
         p = self.params[name]
+        if name in self._ep_local:  # a whole expert on one ep rank
+            return NamedSharding(self.mesh, PartitionSpec())
         spec = list(resolve_spec(getattr(p, "dist_spec", None), self.mesh))
         if sliced:
             d = self._zero.dims[name]
             spec += [None] * (d + 1 - len(spec))
             spec[d] = SHARDING_AXIS
+        segments = {p.mp_dim: p.mp_segments} \
+            if self._mp.nranks > 1 and _mp_split(p) and p.mp_segments \
+            else None
         return NamedSharding(self.mesh, resolve_spec(PartitionSpec(*spec),
-                                                     self.mesh))
+                                                     self.mesh),
+                             segments=segments)
 
     def checkpoint_shardings(self):
         """Placements aligned with ``state_for_checkpoint().to_tree()``'s
-        params and optimizer state: each parameter's spec (mp blocks over
-        ``mp``, expert stacks over ``ep``), each state leaf's with its ZeRO
-        slice over ``sharding``.
-        ``CheckpointManager.restore`` accepts replicated ones only (a
-        sharded restore is ROADMAP queue A item A5.5): restore whole
-        arrays and ``restore_from_checkpoint`` keeps this rank's
-        blocks."""
-        return {"params": {n: self._placement(n, n in self._z3)
-                           for n in self.params},
-                "opt_state": {n: {k: self._placement(
-                    n, self._sliced(n) and isinstance(v, torch.Tensor))
-                    if isinstance(v, torch.Tensor)
-                    else NamedSharding(self.mesh, PartitionSpec())
+        params and optimizer state, each the layout this step holds: each
+        parameter's spec (mp blocks over ``mp``, the qkv projection's as
+        segments, expert stacks over ``ep``), each state leaf's with its
+        ZeRO slice over ``sharding``; a MoELayer expert at ep, which one
+        ep rank holds whole, replicated. ``CheckpointManager.restore``
+        honours them: each rank reads its blocks, as ``ShardedTensor``
+        leaves that ``restore_from_checkpoint`` adopts as they are."""
+        params, opt = {}, {}
+        for n in self.params:
+            for g in self._global_names(n):
+                params[g] = self._placement(n, n in self._z3)
+        whole = NamedSharding(self.mesh, PartitionSpec())
+        for n, slots in self.optimizer.state.items():
+            for g in self._global_names(n):
+                opt[g] = {k: self._placement(n, self._sliced(n))
+                          if isinstance(v, torch.Tensor) else whole
+                          for k, v in slots.items()}
+        return {"params": params, "opt_state": opt}
+
+    def live_state(self):
+        """``state_for_checkpoint().to_tree()``'s structure with the live
+        blocks this rank holds as ``resharding.ShardedTensor`` leaves (no
+        copy, no collective): ``restore(live_state=)`` and
+        ``restore_from_checkpoint`` move them device to device onto
+        another step's layout. A state leaf that is not a tensor stays as
+        it is; a MoELayer expert at ep is None (read from the files)."""
+        from ..resharding import ShardedTensor
+
+        def placed(n, t, sliced):
+            if n in self._ep_local:
+                return None
+            return ShardedTensor(t.detach(), self._placement(n, sliced))
+
+        return {
+            "params": {g: placed(n, p, n in self._z3)
+                       for n, p in self.params.items()
+                       for g in self._global_names(n)},
+            "opt_state": {
+                g: {k: placed(n, v, self._sliced(n))
+                    if isinstance(v, torch.Tensor) else v
                     for k, v in slots.items()}
-                    for n, slots in self.optimizer.state.items()}}
+                for n, slots in self.optimizer.state.items()
+                for g in self._global_names(n)}}
+
+    def _adopt(self, name, v, live, sliced):
+        """This rank's block for the live tensor ``live`` of parameter
+        ``name``: a ``ShardedTensor``'s block as it is when its placement is
+        this step's, else moved onto this step's layout; a global array
+        sliced. A plain tensor of another shape is refused: which elements
+        a block holds depends on its placement, and only a
+        ``ShardedTensor`` carries one."""
+        from ..resharding import ShardedTensor, reshard
+
+        want = self._placement(name, sliced)
+        if isinstance(v, ShardedTensor):
+            return v.block if v.sharding == want else \
+                reshard(v, want).block
+        t = _as_tensor(v)
+        whole = ShardedTensor(live, want).shape
+        if tuple(t.shape) != whole:
+            raise ValueError(
+                f"restore_from_checkpoint: {name!r} is a plain tensor of "
+                f"shape {tuple(t.shape)}, not the global {whole}: a block "
+                "comes as a ShardedTensor, which carries its placement "
+                "(restore(shardings=) and live_state() give them)")
+        return self._local(name, t, sliced)
+
+    def _mine(self, saved, names, what):
+        """``saved`` (by checkpoint name) by this step's ``names``: a
+        MoELayer expert's entry of this ep rank."""
+        want = {g for n in names for g in self._global_names(n)}
+        if set(saved) != want:
+            raise KeyError(f"restore_from_checkpoint: {what} names differ "
+                           f"from the step's: "
+                           f"{sorted(set(saved) ^ want)[:4]}")
+        r = self._ep.rank
+        return {n: saved[self._global_names(n)[r] if n in self._ep_local
+                         else n] for n in names}
 
     @torch.no_grad()
     def restore_from_checkpoint(self, tree):
-        """Adopt a restored ``TrainState`` of global arrays (or its tree, as
+        """Adopt a restored ``TrainState`` (or its tree, as
         ``CheckpointManager.restore`` or the JAX package's ``load_tree``
-        returns it: tensor or numpy leaves). This rank's blocks of the
-        parameters, optimizer slots and buffers are copied into the live
-        tensors in place (names, slots and shapes must match), the step
-        powers restored to the same fp32 bits; the step count, the seed,
-        the scaler's automaton and this rank's error-feedback residuals
-        follow (residuals that do not fit the step's plan, or a step
-        without one, start from zeros, as in the JAX package)."""
+        returns it). Each parameter and optimizer slot is this rank's
+        block, copied into the live tensor in place: a global array
+        (tensor or numpy) is sliced, a ``ShardedTensor`` placed as this
+        step places it (``restore(shardings=step.checkpoint_shardings())``)
+        is adopted as it is, and one of another layout (another step's
+        ``live_state()``, a restore onto other placements) is resharded
+        onto this one device to device (collective: every rank restores the
+        same tree); a plain tensor that is not the global array raises.
+        Names, slots and shapes must match; the step powers are restored
+        to the same fp32 bits; the step count, the seed, the scaler's
+        automaton and this rank's error-feedback residuals follow
+        (residuals that do not fit the step's plan, or a step without one,
+        start from zeros, as in the JAX package)."""
         from ...checkpoint import TrainState
 
         ts = tree if isinstance(tree, TrainState) \
             else TrainState.from_tree(tree)
+        saved = self._mine(ts.params, self.params, "params")
         _copy_named(self.params, {
-            n: self._local(n, _as_tensor(v), n in self._z3)
-            if n in self.params else v
-            for n, v in ts.params.items()}, "params")
+            n: self._adopt(n, v, self.params[n], n in self._z3)
+            for n, v in saved.items()}, "params")
         if ts.buffers:
             _copy_named(dict(self.model.named_buffers()), ts.buffers,
                         "buffers")
         state = self.optimizer.init_state(self._state_targets())
-        if set(ts.opt_state) != set(state):
-            raise KeyError(f"restore_from_checkpoint: opt_state names differ "
-                           f"from the step's: {sorted(set(ts.opt_state) ^ set(state))[:4]}")
+        opt = self._mine(ts.opt_state, state, "opt_state")
         for name, slots in state.items():
-            if set(ts.opt_state[name]) != set(slots):
+            if set(opt[name]) != set(slots):
                 raise KeyError(f"restore_from_checkpoint: {name}'s slots "
-                               f"{sorted(ts.opt_state[name])} are not the "
+                               f"{sorted(opt[name])} are not the "
                                f"optimizer's {sorted(slots)}")
             for k in list(slots):
-                v = ts.opt_state[name][k]
+                v = opt[name][k]
                 if isinstance(slots[k], torch.Tensor):
-                    v = self._local(name, _as_tensor(v), self._sliced(name))
+                    v = self._adopt(name, v, slots[k], self._sliced(name))
                 slots[k] = _load_slot(slots[k], v, f"{name}_{k}")
         sc_state = (ts.extra or {}).get("scaler_state")
         if sc_state is not None and self._scaler is not None:

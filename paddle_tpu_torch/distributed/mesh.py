@@ -99,11 +99,22 @@ class PartitionSpec(tuple):
 
 class NamedSharding:
     """A placement: ``spec`` over ``mesh``. ``is_replicated`` when no
-    dimension is split over an axis of more than one rank."""
+    dimension is split over an axis of more than one rank.
 
-    def __init__(self, mesh: DeviceMesh, spec: PartitionSpec):
+    ``segments`` (``{dim: sizes}``) marks a dimension made of segments
+    that are split each on their own (the fused qkv projection's q | k | v
+    columns under mp): a rank's block of that dimension is its chunk of
+    every segment, side by side (``sharding_utils.local_block``), not one
+    contiguous chunk."""
+
+    def __init__(self, mesh: DeviceMesh, spec: PartitionSpec, *,
+                 segments=None):
         self.mesh = mesh
         self.spec = PartitionSpec(*spec)
+        self.segments = tuple(sorted(
+            (int(d), tuple(int(n) for n in sizes))
+            for d, sizes in dict(segments or {}).items()
+            if sizes is not None and len(sizes) > 1))
 
     @property
     def is_replicated(self) -> bool:
@@ -112,10 +123,12 @@ class NamedSharding:
 
     def __eq__(self, other):
         return (isinstance(other, NamedSharding) and self.mesh == other.mesh
-                and self.spec == other.spec)
+                and self.spec == other.spec
+                and self.segments == other.segments)
 
     def __repr__(self):
-        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+        seg = f", segments={dict(self.segments)}" if self.segments else ""
+        return f"NamedSharding({self.mesh!r}, {self.spec!r}{seg})"
 
 
 def spec_axes(spec) -> tuple:

@@ -163,8 +163,9 @@ def save_sharded(state: dict, directory: str):
 
 def load_sharded(directory: str, shardings: dict = None) -> dict:
     """``save_sharded``'s (or the JAX package's) arrays back as CPU
-    tensors; ``shardings`` (a layout per array) may hold replicated
-    placements only (a sharded layout is ROADMAP queue A item A5.5)."""
+    tensors: whole, or where ``shardings`` (a ``NamedSharding`` per array)
+    splits one, this rank's block of it as a ``ShardedTensor``, read from
+    the shard files it overlaps, each CRC-checked."""
     from ..checkpoint import arrays as _ckpt_arrays
 
     return _ckpt_arrays.load_tree(os.path.abspath(directory),

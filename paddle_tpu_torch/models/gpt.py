@@ -28,9 +28,12 @@ qkv projection's columns are three segments, q | k | v, each split by
 head), the MLP column- then row-parallel, the vocabulary-parallel
 embedding and tied logits ``c_identity(h) @ W_local.T`` of
 ``[B, S, V/mp]``, and the loss through the vocabulary-parallel cross
-entropy (``forward_with_loss`` unchunked, as the JAX package's at mp).
-Serving an mp- or ep-split model (ROADMAP queue A item A5.5), MoE blocks
-at mp (A5.4c), pipeline and sequence parallelism (A5.6, A5.7) raise.
+entropy (``forward_with_loss`` unchunked, as the JAX package's at mp). A
+GPT-MoE block at mp holds its experts whole on every rank of the mp group
+(placed ``P("ep", ...)`` only), as the JAX package places them: the mp
+ranks route the same rows through the same experts. Serving an mp- or
+ep-split model (ROADMAP queue A item A5.5b), pipeline and sequence
+parallelism (A5.6, A5.7) raise.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ from ..distributed.fleet.meta_parallel import (
 from ..distributed.fleet.meta_parallel.mp_layers import mp_group_of
 from ..distributed.fleet.recompute import recompute
 from ..distributed.mesh import PartitionSpec
-from ..distributed.sharding_utils import annotate_parameter
+from ..distributed.communication import gather_along
+from ..distributed.sharding_utils import annotate_parameter, local_block
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn import functional as F
 
@@ -181,7 +185,7 @@ class GPTAttention(nn.Module):
         positions, masked to the valid prefix."""
         from ..serving import kv_cache as _kvc
 
-        _no_mp(self.qkv, "serving", "A5.5 (serving a sharded model)")
+        _no_mp(self.qkv, "serving", "A5.5b (serving a sharded model)")
         q, k, v = self._split(qkv, B, S)
         if return_kv:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -228,6 +232,25 @@ class GPTMLP(nn.Module):
         return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate=True)))
 
 
+class _WholeStack(torch.autograd.Function):
+    """An ep rank's block of an expert stack -> the whole stack, gathered
+    over the ep group. The backward adds the whole stack's gradient into
+    ``sink[key]`` (the explicit reduction's input) and hands the block its
+    rows of it."""
+
+    @staticmethod
+    def forward(ctx, w, group, sink, key):
+        ctx.group, ctx.sink, ctx.key = group, sink, key
+        return gather_along(w.contiguous(), group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        prev = ctx.sink.get(ctx.key)
+        ctx.sink[ctx.key] = g if prev is None else prev + g
+        return (local_block(g, 0, ctx.group.rank, ctx.group.nranks),
+                None, None, None)
+
+
 class GPTMoEMLP(nn.Module):
     """The GPT-MoE block's FFN: ``moe_num_experts`` experts as stacked
     parameters (``w1 [E, d, f]``, ``b1 [E, f]``, ``w2 [E, f, d]``,
@@ -241,7 +264,15 @@ class GPTMoEMLP(nn.Module):
     Built after ``fleet.init`` with an ``ep`` axis of ``n`` ranks, the
     block holds its ep rank's ``E/n`` experts (the stacks' dim 0, placed
     ``P("ep", ...)`` as the JAX package annotates them) and routes over
-    the topology's ``moe_groups()``; the gate is whole."""
+    the topology's ``moe_groups()``; the gate is whole. Over an mp group
+    every rank holds the same experts and routes the same rows.
+
+    ``local_ep`` (set for its own forward by the train step whose explicit
+    gradient reduction runs over an ep axis, as the JAX step's fully-manual
+    region does, and ``None`` again after it) makes
+    each rank route its own rows alone, at the capacity of its own ``T``,
+    over the whole stacks gathered over that group; their gradients
+    collect, whole, in ``whole_grads``."""
 
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
@@ -249,8 +280,6 @@ class GPTMoEMLP(nn.Module):
 
         E, d, f = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
         self.cfg = cfg
-        self.mp_group = mp_group_of(None)
-        _no_mp(self, "a GPT-MoE block", "A5.4c (GPT-MoE at mp)")
         self.groups = moe_groups()
         n = self.groups.ep.nranks if self.groups is not None else 1
         if E % n:
@@ -269,13 +298,26 @@ class GPTMoEMLP(nn.Module):
                 "ep", *[None] * (p.dim() - 1)))
         self.dropout = Dropout(cfg.dropout)
         self.aux_loss = None
+        self.local_ep = None
+        self.whole_grads = {}
 
-    def _experts(self, ein):
-        """``[E, C, d]`` -> ``[E, C, d]``, every (local) expert at once."""
+    def _stacks(self):
+        """``(w1, b1, w2, b2)`` as the forward uses them: this rank's, or
+        under ``local_ep`` the whole ones."""
+        ws = (self.w1, self.b1, self.w2, self.b2)
+        if self.local_ep is None:
+            return ws
+        return tuple(_WholeStack.apply(w, self.local_ep, self.whole_grads, k)
+                     for k, w in zip(("w1", "b1", "w2", "b2"), ws))
+
+    def _experts(self, ein, stacks):
+        """``[E, C, d]`` -> ``[E, C, d]``, every expert of ``stacks``
+        (``w1, b1, w2, b2``) at once."""
+        w1, b1, w2, b2 = stacks
         dt = ein.dtype
-        h = torch.bmm(ein, self.w1.to(dt)) + self.b1.to(dt)[:, None]
+        h = torch.bmm(ein, w1.to(dt)) + b1.to(dt)[:, None]
         h = F.gelu(h, approximate=True)
-        return torch.bmm(h, self.w2.to(dt)) + self.b2.to(dt)[:, None]
+        return torch.bmm(h, w2.to(dt)) + b2.to(dt)[:, None]
 
     def forward(self, x):
         from ..incubate.distributed.models.moe.moe_layer import moe_route
@@ -283,13 +325,15 @@ class GPTMoEMLP(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         xt = x.reshape(-1, d)
-        T = xt.shape[0] * (self.groups.data.nranks if self.groups else 1)
+        groups = self.groups if self.local_ep is None else None
+        T = xt.shape[0] * (groups.data.nranks if groups else 1)
         capacity = max(1, int(cfg.moe_capacity_factor * T
                               / cfg.moe_num_experts))
+        stacks = self._stacks()
         out, aux = moe_route(
             xt, self.gate_weight, "gshard" if cfg.moe_top_k == 2 else "switch",
-            capacity, self._experts, dispatch_mode=cfg.moe_dispatch,
-            groups=self.groups)
+            capacity, lambda ein: self._experts(ein, stacks),
+            dispatch_mode=cfg.moe_dispatch, groups=groups)
         self.aux_loss = aux
         return self.dropout(out.reshape(B, S, d))
 
@@ -314,7 +358,7 @@ class GPTBlock(nn.Module):
                 raise NotImplementedError(
                     "serving a GPT-MoE model that routes over ranks (built "
                     "after fleet.init at a data world above 1) is not "
-                    "ported yet (ROADMAP queue A item A5.5)")
+                    "ported yet (ROADMAP queue A item A5.5b)")
             a, kv = self.attn(self.ln1(x), kv_cache=kv_cache,
                               cache_positions=cache_positions,
                               return_kv=return_kv)

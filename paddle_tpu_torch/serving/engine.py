@@ -22,7 +22,7 @@ verify-k) step over every running request.
 Ported: both KV layouts, the radix prefix cache (``prefix_cache``),
 n-gram speculative decoding (``speculative``), ``cached_generate`` and
 ``load_weights`` (which takes no ``shardings=`` until ROADMAP queue A item
-A5.5). Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
+A5.5b). Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
 item: ``request_trace_dir`` (A6).
 """
 
@@ -328,11 +328,12 @@ class Engine:
         Shapes and dtypes must match exactly; a missing name raises unless
         ``allow_missing``. Nothing is copied unless every entry passes.
         ``shardings`` (a serving layout per parameter) waits for
-        resharding (ROADMAP queue A item A5.5): anything but None raises."""
+        serving a split model (ROADMAP queue A item A5.5b): anything but
+        None raises."""
         if shardings is not None:
             raise NotImplementedError(
                 "Engine.load_weights(shardings=...) is not ported yet "
-                "(ROADMAP queue A item A5.5, resharding)")
+                "(ROADMAP queue A item A5.5b, serving a split model)")
         current = self.model.state_dict(keep_vars=True)
         missing = [k for k in current if k not in params]
         if missing and not allow_missing:

@@ -19,8 +19,12 @@ For a GPT-MoE model split over ``ep_degree`` expert-parallel ranks,
 block of dim 0 of each expert stack (``mlp.w1``, ``b1``, ``w2``, ``b2``:
 its ``E/n`` experts) and every other parameter whole; ``to_paddle_tpu``
 joins the stacks of every ep rank's dict, or gathers them over a model's
-ep group (collective) when given the model. A MoE block split
-over mp raises (ROADMAP queue A item A5.4c).
+ep group (collective) when given the model. A MoE block is whole on every
+rank of an mp group (the JAX package places its stacks over ``ep`` only),
+so on an ep x mp mesh ``from_paddle_tpu(..., mp_rank=, mp_degree=,
+ep_rank=, ep_degree=)`` gives a rank both, and ``to_paddle_tpu(blocks,
+mp_degree=m)`` joins the dicts of every rank in rank order (ep major, mp
+minor).
 """
 
 from __future__ import annotations
@@ -89,9 +93,6 @@ def mp_layout(name: str, shapes: Dict[str, tuple]):
     if not m:
         return None
     suffix = name[m.end():]
-    if suffix in _MOE_MLP:
-        raise NotImplementedError("a GPT-MoE block split over mp is not "
-                                  "ported yet (ROADMAP queue A item A5.4c)")
     if suffix not in _MP_SPLIT:
         return None
     segments = None
@@ -129,12 +130,14 @@ def _gathered_state(model):
     return sd
 
 
-def to_paddle_tpu(blocks) -> Dict[str, torch.Tensor]:
+def to_paddle_tpu(blocks, *, mp_degree: int = None
+                  ) -> Dict[str, torch.Tensor]:
     """The global arrays (CPU tensors, under the JAX package's names and
     layout) from every rank's state dict, in rank order: the inverse of
     ``from_paddle_tpu(..., mp_rank=r, mp_degree=len(blocks))``, or, where
-    the dicts hold expert stacks (a MoE block cannot be split over mp),
-    of ``from_paddle_tpu(..., ep_rank=r, ep_degree=len(blocks))``. A model
+    the dicts hold expert stacks, of ``from_paddle_tpu(..., ep_rank=r,
+    ep_degree=len(blocks))``; with ``mp_degree`` the dicts are an ep x mp
+    mesh's in rank order (ep major, mp minor), each taking both. A model
     (or a list of them) stands for its ``state_dict()``: a ZeRO stage-3
     model's gathers its slices (collective over its sharding group), an
     ep-split GPT-MoE model's its expert stacks (collective over its ep
@@ -148,19 +151,28 @@ def to_paddle_tpu(blocks) -> Dict[str, torch.Tensor]:
     n = len(blocks)
     if n == 1:
         return {k: v.clone() for k, v in blocks[0].items()}
-    if any(expert_stack(k) for k in blocks[0]):
-        return {k: torch.cat([b[k] for b in blocks]) if expert_stack(k)
-                else blocks[0][k].clone() for k in blocks[0]}
-    whole = {k: tuple(v.shape) for k, v in blocks[0].items()}
+    if mp_degree is None:
+        mp_degree = 1 if any(expert_stack(k) for k in blocks[0]) else n
+    if n % mp_degree:
+        raise ValueError(f"{n} rank dicts do not fill an mp degree of "
+                         f"{mp_degree}")
+    ep = [blocks[e * mp_degree] for e in range(n // mp_degree)]
+    mp = blocks[:mp_degree]
+    whole = {k: tuple(v.shape) for k, v in mp[0].items()}
     for k, layout in ((k, mp_layout(k, whole)) for k in whole):
         if layout is not None:
             d = layout[0]
-            whole[k] = whole[k][:d] + (whole[k][d] * n,) + whole[k][d + 1:]
+            whole[k] = whole[k][:d] + (whole[k][d] * mp_degree,) \
+                + whole[k][d + 1:]
     out = {}
     for k in blocks[0]:
         layout = mp_layout(k, whole)
-        out[k] = blocks[0][k].clone() if layout is None \
-            else assemble([b[k] for b in blocks], *layout)
+        if expert_stack(k):
+            out[k] = torch.cat([b[k] for b in ep])
+        elif layout is None or mp_degree == 1:
+            out[k] = blocks[0][k].clone()
+        else:
+            out[k] = assemble([b[k] for b in mp], *layout)
     return out
 
 

@@ -148,6 +148,31 @@ def test_both_packages_write_the_same_files(tmp_path):
         "beta_pow.scalar.bin" in files
 
 
+def test_sharded_restore_checks_the_files_it_reads(tmp_path):
+    """A block's restore with validation reads every file the block
+    overlaps whole and checks its CRC32: a flipped byte inside the block
+    raises; without validation only the block's bytes are read, so the
+    flip comes back unseen."""
+    d = str(tmp_path / "ck")
+    w = torch.arange(48, dtype=torch.float32).reshape(8, 6)
+    save_tree(d, {"w": w})
+    [shard] = [f for f in os.listdir(d) if f.endswith(".bin")]
+    with open(os.path.join(d, shard), "r+b") as f:  # row 1: rank 0's
+        f.seek(6 * 4 + 1)
+        raw = f.read(1)
+        f.seek(6 * 4 + 1)
+        f.write(bytes([raw[0] ^ 0xFF]))
+    split = {"w": NamedSharding(DeviceMesh([0, 1], ("dp",)),
+                                PartitionSpec("dp"))}
+    with pytest.raises(IOError, match="(?i)checksum"):
+        load_tree(d, shardings=split)
+    ckpt_arrays.reset_read_stats()
+    got = load_tree(d, shardings=split, validate=False)["w"]
+    assert ckpt_arrays.read_stats()["bytes"] == 4 * 6 * 4
+    assert torch.equal(got.block[0], w[0])
+    assert not torch.equal(got.block[1], w[1])
+
+
 # ---------------- the JAX package's checkpoint tests, one process --------
 def test_checksum_validation_detects_corruption(tmp_path):
     d = str(tmp_path / "ck")
@@ -177,15 +202,20 @@ def test_manager_latest_and_already_committed(tmp_path):
     with pytest.raises(FileNotFoundError, match="not a committed"):
         mgr.restore(3)
     # a None placement is a host restore (as in the JAX package); a
-    # replicated one reads the whole array too; a sharded one waits (A5.5)
+    # replicated one reads the whole array too; a sharded one gives this
+    # rank's block (rank 0 here); a live leaf that is no ShardedTensor is
+    # read from the files
     assert float(mgr.restore(shardings={"v": None})["v"]) == 9.0
     two = DeviceMesh([0, 1], ("dp",))
     rep = NamedSharding(two, PartitionSpec())
     assert float(mgr.restore(shardings={"v": rep})["v"]) == 9.0
-    with pytest.raises(NotImplementedError, match="A5.5"):
-        mgr.restore(shardings={"v": NamedSharding(two, PartitionSpec("dp"))})
-    with pytest.raises(NotImplementedError, match="A5.5"):
-        mgr.restore(live_state={"v": torch.zeros(())})
+    mgr.save(6, {"v": torch.arange(4.0)})
+    split = NamedSharding(two, PartitionSpec("dp"))
+    block = mgr.restore(6, shardings={"v": split})["v"]
+    assert block.sharding == split and block.shape == (4,)
+    assert torch.equal(block.block, torch.arange(2.0))
+    assert float(mgr.restore(5, live_state={"v": torch.zeros(())})["v"]) \
+        == 9.0
     mgr.close()
 
 
@@ -397,7 +427,13 @@ def test_save_sharded_is_the_shared_format(tmp_path):
         np.asarray(jnp.asarray(state["emb"].float().numpy(),
                                dtype=jnp.bfloat16)))
     _assert_trees_bitwise(state, tfio.load_sharded(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a placement gives this rank's block (rank 0 of two here); anything
+    # but the port's NamedSharding is refused
+    two = DeviceMesh([0, 1], ("dp",))
+    emb = tfio.load_sharded(str(tmp_path), shardings={
+        "emb": NamedSharding(two, PartitionSpec(None, "dp"))})["emb"].block
+    assert _bits(emb) == _bits(state["emb"].chunk(2, 1)[0])
+    with pytest.raises(TypeError, match="NamedSharding"):
         tfio.load_sharded(str(tmp_path), shardings={"w": object()})
 
 

@@ -19,7 +19,8 @@ taking its experts through ``from_paddle_tpu(ep_rank=, ep_degree=)``.
   gradients the JAX gradients' block, and the ranks' gate gradients sum
   to the JAX one (the loss counts the aux term once a rank);
 - ``MoELayer(group=)`` with each rank's two experts against the JAX layer
-  with all four; ``global_scatter``/``global_gather`` bitwise the JAX
+  with all four, and the train step taking it; ``global_scatter``/
+  ``global_gather`` bitwise the JAX
   functions' per-rank results, and their round trip;
 - the ep topology's accessors against the JAX package's;
 - the GPT-MoE step: 3 AdamW steps with the clip at ep 2 (dense and
@@ -409,9 +410,9 @@ def test_two_ranks_at_ep_match_the_reference(tmp_path):
         want = lout[r * Tl:(r + 1) * Tl]
         assert _err(lay["out"], want) <= ROUTE_RTOL * np.abs(want).max()
         assert abs(float(lay["aux"]) - laux) <= GATE_TOL
-        # the step trains only experts placed over ep: it refuses these
-        assert "A5.4c" in lay["step"] and "expert_0" in lay["step"], \
-            lay["step"]
+        # the step trains its expert modules as ep-split experts (held to
+        # the JAX layer's training in test_torch_moe_mp.py)
+        assert lay["step"] is None, lay["step"]
         # the count-routed exchange: the JAX per-rank results, bitwise
         sc = out["scatter"]
         assert np.array_equal(sc["out"].numpy(), sc_want[r])

@@ -1611,3 +1611,144 @@ def test_global_scatter_and_gather_over_nccl_across_two_cards(cuda,
         assert torch.equal(out["given"], want), d
         assert torch.equal(out["counted"], want), d
         assert torch.equal(out["back"], out["x"]), d
+
+
+def _reshard_cases(dev):
+    """A global array per dtype and the moves a world of one rank takes
+    (its meshes each of one rank): identity, a dimension split over a
+    size-one axis, a segmented layout to a plain one, and a move the
+    planner cannot express (the gather-and-slice path)."""
+    from paddle_tpu_torch.distributed import DeviceMesh, NamedSharding
+    from paddle_tpu_torch.distributed import PartitionSpec as P
+
+    one = DeviceMesh([0], ("x",))
+    g = torch.Generator(device=dev).manual_seed(4)
+    arrays = {torch.float32: torch.randn(8, 12, generator=g, device=dev),
+              torch.bfloat16: torch.randn(8, 12, generator=g,
+                                          device=dev).to(torch.bfloat16),
+              torch.int64: torch.randint(-2 ** 40, 2 ** 40, (8, 12),
+                                         generator=g, device=dev)}
+    moves = [(NamedSharding(one, P("x", None)),
+              NamedSharding(DeviceMesh([0], ("y",)), P(None, "y"))),
+             (NamedSharding(one, P(None, "x"), segments={1: (4, 4, 4)}),
+              NamedSharding(one, P("x", None))),
+             (NamedSharding(one, P(None, "x"), segments={1: (6, 3, 3)}),
+              NamedSharding(one, P(None, "x"), segments={1: (4, 4, 4)}))]
+    return arrays, moves
+
+
+@pytest.mark.gpu
+def test_reshard_over_one_nccl_rank(cuda, tmp_path, monkeypatch):
+    """The resharding executor on CUDA blocks over an NCCL world of one
+    rank: every move's block on the card, bitwise the global array's
+    slice; the segments' mismatch taken by the counted gather-and-slice
+    path; a checkpoint restored onto a sharded placement of two ranks
+    (this rank's block, read from its byte ranges) and live from
+    ``ShardedTensor`` blocks on the card, each bitwise the file's."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.checkpoint import arrays as ck_arrays
+    from paddle_tpu_torch.distributed import DeviceMesh, NamedSharding
+    from paddle_tpu_torch.distributed import PartitionSpec as P
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import resharding as rs
+
+    for var in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "MASTER_ADDR",
+                "PADDLE_DISTRI_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PADDLE_MASTER", f"file://{tmp_path / 'store'}")
+    dist.destroy_process_group()
+    try:
+        fleet.init(is_collective=True)
+        assert dist.get_backend() == "NCCL"
+        arrays, moves = _reshard_cases(cuda)
+        for dtype, x in arrays.items():
+            for src, dst in moves:
+                rs.reset_stats()
+                got = rs.reshard(rs.ShardedTensor(x.clone(), src), dst)
+                assert got.block.is_cuda and got.block.dtype == dtype
+                assert torch.equal(got.block, x), (dtype, src, dst)
+                assert rs.stats()["assembled"] == int(
+                    src.segments != dst.segments
+                    and bool(dst.segments)), (src, dst)
+        x = arrays[torch.bfloat16]
+        mgr = CheckpointManager(str(tmp_path / "ck"))
+        mgr.save(1, {"w": x, "v": arrays[torch.int64]})
+        mgr.wait_until_finished()
+        two = DeviceMesh([0, 1], ("dp",))
+        ck_arrays.reset_read_stats()
+        split = NamedSharding(two, P(None, "dp"))
+        tree = mgr.restore(shardings={"w": split, "v": None})
+        # validated: each file the blocks overlap read whole
+        assert ck_arrays.read_stats()["bytes"] == 8 * 12 * 2 + 8 * 12 * 8
+        assert tree["w"].sharding == split
+        assert torch.equal(tree["w"].block.cuda(), x[:, :6])
+        ck_arrays.reset_read_stats()
+        mgr.validate_on_restore = False  # the block's byte ranges alone
+        tree = mgr.restore(shardings={"w": split, "v": None})
+        assert ck_arrays.read_stats()["bytes"] == 8 * 6 * 2 + 8 * 12 * 8
+        assert torch.equal(tree["w"].block.cuda(), x[:, :6])
+        one = NamedSharding(DeviceMesh([0], ("dp",)), P("dp", None))
+        live = mgr.restore(shardings={"w": one}, live_state={
+            "w": rs.ShardedTensor(x, one)})
+        # a mesh of one rank places the array whole: a plain tensor
+        assert live["w"].is_cuda and torch.equal(live["w"], x)
+        assert ck_arrays.read_stats()["live"] == 1
+        mgr.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def _reshard_rank(rank, store, out_dir):
+    """One of two ranks, each on its own card over NCCL: moves between
+    two-rank layouts (all_to_all, a device-order permutation's
+    send/recv, the segmented qkv layout), each block against the global
+    array's slice."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import DeviceMesh, NamedSharding
+    from paddle_tpu_torch.distributed import PartitionSpec as P
+    from paddle_tpu_torch.distributed import resharding as rs
+
+    torch.cuda.set_device(rank)
+    tdist.init_process_group("nccl", init_method=f"file://{store}",
+                             world_size=2, rank=rank)
+    try:
+        dev = torch.device("cuda", rank)
+        x = torch.arange(8 * 16, dtype=torch.float32, device=dev).view(8, 16)
+        mesh = DeviceMesh([0, 1], ("x",))
+        back = DeviceMesh([1, 0], ("y",))
+        moves = [(NamedSharding(mesh, P("x", None)),
+                  NamedSharding(mesh, P(None, "x"))),
+                 (NamedSharding(mesh, P("x", None)),
+                  NamedSharding(back, P("y", None))),
+                 (NamedSharding(mesh, P(None, "x"), segments={1: (8, 4, 4)}),
+                  NamedSharding(mesh, P("x", None)))]
+        out = []
+        for src, dst in moves:
+            mine = rs.block_of(x.__getitem__, x.shape, src, rank)
+            got = rs.reshard(rs.ShardedTensor(mine, src), dst)
+            pos = [int(r) for r in dst.mesh.devices.reshape(-1)].index(rank)
+            want = rs.block_of(x.__getitem__, x.shape, dst, pos)
+            out.append(bool(torch.equal(got.block, want)))
+        torch.cuda.synchronize()
+        tdist.barrier()
+        torch.save({"equal": out, "backend": tdist.get_backend()},
+                   f"{out_dir}/out.{rank}.pt")
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_reshard_over_nccl_across_two_cards(cuda, tmp_path):
+    """The resharding executor between two ranks on two cards over NCCL:
+    every block bitwise the global array's slice."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL refuses two ranks on one)")
+    import torch.multiprocessing as mp
+
+    mp.spawn(_reshard_rank, args=(str(tmp_path / "store"), str(tmp_path)),
+             nprocs=2, join=True)
+    for r in range(2):
+        out = torch.load(tmp_path / f"out.{r}.pt")
+        assert out["backend"] == "nccl" and all(out["equal"]), (r, out)

@@ -274,8 +274,9 @@ def test_mp_matches_the_reference(tmp_path):
     assert a["losses"] != outs[0]["plain"]["losses"]
     _assert_replicas(outs, "dropout")
     for out in outs:
-        assert out["refuse_moe"].startswith("NotImplementedError") \
-            and "A5.4c" in out["refuse_moe"], out["refuse_moe"]
+        # a MoE block at mp holds every expert on every rank (A5.4c;
+        # trained against the JAX step in test_torch_moe_mp.py)
+        assert out["moe_w1"] == (4, 64, 256), out["moe_w1"]
         assert out["refuse_serving"].startswith("NotImplementedError") \
             and "A5.5" in out["refuse_serving"], out["refuse_serving"]
         assert out["refuse_kv"].startswith("ValueError") \
@@ -410,12 +411,14 @@ def test_rng_tracker_replays_and_advances():
 def test_options_left_out_raise(monkeypatch):
     """Sequence parallelism (A5.7), a spec the port cannot realise (A7),
     ring attention's ppermute (A5.7) and ``grad_reduce`` at an ep degree
-    above 1 (A5.4c) raise naming their items. ``MoELayer(group=)`` takes
-    its rank's experts (``E`` is the group's size times theirs), and a
-    GPT-MoE model built without the step's groups (routing its rank's
-    rows alone) cannot join a step at dp 2."""
+    above 1 over a ``MoELayer``'s expert modules (A5.4d) raise naming
+    their items. ``MoELayer(group=)`` takes its rank's experts (``E`` is
+    the group's size times theirs), and a GPT-MoE model built without the
+    step's groups (routing its rank's rows alone) cannot join a step at
+    dp 2."""
     from paddle_tpu_torch.distributed.fleet import utils as tutils
-    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertMLP,
+                                                                  MoELayer)
 
     m = GPTForCausalLM(GPTConfig(**R.TINY), device="cpu")
     opt = AdamW(parameters=m.named_parameters())
@@ -424,15 +427,19 @@ def test_options_left_out_raise(monkeypatch):
     assert layer.groups.ep.ranks == layer.groups.data.ranks == [0, 1]
     moe = GPTForCausalLM(GPTConfig(**{**R.TINY, "moe_num_experts": 4,
                                       "moe_every_k": 1}), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5.4c"):
-        tutils.make_sharded_train_step(
-            moe, AdamW(parameters=moe.named_parameters()),
-            mesh=D.DeviceMesh([0, 1], ("ep",)), grad_reduce="int8",
-            device="cpu")
     # the dp group's two ranks, without a world: the step refuses first
     monkeypatch.setattr(tutils, "group_of", lambda ranks, mesh=None,
                         axis=None, name=None, backend=None: Group(
                             ranks, mesh, axis, name=name))
+    net = torch.nn.Sequential(MoELayer(
+        64, [ExpertMLP(64, 32, device="cpu") for _ in range(2)],
+        group=Group([0, 1])))
+    with pytest.raises(NotImplementedError, match="A5.4d"):
+        tutils.make_sharded_train_step(
+            net, AdamW(parameters=net.named_parameters()),
+            loss_fn=lambda o, y: o.square().mean(),
+            mesh=D.DeviceMesh([0, 1], ("ep",)), grad_reduce="int8",
+            device="cpu")
     with pytest.raises(ValueError, match="fleet.init"):
         tutils.make_sharded_train_step(
             moe, AdamW(parameters=moe.named_parameters()),

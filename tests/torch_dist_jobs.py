@@ -336,13 +336,15 @@ def job_dp_mp_4(directory, inp, rank):
 # ---------------- expert parallelism ---------------------------------------
 def _moe_model(params, mode="dense", hcg=None, clip=R.CLIP):
     """The tiny GPT-MoE on ``params`` (whole arrays; an ep rank takes its
-    experts) and its AdamW."""
+    experts, an mp rank its blocks) and its AdamW."""
     ep = (hcg.get_expert_parallel_rank(), hcg.get_expert_parallel_world_size()
+          ) if hcg is not None else (0, 1)
+    mp = (hcg.get_model_parallel_rank(), hcg.get_model_parallel_world_size()
           ) if hcg is not None else (0, 1)
     model = gpt_moe_tiny(dropout=0.0, moe_dispatch=mode, device="cpu")
     model.load_state_dict(from_paddle_tpu(
         {k: v.numpy() for k, v in params.items()}, ep_rank=ep[0],
-        ep_degree=ep[1]))
+        ep_degree=ep[1], mp_rank=mp[0], mp_degree=mp[1]))
     model.train()
     return model, AdamW(learning_rate=R.LR, epsilon=R.EPS, weight_decay=0.01,
                         parameters=model.named_parameters(),
@@ -389,7 +391,7 @@ def _route_runs(ri, groups, rank, n):
 def job_ep2(directory, inp, rank):
     """Two ranks at ep 2: the topology; ``moe_route`` over the ranks
     (GShard and Switch, dense and quant); ``MoELayer(group=)``, and the
-    train step's refusal of it; ``global_scatter``/``global_gather``; 3 steps of the tiny GPT-MoE,
+    train step built on it; ``global_scatter``/``global_gather``; 3 steps of the tiny GPT-MoE,
     dense and quant, each rank on its half of every batch; the clipped
     gradients of a first step against one process's on the whole batch;
     ``to_paddle_tpu`` of the model."""
@@ -420,8 +422,8 @@ def job_ep2(directory, inp, rank):
     Tl = li["x"].shape[0] // 2
     out["layer"] = {"out": layer(li["x"][rank * Tl:(rank + 1) * Tl]).detach(),
                     "aux": layer.aux_loss.detach(), "E": layer.num_experts}
-    # its experts are modules of their own, placed over nothing: the step
-    # refuses to train them
+    # its experts are modules of their own: the step trains them as this
+    # ep rank's experts
     wrapped = torch.nn.Sequential(layer)
     try:
         fleet.make_sharded_train_step(
@@ -493,7 +495,319 @@ def job_ep4(directory, inp, rank):
     return out
 
 
+# ---------------- GPT-MoE at mp, grad_reduce and MoELayer at ep (A5.4c) ----
+def _moe_layer(li, hcg, rank):
+    """A ``MoELayer`` over the ep group holding this rank's experts of the
+    JAX layer's weights ``li``, wrapped so the step trains it."""
+    n_loc = li["fc1_w"].shape[0] // 2
+    experts = [ExpertMLP(*li["fc1_w"].shape[1:], device="cpu")
+               for _ in range(n_loc)]
+    layer = MoELayer(li["fc1_w"].shape[1], experts,
+                     group=hcg.get_expert_parallel_group(), device="cpu")
+    with torch.no_grad():
+        layer.gate_weight.copy_(li["gate"])
+        for i, e in enumerate(experts):
+            for fc in ("fc1", "fc2"):
+                getattr(e, fc).weight.copy_(li[f"{fc}_w"][rank * n_loc + i])
+                getattr(e, fc).bias.copy_(li[f"{fc}_b"][rank * n_loc + i])
+    return torch.nn.Sequential(layer)
+
+
+def job_moe_mp2(directory, inp, rank):
+    """Two ranks: 3 steps of the tiny GPT-MoE at mp 2 on the whole batch
+    (its experts whole on both ranks); at ep 2 under grad_reduce fp32,
+    int8 and int8 without error feedback, each rank on its half of every
+    batch, and quant dispatch refused there; a MoELayer(group=) holding
+    each rank's two experts trained 3 steps, its checkpoint tree, and the
+    tree restored into a fresh step."""
+    params, xs, ys = inp["params"], inp["x"], inp["y"]
+    out = {}
+    hcg = R._hybrid_init({"mp_degree": 2})
+    model, opt = _moe_model(params, hcg=hcg)
+    out["w1_shape"] = tuple(model.gpt.layers[1].mlp.w1.shape)
+    step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                         device="cpu")
+    out["mp"] = R._run_global(step, xs, ys, slice(None))
+    hcg = R._hybrid_init({"ep_degree": 2})
+    rows = slice(rank * xs.shape[1] // 2, (rank + 1) * xs.shape[1] // 2)
+    out["reduce"] = {}
+    for key, mode in (("fp32", "fp32"), ("int8", "int8"),
+                      ("int8_no_ef", {"mode": "quant",
+                                      "error_feedback": False})):
+        model, opt = _moe_model(params, hcg=hcg)
+        step = fleet.make_sharded_train_step(
+            model, opt, mesh=hcg.get_mesh(), grad_reduce=mode, device="cpu")
+        res = R._run_global(step, xs, ys, rows)
+        res["local"] = [k for k, v in step._whole.items()]
+        out["reduce"][key] = res
+        if key == "fp32":  # the model routes globally outside the step
+            with torch.no_grad():
+                after = model(xs[0][rows])
+                same, _ = _moe_model(res["params"], hcg=hcg)
+                out["eval_after_reduce"] = torch.equal(after,
+                                                       same(xs[0][rows]))
+    model, opt = _moe_model(params, "quant", hcg=hcg)
+    out["refuse_quant"] = R._raises(lambda: fleet.make_sharded_train_step(
+        model, opt, mesh=hcg.get_mesh(), grad_reduce="int8", device="cpu"))
+    li, lx = inp["layer"], inp["layer_x"]
+    half = slice(rank * lx.shape[1] // 2, (rank + 1) * lx.shape[1] // 2)
+
+    def layer_step(weights):
+        lay = _moe_layer(weights, hcg, rank)
+        return lay, fleet.make_sharded_train_step(
+            lay, AdamW(learning_rate=R.LR, epsilon=R.EPS, weight_decay=0.01,
+                       parameters=lay.named_parameters()),
+            loss_fn=lambda o, y: o.float().square().mean(),
+            mesh=hcg.get_mesh(), device="cpu")
+
+    lay, step = layer_step(li)
+    out["layer"] = {"losses": [step(lx[k][half], lx[k][half]).item()
+                               for k in range(lx.shape[0])],
+                    "experts": sorted(step._experts)}
+    tree = step.state_for_checkpoint().to_tree()
+    out["layer"]["tree"] = R._tree_copy({k: tree[k] for k in
+                                         ("params", "opt_state")})
+    _, fresh = layer_step({k: torch.randn_like(v) for k, v in li.items()})
+    fresh.restore_from_checkpoint(tree)
+    back = fresh.state_for_checkpoint().to_tree()
+    out["layer"]["restored"] = R._tree_copy({k: back[k] for k in
+                                             ("params", "opt_state")})
+    return out
+
+
+def job_moe_mp4(directory, inp, rank):
+    """Four ranks: 3 steps of the tiny GPT-MoE at ep 2 x mp 2 (each ep
+    rank on its half of every batch, the mp ranks on the same rows) and at
+    dp 2 x ep 2 under grad_reduce fp32 and int8 (each rank on its
+    quarter); the model's blocks, joined by ``to_paddle_tpu(mp_degree=2)``
+    in the test."""
+    params, xs, ys = inp["params"], inp["x"], inp["y"]
+    out = {}
+    hcg = R._hybrid_init({"ep_degree": 2, "mp_degree": 2})
+    model, opt = _moe_model(params, hcg=hcg)
+    step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                         device="cpu")
+    e = hcg.get_expert_parallel_rank()
+    out["ep_mp"] = R._run_global(step, xs, ys, slice(e * 2, e * 2 + 2))
+    out["ep_mp"]["block"] = {k: v.detach().clone()
+                             for k, v in model.state_dict().items()}
+    hcg = R._hybrid_init({"dp_degree": 2, "ep_degree": 2})
+    for mode in ("fp32", "int8"):
+        model, opt = _moe_model(params, hcg=hcg)
+        step = fleet.make_sharded_train_step(
+            model, opt, mesh=hcg.get_mesh(), grad_reduce=mode, device="cpu")
+        out[f"dp_ep_{mode}"] = R._run_global(step, xs, ys,
+                                             slice(rank, rank + 1))
+    return out
+
+
+# ---------------- resharding (A5.5a) ----------------------------------------
+def _mesh_of(axes, reverse=False):
+    """A port mesh over the first ranks (in reverse with ``reverse``)."""
+    n = int(np.prod(list(axes.values()))) if axes else 1
+    ranks = list(range(n))[::-1] if reverse else list(range(n))
+    return D.DeviceMesh(np.array(ranks).reshape(tuple(axes.values())),
+                        tuple(axes))
+
+
+def _sharding(axes, spec, reverse=False, segments=None):
+    return D.NamedSharding(_mesh_of(axes, reverse),
+                           D.PartitionSpec(*[tuple(e) if isinstance(e, list)
+                                             else e for e in spec]),
+                           segments=segments)
+
+
+def _block(x, sharding):
+    """This rank's block of the global ``x`` under ``sharding`` (None off
+    its mesh), by slicing."""
+    from paddle_tpu_torch.distributed.resharding import block_of
+
+    flat = sharding.mesh.devices.reshape(-1).tolist()
+    me = D.get_rank()
+    if me not in flat:
+        return None
+    return block_of(x.__getitem__, x.shape, sharding, flat.index(me)).clone()
+
+
+def _moves(cases):
+    """Each move of ``cases`` (``{name: (shape, dtype, [(axes, spec,
+    reverse, segments), ...])}``: a chain of layouts) on a seeded global
+    array: whether every hop's block is bitwise the array's slice, the
+    hops' plans (steps' ops, bytes_wire, bytes_naive, as dicts where
+    plain) and the bytes this rank received."""
+    from paddle_tpu_torch.distributed import resharding as rs
+
+    out = {}
+    for name, (shape, dtype, chain) in cases.items():
+        g = torch.Generator().manual_seed(len(name))
+        x = (torch.randint(-2 ** 40, 2 ** 40, shape, generator=g)
+             if dtype == torch.int64 else
+             torch.randn(shape, generator=g).to(dtype))
+        shs = [_sharding(*hop) for hop in chain]
+        cur = rs.ShardedTensor(_block(x, shs[0]), shs[0])
+        hops = []
+        for dst in shs[1:]:
+            rs.reset_stats()
+            try:
+                plan = rs.plan_for(cur, dst)
+            except rs.Unplannable as e:
+                plan = str(e)
+            nxt = rs.reshard(cur, dst)
+            want = _block(x, dst)
+            st = rs.stats()
+            hops.append({
+                "equal": (nxt.block is None and want is None) or (
+                    nxt.block.dtype == want.dtype
+                    and torch.equal(nxt.block.view(torch.uint8)
+                                    if dtype == torch.bfloat16 else
+                                    nxt.block, want.view(torch.uint8)
+                                    if dtype == torch.bfloat16 else want)),
+                "plan": plan if isinstance(plan, str) else (
+                    rs.plan_as_dict(plan) if isinstance(plan, rs.ReshardPlan)
+                    else [rs.plan_as_dict(p) for p in plan.plans]),
+                "received": st["bytes_received"], "wire": st["bytes_wire"],
+                "assembled": st["assembled"],
+                "assembled_received": st["assembled_bytes_received"]})
+            if nxt.block is None:
+                break
+            cur = nxt
+        out[name] = hops
+    return out
+
+
+def job_reshard(directory, inp, rank):
+    """The executor on the world's ranks: every chain of moves of
+    ``inp["cases"]``."""
+    D.init_parallel_env(device="cpu")
+    return _moves(inp["cases"])
+
+
+def job_reshard_ckpt(directory, inp, rank):
+    """Two ranks: the tiny GPT trained 2 steps at mp 2 and saved; a
+    sharding-2 ``p_g_os`` step restored from it by its placements (the
+    bytes read), live from the mp-2 step's blocks through the executor
+    (its counters), and continued 2 steps; the JAX package's (2, 2)-mesh
+    save restored onto the mp-2 step's placements."""
+    from paddle_tpu_torch.checkpoint import arrays as ck_arrays
+    from paddle_tpu_torch.distributed import resharding as rs
+
+    params, xs, ys = inp["params"], inp["x"], inp["y"]
+    hcg = R._hybrid_init({"mp_degree": 2})
+    blocks = from_paddle_tpu({k: v.numpy() for k, v in params.items()},
+                             mp_rank=hcg.get_model_parallel_rank(),
+                             mp_degree=2)
+    model, opt = R._tiny_on(blocks)
+    mp_step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                            device="cpu")
+    for k in range(2):
+        mp_step(xs[k], ys[k])
+    _save(mp_step, directory / "port_ck", 2)
+    out = {"mp_shardings": _spec_tree(mp_step.checkpoint_shardings())}
+
+    hcg = R._hybrid_init({"sharding_degree": 2})
+
+    def fresh():
+        return _z3_step({k: torch.randn_like(v) for k, v in params.items()},
+                        hcg.get_mesh())[1]
+
+    step = fresh()
+    mgr = CheckpointManager(directory / "port_ck")
+    ranged = CheckpointManager(directory / "port_ck",
+                               validate_on_restore=False)
+    shardings = step.checkpoint_shardings()
+    out["shardings"] = _spec_tree(shardings)
+    ck_arrays.reset_read_stats()
+    tree = ranged.restore(shardings=shardings)
+    out["read"] = ck_arrays.read_stats()
+    out["placed"] = _placed(tree, shardings)
+    out["blocks"] = _blocks(tree)
+    # validated: every file a block overlaps read whole, its CRC checked
+    ck_arrays.reset_read_stats()
+    out["checked"] = _blocks(mgr.restore(shardings=shardings))
+    out["checked_read"] = ck_arrays.read_stats()
+    rs.reset_stats()
+    ck_arrays.reset_read_stats()
+    live = mgr.restore(shardings=shardings, live_state=mp_step.live_state())
+    out["live_read"] = ck_arrays.read_stats()
+    out["live_stats"] = rs.stats()
+    out["live_placed"] = _placed(live, shardings)
+    out["live"] = _blocks(live)
+    step.restore_from_checkpoint(live)
+    rows = slice(rank * 2, rank * 2 + 2)
+    out["continued"] = [step(xs[k][rows], ys[k][rows]).item()
+                        for k in range(2, 4)]
+    # blocks of the mp-2 step handed over as they are: resharded in
+    # restore_from_checkpoint itself
+    again = fresh()
+    live_tree = {**mp_step.state_for_checkpoint().to_tree(),
+                 **mp_step.live_state()}
+    again.restore_from_checkpoint(live_tree)
+    back = again.state_for_checkpoint().to_tree()
+    out["handed_over"] = R._tree_copy({k: back[k] for k in ("params",
+                                                            "opt_state")})
+    # the files read onto the mp-2 step's placements, adopted by the
+    # stage-3 step: resharded, not taken for its own blocks (the qkv's
+    # segmented mp block and its stage-3 slice have one shape); the same
+    # blocks as plain tensors are refused
+    cross = fresh()
+    at_mp = mgr.restore(shardings=mp_step.checkpoint_shardings())
+    cross.restore_from_checkpoint(at_mp)
+    back = cross.state_for_checkpoint().to_tree()
+    out["cross"] = R._tree_copy({k: back[k] for k in ("params",
+                                                      "opt_state")})
+    out["refuse_plain"] = R._raises(lambda: cross.restore_from_checkpoint(
+        {**at_mp, **_blocks(at_mp)}))
+    R._wait_for(directory / "jax_ck.ready")
+    ck_arrays.reset_read_stats()
+    ranged_jax = CheckpointManager(directory / "jax_ck",
+                                   validate_on_restore=False)
+    jtree = ranged_jax.restore(shardings=mp_step.checkpoint_shardings())
+    out["jax_read"] = ck_arrays.read_stats()
+    out["jax_blocks"] = _blocks(jtree)
+    return out
+
+
+def _blocks(tree):
+    """params and opt_state of a restored tree, each ``ShardedTensor``'s
+    block in its place, copied (``R._tree_copy``)."""
+    from paddle_tpu_torch.distributed.resharding import ShardedTensor
+
+    def walk(v):
+        if isinstance(v, dict):
+            return {k: walk(w) for k, w in v.items()}
+        return v.block if isinstance(v, ShardedTensor) else v
+
+    return R._tree_copy({k: walk(tree[k]) for k in ("params", "opt_state")})
+
+
+def _placed(tree, shardings):
+    """Whether each leaf ``shardings`` splits came back as a
+    ``ShardedTensor`` of that placement, and every other one as a
+    tensor."""
+    from paddle_tpu_torch.distributed.resharding import ShardedTensor
+
+    def ok(v, sh):
+        if isinstance(v, dict):
+            return all(ok(v[k], sh[k]) for k in v)
+        if sh.is_replicated:
+            return isinstance(v, torch.Tensor)
+        return isinstance(v, ShardedTensor) and v.sharding == sh
+
+    return all(ok(tree[k], shardings[k]) for k in ("params", "opt_state"))
+
+
+def _spec_tree(tree):
+    """A shardings tree as plain data: ``(mesh axes, spec, segments)``."""
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v) for k, v in tree.items()}
+    return (dict(tree.mesh.shape), [list(e) if isinstance(e, tuple) else e
+                                    for e in tree.spec],
+            dict(tree.segments))
+
+
 JOBS = {"reducer": job_reducer, "grad_reduce": job_grad_reduce,
         "zero3": job_zero3, "zero3_state": job_zero3_state,
         "dp_sharding_4": job_dp_sharding_4,
-        "dp_mp_4": job_dp_mp_4, "ep2": job_ep2, "ep4": job_ep4}
+        "dp_mp_4": job_dp_mp_4, "ep2": job_ep2, "ep4": job_ep4,
+        "moe_mp2": job_moe_mp2, "moe_mp4": job_moe_mp4,
+        "reshard": job_reshard, "reshard_ckpt": job_reshard_ckpt}
