@@ -289,12 +289,42 @@ Phases, each of which exits non-zero on failure:
    device from the mp-2 step's live blocks through the resharding
    executor (the bytes received over both ranks equal to the plans'
    ``bytes_wire``, printed beside ``bytes_naive``, bitwise the file path,
-   the restore's time); one more step on the new layout, its loss finite.
+   the restore's time); one more step on the new layout, its loss finite;
+23. serving a split model and the sharded save, gloo ranks on the card in
+   [22]'s launcher starts (``--split-worker``, ``--split4-worker``): [23a]
+   [22c]'s mp-2 step (held from [22]'s worker) saved through
+   ``CheckpointManager`` with nothing gathered: no tensor collective,
+   each rank's bytes written equal to its replica-0 blocks', the two
+   ranks' together [22c]'s gathered save's; restored whole on rank 0 and
+   onto [22c]'s ``p_g_os`` step at sharding 2, both bitwise [22c]'s
+   save's; [23b] the 1.3B at mp 2 behind the paged engine ([4]'s 8 slots,
+   S_max 2048, page 16, requests and warm-ups), its weights by
+   ``load_weights`` device to device from the stage-3 step's live blocks
+   (the bytes received over both ranks equal to the plans'
+   ``bytes_wire``): throughput, TTFT and TPOT beside [4]'s, the programs
+   eager over gloo (no capture), a decode step's collectives and their
+   share of its host clock, KV-cache and parameter bytes a rank against
+   one process's; one step that prefills a request and decodes it
+   profiled (2 (2L + 1) LayerNorms, L bf16 flash forwards on wgmma at 8
+   heads, L paged decodes' split and combine on the vector route); both
+   ranks' tokens equal; rank 0's one process on the same weights: the
+   first request's prefill logits within ``SPLIT_LOGIT_TOL`` of the
+   largest, the share of greedy tokens equal; [23c] the 1.3B's width at mp
+   2 and config 5's at ep 2 (two ranks) and at ep 2 x mp 2 (four), depth
+   2, fp32, their weights from a sharded save of the same model: the
+   paged engine with the prefix cache and speculation, the dense engine
+   and ``generate``, greedy tokens equal to one process on the card and
+   on every rank, sampled ones equal on every rank; [23d] a
+   ``MoELayer(group=)`` of config 5's FFN width at ep 2 under grad_reduce
+   fp32 and int8 (every expert's gradient reduced under its JAX name): a
+   reduction repeated on the CPU, the reduced gradients bitwise.
 
-The ranks of [18b]-[22] start once for each world size: each rank runs
+The ranks of [18b]-[23] start once for each world size: each rank runs
 the phases' workers in turn (``launch_chain``), and each phase then checks
 its ranks' records (``chained_records``); ``--mp-of``, ``--zero3-of``,
-``--ep-of`` and ``--mx-of`` chain only their own phases' workers.
+``--ep-of``, ``--mx-of`` and ``--split-of`` chain only their own phases'
+workers (``--split-of``'s take [22c]'s step and gathered save
+themselves).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4281,6 +4311,18 @@ def opt_state_bytes(step) -> int:
                         for v in s.values())
 
 
+def gathered_state(step):
+    """The step's ``TrainState`` with every array whole: the blocks of
+    ``state_for_checkpoint()`` gathered by the explicit
+    ``resharding.gather_tree`` (collective: every rank calls it)."""
+    from paddle_tpu_torch.distributed.resharding import gather_tree
+
+    ts = step.state_for_checkpoint()
+    ts.params = gather_tree(ts.params)
+    ts.opt_state = gather_tree(ts.opt_state)
+    return ts
+
+
 def count_collectives():
     """Wrap ``mp_ops``' collectives: returns a dict whose ``calls`` and
     ``seconds`` (host clock inside them) grow with every call, and a
@@ -4354,7 +4396,7 @@ def tp_worker(directory: Path, seed: int) -> int:
         rec["replicas_equal"].append(replicas_equal(step, group))
     rec["parity_routes"] = {w: dict(getattr(K, w).route_launches)
                             for w in FLASH_WRAPPERS}
-    tree = step.state_for_checkpoint()
+    tree = gathered_state(step)
     if rank == 0:
         torch.save({k: v.detach().cpu() for k, v in tree.params.items()},
                    directory / "tp_params.pt")
@@ -4445,7 +4487,7 @@ def zero_worker(directory: Path, seed: int) -> int:
                              for w in FLASH_WRAPPERS}
         r["opt_bytes"] = opt_state_bytes(step)
         r["slice_dims"] = sorted(set(step._zero.dims.values()))
-        tree = step.state_for_checkpoint()
+        tree = gathered_state(step)
         if rank == 0:
             torch.save({k: v.detach().cpu() for k, v in tree.params.items()},
                        directory / f"{level}_params.pt")
@@ -4477,10 +4519,15 @@ def zero_worker(directory: Path, seed: int) -> int:
 # a launch chains them (``launch_chain``): each world size's launcher then
 # starts once for the whole script
 WORKERS = ("dp_worker", "tp_worker", "zero_worker", "z3_worker",
-           "reduce_worker", "ep_worker", "mx_worker", "ep4_worker",
-           "mx4_worker")
+           "reduce_worker", "ep_worker", "mx_worker", "split_worker",
+           "ep4_worker", "mx4_worker", "split4_worker")
 # flag -> the work directory its ranks wrote, in a chained launch
 CHAINED = {}
+# [4]'s one-process readings, which [23b] prints beside its own
+SERVED = {}
+# what a worker of a chained launch leaves to the next one in its process
+# ([22c]'s mp-2 step, its gathered save and its stage-3 step for [23a])
+HELD = {}
 
 
 def run_launcher(args, nproc: int, log_dir: Path, what: str):
@@ -4968,7 +5015,7 @@ def z3_worker(directory: Path, seed: int) -> int:
     r["launches"] = K.launch_counts()
     r["flash_routes"] = {w: dict(getattr(K, w).route_launches)
                          for w in FLASH_WRAPPERS}
-    tree = step.state_for_checkpoint()
+    tree = gathered_state(step)
     if rank == 0:
         torch.save({k: v.detach().cpu() for k, v in tree.params.items()},
                    directory / "z3_params.pt")
@@ -5516,7 +5563,7 @@ def ep_parity_run(step, x, y, rows, directory, tag, rank):
     rec = {"losses": losses, "launches": K.launch_counts(),
            "flash_routes": {w: dict(getattr(K, w).route_launches)
                             for w in FLASH_WRAPPERS}}
-    tree = step.state_for_checkpoint()
+    tree = gathered_state(step)
     if rank == 0:
         torch.save({k: v.detach().cpu() for k, v in tree.params.items()},
                    directory / f"{tag}_params.pt")
@@ -6085,7 +6132,7 @@ def mx_worker(directory: Path, seed: int) -> int:
         r = {"losses": losses, "cpu_check": cpu_check,
              "local": len(step._whole), "launches": K.launch_counts(),
              "stages": [str(a) for a in step._reducer.stage_axes]}
-        tree = step.state_for_checkpoint()
+        tree = gathered_state(step)
         if rank == 0:
             torch.save({k: v.detach().cpu() for k, v in tree.params.items()},
                        directory / f"gr_{mode}_params.pt")
@@ -6113,7 +6160,7 @@ def mx_worker(directory: Path, seed: int) -> int:
     yt = torch.roll(xt, -1, dims=1)
     c = {"mp_losses": [mp_step(xt, yt).item() for _ in range(MX_SAVE_STEPS)]}
     t0 = time.perf_counter()
-    saved = mp_step.state_for_checkpoint().to_tree()
+    saved = gathered_state(mp_step).to_tree()
     torch.cuda.synchronize()
     c["gather_s"] = time.perf_counter() - t0
     mgr = CheckpointManager(directory / "ck")
@@ -6193,7 +6240,8 @@ def mx_worker(directory: Path, seed: int) -> int:
         c["one_read"] = ck_arrays.read_stats()
         c["one_differ"] = ["/".join(p) for p, leaf in leaves(one)
                            if not same(leaf, pick(saved, p))]
-        del one
+    else:
+        one = None
     dist.barrier()
     del saved
     gc.collect()
@@ -6217,7 +6265,16 @@ def mx_worker(directory: Path, seed: int) -> int:
     c["live_on_card"] = sum(1 for _, leaf in leaves(live)
                             if torch.is_tensor(block(leaf))
                             and block(leaf).is_cuda)
-    del files, mp_step, model, opt
+    # [23a] (the next worker of a chained launch) saves this step's state
+    # sharded and holds that save to this one: the step, the save's
+    # directory and readings, and the stage-3 step stay held for it
+    # and the two restores of this save, its whole (rank 0) and its blocks
+    # onto the stage-3 step, which the sharded save's must equal
+    HELD["mx"] = {"step": mp_step, "gathered": directory / "ck",
+                  "gather_s": c["gather_s"], "save_s": c["save_s"],
+                  "bytes": c["bytes"], "z3": z3, "whole": one,
+                  "files": files}
+    del files, one, mp_step, model, opt
     gc.collect()
     torch.cuda.empty_cache()
     z3.restore_from_checkpoint(live)
@@ -6486,6 +6543,745 @@ def mx_ranks(K, seed: int, rows, cfg, ref, step16_s):
           flush=True)
 
 
+# [23]: serving a split model and the sharded save, gloo ranks on the card
+# in [22]'s launcher starts. [23a] saves [22c]'s mp-2 step of the full
+# GPT-3 1.3B sharded (each rank its replica-0 blocks, no collective) and
+# holds that save to [22c]'s gathered one: restored whole on rank 0, and
+# onto [22c]'s stage-3 step at sharding 2, bitwise. [23b] serves the 1.3B
+# at mp 2 through the paged engine ([4]'s slots, S_max, page and
+# requests), its weights moved device to device from the stage-3 step's
+# live blocks. [23c] the 1.3B's width at mp 2 and config 5's at ep 2 (and
+# at ep 2 x mp 2 on four ranks), depth 2, fp32, through the paged engine
+# with the prefix cache and speculation, the dense engine and generate,
+# against one process on the card, the weights from a sharded save.
+# [23d] a MoELayer at ep 2 under grad_reduce fp32 and int8 (A5.4d), a
+# reduction repeated on the CPU as [22b]'s
+SPLIT_SLOTS, SPLIT_SMAX = 8, 2048
+# [23b]'s split prefill logits against one process's on the same bf16
+# weights: the mp ranks' partial products are rounded to bf16 before
+# their all-reduce sums them, where one process rounds the whole sum
+# once, so the two differ by a few bf16 roundings (2^-8 relative) of each
+# layer's output; over 24 layers' residual stream that is a few percent
+# of the logits' scale: 1/16 of the largest |logit| is the bound
+SPLIT_LOGIT_TOL = 1 / 16
+# [23c]: 4 slots of SPLIT_D2_SMAX positions, SPLIT_D2_NEW new tokens
+SPLIT_D2_SLOTS, SPLIT_D2_SMAX, SPLIT_D2_NEW = 4, 256, 12
+# [23d]: the MoELayer (config 5's FFN width, its 8 experts) and its batch
+SPLIT_LAYER_B, SPLIT_LAYER_S = 8, 256
+# the tensor collectives of torch.distributed, barriers aside
+DIST_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single",
+                    "all_to_all", "broadcast", "send", "recv", "isend",
+                    "irecv", "reduce", "gather", "scatter")
+
+
+class DistCalls:
+    """The calls of ``torch.distributed``'s tensor collectives while it is
+    entered (the port's modules look them up there at call time)."""
+
+    def __enter__(self):
+        import torch.distributed as tdist
+
+        self.calls, self._saved = [], {}
+        for name in DIST_COLLECTIVES:
+            fn = getattr(tdist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls.append(_name)
+                return _fn(*a, **kw)
+
+            setattr(tdist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        for name, fn in self._saved.items():
+            setattr(tdist, name, fn)
+
+
+def served_prompts(rng, vocab: int):
+    """[4]'s requests drawn from ``rng`` (a CPU generator seeded with the
+    seed): a 64-token warm-up prompt, and 16 prompts of 128 tokens and of
+    300-700 tokens, alternately."""
+    warm = torch.randint(0, vocab, (64,), generator=rng).tolist()
+    lengths = [128 if i % 2 == 0 else
+               int(torch.randint(300, 701, (1,), generator=rng))
+               for i in range(16)]
+    prompts = [torch.randint(0, vocab, (n,), generator=rng).tolist()
+               for n in lengths]
+    return warm, lengths, prompts
+
+
+def split_prompts(seed: int, vocab: int):
+    """[23c]'s six prompts: four share a 48-token prefix, two of them a
+    repeated 8-token phrase (drafts get accepted)."""
+    g = torch.Generator().manual_seed(seed + 23)
+
+    def draw(n):
+        return torch.randint(0, vocab, (n,), generator=g).tolist()
+
+    prefix, phrase = draw(48), draw(8)
+    return [prefix + phrase * 3, prefix + draw(20), draw(30),
+            prefix + phrase * 2 + draw(5), prefix + draw(9), draw(70)]
+
+
+def sharded_params(eng):
+    """The served parameters as a checkpoint tree: each split one a
+    ``ShardedTensor`` of this rank's block and its placement
+    (``Engine.shardings()``), each whole one the tensor."""
+    from paddle_tpu_torch.distributed.resharding import ShardedTensor
+
+    own = eng.shardings()
+    return {n: p.detach() if own[n].is_replicated
+            else ShardedTensor(p.detach(), own[n])
+            for n, p in eng.model.state_dict(keep_vars=True).items()}
+
+
+def d2_engines(model, prompts, load=None):
+    """[23c]'s runs of ``model`` (fp32, depth 2): the paged engine with
+    the prefix cache and speculation (greedy, then sampled from a
+    generator seeded alike on every rank), the dense engine (greedy),
+    ``generate`` greedy and sampled. ``load`` (a function of the first
+    engine) loads the weights. Each run's tokens, and the slot table after
+    every step of the first."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    greedy = SamplingParams(max_new_tokens=SPLIT_D2_NEW)
+    sampled = SamplingParams(max_new_tokens=SPLIT_D2_NEW, do_sample=True,
+                             temperature=0.8, top_k=50)
+    out = {}
+    for name, kw, sp in (("spec", dict(prefix_cache=True, speculative=3),
+                          greedy),
+                         ("sampled", dict(prefix_cache=True, speculative=3),
+                          sampled),
+                         ("dense", dict(kv_layout="dense"), greedy)):
+        eng = Engine(model, EngineConfig(max_batch_size=SPLIT_D2_SLOTS,
+                                         max_seq_len=SPLIT_D2_SMAX, **kw),
+                     device="cuda")
+        if load is not None:
+            load(eng)
+            load = None
+        reqs = [eng.add_request(p, sp) for p in prompts]
+        slots = []
+        while eng.has_unfinished:
+            eng.step()
+            slots.append([None if r is None else reqs.index(r)
+                          for r in eng._slots])
+        out[name] = {"tokens": [r.output_ids for r in reqs],
+                     "slots": slots, "hits": sum(
+                         r.prefix_hit_blocks > 0 for r in reqs),
+                     "accepted": eng.spec_accepted,
+                     "captures": sum(st.captures for st in eng.steps.values()),
+                     "eager": sum(st.eager_steps for st in eng.steps.values())}
+        del eng
+    ids = torch.tensor([p[:16] for p in prompts[:4]], device="cuda")
+    out["generate"] = model.generate(ids, max_new_tokens=SPLIT_D2_NEW
+                                     ).tolist()
+    out["generate_sampled"] = model.generate(
+        ids, max_new_tokens=SPLIT_D2_NEW, do_sample=True, top_k=50,
+        generator=torch.Generator(device="cuda").manual_seed(23)).tolist()
+    model._generate_state = None
+    return out
+
+
+def d2_split(cfg, whole, prompts, directory: Path, tag: str):
+    """[23c] on the current topology: ``cfg``'s model split over it, its
+    weights from a sharded save of the same model (``whole`` loaded whole
+    into it by ``load_weights``, saved as ``sharded_params``, the
+    parameters zeroed, the save restored onto ``Engine.shardings()`` and
+    loaded), through ``d2_engines``."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    model.eval()
+    mgr = CheckpointManager(directory / f"{tag}_ck")
+    info = {}
+
+    def load(eng):
+        eng.load_weights(whole)
+        with DistCalls() as calls:
+            mgr.save(0, {"params": sharded_params(eng)})
+            mgr.wait_until_finished()
+        info.update(save_collectives=len(calls.calls),
+                    save_bytes=mgr.last_save["bytes"])
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
+        own = eng.shardings()
+        tree = mgr.restore(shardings={"params": own})
+        eng.load_weights(tree["params"], shardings=own)
+
+    out = d2_engines(model, prompts, load)
+    out.update(info, kv_heads=model.local_kv_heads,
+               w1=list(model.gpt.layers[-1].mlp.w1.shape)
+               if cfg.moe_num_experts else None)
+    mgr.close()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_reduce(seed: int, hcg, rank: int):
+    """[23d]: a MoELayer(group=) of config 5's FFN width, its ep rank's
+    experts of 8 drawn from the seed, trained EP_STEPS steps on the mean
+    square of its output under grad_reduce fp32 and int8, each rank on its
+    half of every batch; step MX_CHECK_STEP's reduction repeated on the
+    CPU (``mx_reduce_run``)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertMLP,
+                                                                  MoELayer)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = ep_config()
+    d, f, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
+    ep_r, n = hcg.get_expert_parallel_rank(), E // 2
+    g = torch.Generator(device="cuda").manual_seed(seed + 234)
+    gate = torch.randn(d, E, generator=g, device="cuda") * 0.02
+    experts = [[torch.randn(*shape, generator=g, device="cuda") * 0.02
+                for shape in ((d, f), (f,), (f, d), (d,))] for _ in range(E)]
+    x = torch.randn(EP_STEPS, SPLIT_LAYER_B, SPLIT_LAYER_S, d, generator=g,
+                    device="cuda")
+    rows = slice(ep_r * SPLIT_LAYER_B // 2, (ep_r + 1) * SPLIT_LAYER_B // 2)
+    out = {}
+    for mode in ("fp32", "int8"):
+        mine = [ExpertMLP(d, f, activation="gelu", device="cuda")
+                for _ in range(n)]
+        layer = MoELayer(d, mine, group=hcg.get_expert_parallel_group(),
+                         device="cuda")
+        with torch.no_grad():
+            layer.gate_weight.copy_(gate)
+            for i, e in enumerate(mine):
+                w1, b1, w2, b2 = experts[ep_r * n + i]
+                e.fc1.weight.copy_(w1)
+                e.fc1.bias.copy_(b1)
+                e.fc2.weight.copy_(w2)
+                e.fc2.bias.copy_(b2)
+        net = torch.nn.Sequential(layer)
+        step = fleet.make_sharded_train_step(
+            net, AdamW(learning_rate=DP_LR, epsilon=1e-6, weight_decay=0.01,
+                       parameters=net.named_parameters()),
+            loss_fn=lambda o, y: o.float().square().mean(),
+            mesh=hcg.get_mesh(), grad_reduce=mode)
+        K.reset_launch_counts()
+        losses, cpu_check = mx_reduce_run(step, x, x, rows)
+        out[mode] = {"losses": losses, "cpu_check": cpu_check,
+                     "reduced": len(step._whole_experts),
+                     "launches": K.launch_counts()}
+        del net, layer, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_worker(directory: Path, seed: int) -> int:
+    """One rank of [23], chained after [22]'s worker in its launch (two
+    ranks over gloo on the one card). Before any topology: rank 0 builds
+    the whole 1.3B (bf16), and the depth-2 fp32 models of the 1.3B's and
+    config 5's width serve [23c]'s requests as one process on the card.
+    [23a] [22c]'s mp-2 step saved sharded, the save against [22c]'s
+    gathered one; [23b] the 1.3B at mp 2 served, its weights from the
+    stage-3 step's live blocks, rank 0 also serving them whole; [23c] the
+    depth-2 models at mp 2 and at ep 2; [23d] a MoELayer at ep 2 under
+    grad_reduce. Without [22]'s worker before it in the process, it takes
+    [22c]'s step and gathered save itself."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.checkpoint import arrays as ck_arrays
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import resharding as rs
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        group_sharded_parallel)
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    import os
+
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    rec = {"rank": rank, "seconds": {}}
+    t_sub = time.perf_counter()
+    scfg = GPTConfig(**GPT3_1p3B)
+    one = GPTForCausalLM(scfg, device="cuda", dtype=torch.bfloat16) \
+        if rank == 0 else None
+    # [23c]'s one process on the card, before any topology
+    d2 = {"mp": GPTConfig(**{**GPT3_1p3B, "num_layers": 2}),
+          "ep": ep_config(num_layers=2)}
+    d2_prompts, d2_whole, d2_one = {}, {}, {}
+    for tag, cfg in d2.items():
+        d2_whole[tag] = ep_weights(seed + 23, cfg, torch.float32)
+        d2_prompts[tag] = split_prompts(seed, cfg.vocab_size)
+        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+        model.load_state_dict(d2_whole[tag])
+        model.eval()
+        d2_one[tag] = d2_engines(model, d2_prompts[tag])
+        del model
+    rec["d2_one"] = d2_one
+    torch.cuda.empty_cache()
+
+    # [23a]: the 1.3B's mp-2 step saved sharded
+    held = HELD.pop("mx", None)
+    tcfg = GPTConfig(**GPT3_1p3B, dropout=0.0, use_recompute=True,
+                     recompute_interval=1, loss_chunk=128)
+    a = {"held": held is not None}
+    if held is None:  # [22c]'s step and gathered save, taken again
+        hcg = rank_init({"mp_degree": 2})
+        model = GPTForCausalLM(
+            tcfg, device="cuda", dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+        model.train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                    multi_precision=True, moment_dtype="bfloat16")
+        mp_step = fleet.make_sharded_train_step(model, opt,
+                                                mesh=hcg.get_mesh())
+        g = torch.Generator(device="cuda").manual_seed(seed + 19)
+        xt = torch.randint(0, tcfg.vocab_size, (TP_B, TP_S), generator=g,
+                           device="cuda")
+        for _ in range(MX_SAVE_STEPS):
+            mp_step(xt, torch.roll(xt, -1, dims=1))
+        t0 = time.perf_counter()
+        saved = gathered_state(mp_step).to_tree()
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        mgr = CheckpointManager(directory / "gathered")
+        mgr.save(MX_SAVE_STEPS, saved)
+        mgr.wait_until_finished()
+        held = {"step": mp_step, "gathered": directory / "gathered",
+                "gather_s": gather_s,
+                "save_s": time.perf_counter() - t0 - gather_s,
+                "bytes": mgr.manifest(MX_SAVE_STEPS)["bytes_written"]}
+        mgr.close()
+        del saved, model, opt
+        hcg2 = rank_init({"sharding_degree": 2})
+        model2 = GPTForCausalLM(tcfg, device="cuda", dtype=torch.bfloat16)
+        model2.train()
+        opt2 = AdamW(learning_rate=1e-4, parameters=model2.named_parameters(),
+                     multi_precision=True, moment_dtype="bfloat16")
+        model2, opt2, _ = group_sharded_parallel(model2, opt2,
+                                                 level="p_g_os")
+        held["z3"] = fleet.make_sharded_train_step(model2, opt2,
+                                                   mesh=hcg2.get_mesh())
+    mp_step, z3, gathered_dir = held["step"], held["z3"], held["gathered"]
+    # [22c]'s restores of its gathered save, whole on rank 0 and onto the
+    # stage-3 step (None when it did not run in this process: read below)
+    held_whole, held_files = held.get("whole"), held.get("files")
+    a.update(gather_s=held["gather_s"], gathered_save_s=held["save_s"],
+             gathered_bytes=held["bytes"])
+    mgr = CheckpointManager(directory / "sharded")
+    mgr_g = CheckpointManager(gathered_dir)
+    torch.cuda.synchronize()
+    with DistCalls() as calls:
+        t0 = time.perf_counter()
+        tree = mp_step.state_for_checkpoint().to_tree()
+        mgr.save(MX_SAVE_STEPS, tree)
+        a["blocking_s"] = time.perf_counter() - t0
+        mgr.wait_until_finished()
+        a["total_s"] = time.perf_counter() - t0
+    a["collectives"] = calls.calls
+    a["bytes"] = mgr.last_save["bytes"]
+    leaves = [v for part in ("params", "opt_state")
+              for v in ck_arrays.flatten_tree(tree[part]).values()]
+    a["sharded"] = sum(isinstance(v, rs.ShardedTensor) for v in leaves)
+    a["block_bytes"] = sum(tensor_bytes([v.block]) for v in leaves
+                           if isinstance(v, rs.ShardedTensor))
+    a["whole_bytes"] = sum(
+        tensor_bytes([torch.as_tensor(np.asarray(v))
+                      if not torch.is_tensor(v) else v])
+        for v in leaves if not isinstance(v, rs.ShardedTensor)
+        and v is not None and not isinstance(v, (int, float, str)))
+    del tree, leaves
+    HELD.pop("mx", None)
+    del held
+    mp_step = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def flat(tree):
+        return {k: v for k, v in ck_arrays.flatten_tree(tree).items()
+                if torch.is_tensor(v) or isinstance(v, rs.ShardedTensor)}
+
+    def bits(v):
+        v = v.block if isinstance(v, rs.ShardedTensor) else v
+        return v.cpu().contiguous().view(torch.uint8) if v.dim() else \
+            v.cpu().reshape(1).view(torch.uint8)
+
+    # rank 0 restores both saves whole, as one process does
+    if rank == 0:
+        t0 = time.perf_counter()
+        mine = flat(mgr.restore())
+        a["whole_s"] = time.perf_counter() - t0
+        theirs = flat(held_whole if held_whole is not None
+                      else mgr_g.restore())
+        del held_whole
+        a["whole_leaves"] = len(mine)
+        a["whole_differ"] = sorted(k for k in theirs if k not in mine
+                                   or not torch.equal(bits(mine[k]),
+                                                      bits(theirs[k])))[:8]
+        del mine, theirs
+        gc.collect()
+    dist.barrier()
+    # each rank's blocks onto the stage-3 step's placements, from both
+    # saves' byte ranges
+    shardings = z3.checkpoint_shardings()
+    mgr.validate_on_restore = mgr_g.validate_on_restore = False
+    ck_arrays.reset_read_stats()
+    t0 = time.perf_counter()
+    mine = mgr.restore(shardings=shardings)
+    a["z3_s"] = time.perf_counter() - t0
+    a["z3_read"] = ck_arrays.read_stats()
+    theirs = flat(held_files if held_files is not None
+                  else mgr_g.restore(shardings=shardings))
+    del held_files
+    fm = flat(mine)
+    a["z3_leaves"] = len(fm)
+    a["z3_differ"] = sorted(k for k in theirs if k not in fm
+                            or not torch.equal(bits(fm[k]), bits(theirs[k])))
+    del theirs, fm
+    z3.restore_from_checkpoint(mine)
+    del mine
+    mgr.close()
+    mgr_g.close()
+    dist.barrier()
+    if rank == 0:  # two 13.2 GB saves do not stay on the disk
+        shutil.rmtree(directory / "sharded", ignore_errors=True)
+        shutil.rmtree(gathered_dir, ignore_errors=True)
+    rec["save"] = a
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"]["23a"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+
+    # [23b]: the 1.3B at mp 2 served, the weights from the stage-3 step
+    hcg = rank_init({"mp_degree": 2})
+    model = GPTForCausalLM(scfg, device="cuda", dtype=torch.bfloat16)
+    eng = Engine(model, EngineConfig(max_batch_size=SPLIT_SLOTS,
+                                     max_seq_len=SPLIT_SMAX), device="cuda")
+    b = {"captured": eng.captured, "heads": model.gpt.layers[0].attn.num_heads,
+         "kv_bytes": eng.cache.nbytes,
+         "param_bytes": tensor_bytes(model.parameters())}
+    live = z3.live_state()["params"]
+    rs.reset_stats()
+    torch.cuda.synchronize()
+    dist.barrier()  # both ranks start the move's clock together
+    t0 = time.perf_counter()
+    eng.load_weights(live, shardings=eng.shardings())
+    torch.cuda.synchronize()
+    b["load_s"] = time.perf_counter() - t0
+    st = rs.stats()
+    got = torch.tensor([st["bytes_received"]], device="cuda",
+                       dtype=torch.float64)
+    dist.all_reduce(got)
+    b.update(received=st["bytes_received"], received_all=int(got.item()),
+             wire=st["bytes_wire"], naive=st["bytes_naive"],
+             plans=st["plans"], assembled=st["assembled"])
+    whole = rs.gather_tree(live)  # explicit: rank 0's one process
+    del live, z3
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm, lengths, prompts = served_prompts(
+        torch.Generator().manual_seed(seed), scfg.vocab_size)
+    buckets = sorted({eng._bucket(n) for n in [len(warm)] + lengths})
+    eng.generate([warm * (T // len(warm)) for T in buckets],
+                 SamplingParams(max_new_tokens=4))
+    sp = SamplingParams(max_new_tokens=32)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, sp) for p in prompts]
+    while eng.has_unfinished:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [r.output_ids for r in reqs]
+    ttft, tpot = request_latencies(reqs)
+    b.update(tokens=outs, wall_s=wall, ttft_ms=ttft, tpot_ms=tpot,
+             tokens_per_s=sum(map(len, outs)) / wall,
+             captures=sum(s.captures for s in eng.steps.values()),
+             eager=sum(s.eager_steps for s in eng.steps.values()),
+             launches=K.launch_counts(),
+             routes={"flash": dict(K.flash_attention_fwd.route_launches),
+                     "paged": dict(K.paged_attention.route_launches)})
+    # collectives of a decode step with every slot live: 8 requests
+    # admitted by one step, then 8 decode steps timed
+    for p in prompts[:SPLIT_SLOTS]:
+        eng.add_request(p[:128], SamplingParams(max_new_tokens=10))
+    eng.step()
+    tally, restore = count_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        eng.step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 8
+    restore()
+    b.update(decode_step_ms=step_s * 1e3, decode_collectives=tally["calls"] / 8,
+             decode_collective_ms=tally["seconds"] / 8 * 1e3)
+    while eng.has_unfinished:
+        eng.step()
+    # the profiler on one step that prefills a request and decodes it
+    eng.add_request(prompts[1], SamplingParams(max_new_tokens=3))
+    K.reset_launch_counts()
+    kernels = profile_launches(eng.step)
+    b["profiled"] = launches_of(kernels, (
+        FWD_SYMBOL, FP32_FWD_SYMBOL, NORM_SYMBOLS["fwd"],
+        *PAGED_SYMBOLS.values()))
+    b["profiled_wrappers"] = K.launch_counts()
+    b["profiled_routes"] = {
+        "flash": dict(K.flash_attention_fwd.route_launches),
+        "paged": dict(K.paged_attention.route_launches)}
+    while eng.has_unfinished:
+        eng.step()
+    # the first request's prefill logits, split, and on rank 0 whole
+    n0 = len(prompts[0])
+    ids = torch.tensor([prompts[0]], device="cuda")
+    with torch.no_grad():
+        split_logits = model.prefill_with_cache(ids)[0].float()
+    if rank == 0:
+        one.load_state_dict(whole)
+        one.eval()
+        with torch.no_grad():
+            want = one.prefill_with_cache(ids)[0].float()
+        b["logit_err"] = float((split_logits - want).abs().max())
+        b["logit_scale"] = float(want.abs().max())
+        b["argmax_equal"] = int(split_logits.argmax()) == int(want.argmax())
+        one_eng = Engine(one, EngineConfig(max_batch_size=SPLIT_SLOTS,
+                                           max_seq_len=SPLIT_SMAX),
+                         device="cuda")
+        one_outs = one_eng.generate(prompts, sp)
+        b["one_kv_bytes"] = one_eng.cache.nbytes
+        b["one_param_bytes"] = tensor_bytes(one.parameters())
+        b["equal_share"] = sum(x == y for o, w in zip(outs, one_outs)
+                               for x, y in zip(o, w)) / sum(map(len, outs))
+        del one_eng
+    del one, whole
+    b["n0"] = n0
+    rec["serve"] = b
+    dist.barrier()
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"]["23b"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+
+    # [23c]: depth 2, fp32, at mp 2 and at ep 2
+    rank_init({"mp_degree": 2})
+    rec["d2_mp"] = d2_split(d2["mp"], d2_whole["mp"], d2_prompts["mp"],
+                            directory, "mp")
+    hcg = rank_init({"ep_degree": 2})
+    rec["d2_ep"] = d2_split(d2["ep"], d2_whole["ep"], d2_prompts["ep"],
+                            directory, "ep")
+    rec["seconds"]["23c"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+
+    # [23d]: a MoELayer's experts under grad_reduce at ep 2
+    rec["layer"] = moe_layer_reduce(seed, hcg, rank)
+    rec["seconds"]["23d"] = time.perf_counter() - t_sub
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def split4_worker(directory: Path, seed: int) -> int:
+    """One rank of [23c]'s four ranks, chained after [22a]'s in their
+    launch: config 5's width at depth 2 in fp32 at ep 2 x mp 2 through
+    ``d2_split`` (the one process's tokens are the two-rank chain's)."""
+    import os
+
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    cfg = ep_config(num_layers=2)
+    whole = ep_weights(seed + 23, cfg, torch.float32)
+    rank_init({"ep_degree": 2, "mp_degree": 2})
+    rec = {"rank": rank, "d2_ep_mp": d2_split(
+        cfg, whole, split_prompts(seed, cfg.vocab_size), directory, "epmp")}
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def split_ranks(K, seed: int, rows):
+    """[23] (see ``split_worker`` and ``split4_worker``): [23a] the
+    sharded save against [22c]'s gathered one; [23b] the 1.3B served at
+    mp 2 against [4]'s one process; [23c] depth 2 at mp 2, ep 2 and ep 2 x
+    mp 2 against one process on the card; [23d] the MoELayer's reductions
+    against their CPU repeat."""
+    t_phase = time.perf_counter()
+    smi = f"{nvidia_smi_line()}, {torch.cuda.device_count()} card(s)"
+    work, work4 = CHAINED["--split-worker"], CHAINED["--split4-worker"]
+    try:
+        recs = chained_records("--split-worker",
+                               "[23] serving a split model and the sharded "
+                               "save: two ranks on one card")
+        recs4 = chained_records("--split4-worker",
+                                "[23c] ep 2 x mp 2: four ranks on one card",
+                                nproc=4)
+        print(f"    [23] seconds in the two ranks' sub-phases "
+              f"{ {k: round(v, 1) for k, v in recs[0]['seconds'].items()} }",
+              flush=True)
+        # [23a]: the sharded save
+        total = sum(r["save"]["bytes"] for r in recs)
+        for r in recs:
+            a = r["save"]
+            want = a["block_bytes"] + (a["whole_bytes"] if r["rank"] == 0
+                                       else 0)
+            print(f"    [23a] rank {r['rank']}: [22c]'s mp-2 step "
+                  f"({'held from [22c]' if a['held'] else 'taken again'}) "
+                  f"saved sharded: {len(a['collectives'])} tensor "
+                  f"collectives; {a['bytes'] / 1e9:.4f} GB written against "
+                  f"its replica-0 blocks' {want / 1e9:.4f} GB "
+                  f"({a['sharded']} sharded leaves); blocking "
+                  f"{a['blocking_s']:.2f} s, total {a['total_s']:.2f} s, "
+                  f"against [22c]'s gather {a['gather_s']:.2f} s and write "
+                  f"{a['gathered_save_s']:.2f} s; its blocks onto sharding 2 "
+                  f"at p_g_os read in {a['z3_s']:.2f} s "
+                  f"({a['z3_read']['bytes'] / 1e9:.4f} GB), "
+                  f"{len(a['z3_differ'])} of {a['z3_leaves']} leaves "
+                  f"differing from [22c]'s save's ({smi})", flush=True)
+            check(not a["collectives"] and a["bytes"] == want
+                  and a["sharded"] > 0 and not a["z3_differ"]
+                  and a["z3_leaves"] > 0, f"[23a] rank {r['rank']}: "
+                  f"{ {k: v for k, v in a.items() if k != 'z3_read'} }")
+        a0 = recs[0]["save"]
+        print(f"    [23a] both ranks wrote {total / 1e9:.4f} GB, [22c]'s "
+              f"gathered save {a0['gathered_bytes'] / 1e9:.4f} GB; rank 0's "
+              f"whole restore ({a0['whole_s']:.2f} s): "
+              f"{len(a0['whole_differ'])} of {a0['whole_leaves']} leaves "
+              f"differing from [22c]'s ({smi})", flush=True)
+        check(total == a0["gathered_bytes"] and not a0["whole_differ"]
+              and a0["whole_leaves"] > 0,
+              f"[23a]: {total} bytes against {a0['gathered_bytes']}; "
+              f"differing {a0['whole_differ']}")
+
+        # [23b]: the 1.3B served at mp 2
+        from paddle_tpu_torch.models.gpt import GPT3_1p3B
+
+        L = GPT3_1p3B["num_layers"]
+        b0 = recs[0]["serve"]
+        for r in recs:
+            b = r["serve"]
+            want = {FWD_SYMBOL: L, FP32_FWD_SYMBOL: 0,
+                    NORM_SYMBOLS["fwd"]: 2 * (2 * L + 1),
+                    **{s: L for s in PAGED_SYMBOLS.values()}}
+            pr = b["profiled_routes"]
+            print(f"    [23b] rank {r['rank']}: weights moved from the "
+                  f"stage-3 step's blocks in {b['load_s']:.2f} s: "
+                  f"{b['plans']} plans, received {b['received'] / 1e9:.4f} "
+                  f"GB here, {b['received_all'] / 1e9:.4f} GB over both "
+                  f"ranks against bytes_wire {b['wire'] / 1e9:.4f} GB "
+                  f"(bytes_naive {b['naive'] / 1e9:.4f} GB); gathered and "
+                  f"sliced {b['assembled']} ({smi})", flush=True)
+            print(f"    [23b] rank {r['rank']}: 16 requests in "
+                  f"{b['wall_s']:.2f} s = {b['tokens_per_s']:.1f} tokens/s, "
+                  f"TTFT p50 {b['ttft_ms']:.1f} ms, TPOT p50 "
+                  f"{b['tpot_ms']:.2f} ms (one process in [4]: "
+                  f"{SERVED.get('summary', 'not run')}); captures "
+                  f"{b['captures']}, eager steps {b['eager']}; a decode step "
+                  f"with 8 slots live {b['decode_step_ms']:.1f} ms, "
+                  f"{b['decode_collectives']:.0f} collectives in "
+                  f"{b['decode_collective_ms']:.1f} ms of it "
+                  f"({b['decode_collective_ms'] / b['decode_step_ms']:.0%});"
+                  f" KV cache {b['kv_bytes'] / 2**30:.3f} GiB and "
+                  f"parameters {b['param_bytes'] / 2**30:.3f} GiB a rank "
+                  f"({smi})", flush=True)
+            print(f"    [23b] rank {r['rank']}: one step that prefills a "
+                  f"request and decodes it (profiler): {b['profiled']}; "
+                  f"routes {pr}; query heads a rank {b['heads']}",
+                  flush=True)
+            check(b["received_all"] == b["wire"] > 0
+                  and b["assembled"] == 0 and not b["captured"]
+                  and b["captures"] == 0 and b["eager"] > 0
+                  and b["tokens"] == b0["tokens"]
+                  and all(len(o) == 32 for o in b["tokens"])
+                  and b["profiled"] == want and b["heads"] == 8
+                  and pr["flash"].get("wgmma", 0) == L
+                  and sum(pr["flash"].values()) == L
+                  and pr["paged"].get("vector", 0) == L
+                  and sum(pr["paged"].values()) == L
+                  and b["routes"]["flash"].get("wgmma", 0)
+                  == sum(b["routes"]["flash"].values()) > 0
+                  and b["routes"]["paged"].get("vector", 0)
+                  == sum(b["routes"]["paged"].values()) > 0,
+                  f"[23b] rank {r['rank']}: "
+                  f"{ {k: v for k, v in b.items() if k != 'tokens'} }")
+        print(f"    [23b] rank 0's one process on the same weights: the "
+              f"first request's prefill logits ({b0['n0']} tokens) within "
+              f"{b0['logit_err']:.3e} of the split engine's (bound "
+              f"{SPLIT_LOGIT_TOL:g} x {b0['logit_scale']:.3f}), argmax "
+              f"equal {b0['argmax_equal']}; greedy tokens equal "
+              f"{b0['equal_share']:.1%} over all 16 requests; KV cache "
+              f"{b0['one_kv_bytes'] / 2**30:.3f} GiB and parameters "
+              f"{b0['one_param_bytes'] / 2**30:.3f} GiB in one process "
+              f"({smi})", flush=True)
+        check(b0["logit_err"] <= SPLIT_LOGIT_TOL * b0["logit_scale"]
+              and 2 * b0["kv_bytes"] == b0["one_kv_bytes"]
+              and b0["param_bytes"] < b0["one_param_bytes"],
+              f"[23b] against one process: {b0['logit_err']}, "
+              f"{b0['kv_bytes']}, {b0['param_bytes']}")
+        for name in SERVING_KERNELS:
+            rows[name]["launches_split"] = b0["launches"].get(name, 0)
+
+        # [23c]: depth 2, fp32, against one process on the card
+        for tag, rs_, key in (("mp", recs, "d2_mp"), ("ep", recs, "d2_ep"),
+                              ("ep", recs4, "d2_ep_mp")):
+            one = recs[0]["d2_one"][tag]
+            first = rs_[0][key]
+            for r in rs_:
+                d = r[key]
+                same = {k: d[k]["tokens"] == one[k]["tokens"]
+                        for k in ("spec", "dense")}
+                same["generate"] = d["generate"] == one["generate"]
+                print(f"    [23c] {key} rank {r['rank']}: greedy tokens "
+                      f"equal to one process on the card {same}; prefix "
+                      f"hits {d['spec']['hits']}, drafts accepted "
+                      f"{d['spec']['accepted']}; sampled equal to rank 0's "
+                      f"{d['sampled']['tokens'] == first['sampled']['tokens']}"
+                      f"; captures {d['spec']['captures']}, eager steps "
+                      f"{d['spec']['eager']}; the sharded save "
+                      f"{d['save_bytes'] / 1e6:.1f} MB with "
+                      f"{d['save_collectives']} collectives; K/V heads a rank"
+                      f" {d['kv_heads']}", flush=True)
+                check(all(same.values())
+                      and d["sampled"]["tokens"] == first["sampled"]["tokens"]
+                      and d["generate_sampled"] == first["generate_sampled"]
+                      and d["spec"]["slots"] == first["spec"]["slots"]
+                      and d["spec"]["captures"] == 0 and d["spec"]["eager"] > 0
+                      and d["save_collectives"] == 0,
+                      f"[23c] {key} rank {r['rank']}: {same}")
+
+        # [23d]: the MoELayer's reductions against their CPU repeat
+        for mode in ("fp32", "int8"):
+            for r in recs:
+                g = r["layer"][mode]
+                cc = g["cpu_check"]
+                tol = 2.0 ** -20 * cc["input_max_abs"]
+                print(f"    [23d] {mode}, rank {r['rank']}: losses "
+                      f"{g['losses']}; {g['reduced']} expert parameters "
+                      f"reduced under their global names; step "
+                      f"{MX_CHECK_STEP}'s reduction on the CPU: "
+                      + "; ".join(f"{p} {cc[p]['differ']} of {cc[p]['of']} "
+                                  f"entries differ (largest "
+                                  f"{cc[p]['max_abs_err']:.3e})"
+                                  for p in ("grads", "residuals"))
+                      + f" (residual tol {tol:.3e}) ({smi})", flush=True)
+                check(g["losses"] == recs[0]["layer"][mode]["losses"]
+                      and g["reduced"] == 32 and cc["grads"]["differ"] == 0
+                      and cc["grads"]["max_abs"] > 0
+                      and cc["residuals"]["max_abs_err"] <= tol
+                      and g["launches"]["fused_adamw_multi"] == EP_STEPS
+                      and all(math.isfinite(v) for v in g["losses"]),
+                      f"[23d] {mode} rank {r['rank']}: {g}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(work4, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"    phase 23 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6525,6 +7321,17 @@ def main() -> int:
                     help="run as one rank of phase 22a's ep 2 x mp 2 (the "
                     "port's launcher starts four), writing its results into "
                     "DIR")
+    ap.add_argument("--split-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 23 (the port's launcher "
+                    "starts two), writing its results into DIR")
+    ap.add_argument("--split4-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 23c's ep 2 x mp 2 (the "
+                    "port's launcher starts four), writing its results into "
+                    "DIR")
+    ap.add_argument("--split-of", metavar="DIR", type=Path,
+                    help="only build and run phase 23 (its workers take "
+                    "[22c]'s step and gathered save themselves) with the "
+                    "package in DIR, and exit")
     ap.add_argument("--mx-of", metavar="DIR", type=Path,
                     help="only build and run phase 22 (with [21a]'s one "
                     "process, its reference) with the package in DIR, and "
@@ -6556,7 +7363,7 @@ def main() -> int:
         return 2
     repo = (args.paged_shapes_of or args.train_of or args.moe_of
             or args.mp_of or args.zero3_of or args.ep_of or args.mx_of
-            or Path(__file__).parent).resolve()
+            or args.split_of or Path(__file__).parent).resolve()
     if not (repo / "paddle_tpu_torch" / "__init__.py").exists():
         print(f"chip_smoke: no paddle_tpu_torch package in {repo}",
               file=sys.stderr)
@@ -6579,6 +7386,7 @@ def main() -> int:
             globals()[name](directory, args.seed)
             gc.collect()  # the next phase starts with the card's memory free
             torch.cuda.empty_cache()
+        HELD.clear()
         dist.barrier()  # no rank leaves while a peer's receive is in flight
         dist.destroy_process_group()
         return 0
@@ -6672,6 +7480,23 @@ def main() -> int:
                      "[22a]: four ranks on one card")
         cfg_ep, ref_ep = ep_reference(args.seed)
         mx_ranks(K, args.seed, rows, cfg_ep, ref_ep, float("nan"))
+        print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.split_of:
+        from paddle_tpu_torch import kernels as K
+        from paddle_tpu_torch.kernels import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[1] device: {nvidia_smi_line()}; serving a split model and "
+              f"the sharded save of {repo}", flush=True)
+        print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
+        rows = {name: {} for name in ALL_KERNELS}
+        launch_chain(["--split-worker"], args.seed, 2,
+                     "[23]: two ranks on one card")
+        launch_chain(["--split4-worker"], args.seed, 4,
+                     "[23c]: four ranks on one card")
+        split_ranks(K, args.seed, rows)
         print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.train_of:
@@ -6788,12 +7613,7 @@ def main() -> int:
           f"{eng.cache.nbytes / 2**30:.2f} GiB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = torch.Generator().manual_seed(args.seed)
-    warm = torch.randint(0, cfg.vocab_size, (64,), generator=rng).tolist()
-    lengths = [128 if i % 2 == 0 else
-               int(torch.randint(300, 701, (1,), generator=rng))
-               for i in range(16)]
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
-               for n in lengths]
+    warm, lengths, prompts = served_prompts(rng, cfg.vocab_size)
     sp = SamplingParams(max_new_tokens=32)
 
     def serve():
@@ -6894,6 +7714,9 @@ def main() -> int:
     print(f"    TTFT p50 {ttft:.1f} ms, TPOT p50 {tpot:.2f} ms, max memory "
           f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"captures per program {captures}", flush=True)
+    SERVED["summary"] = (f"{n_tok / wall:.1f} tokens/s, TTFT p50 {ttft:.1f} "
+                         f"ms, TPOT p50 {tpot:.2f} ms, KV cache "
+                         f"{eng.cache.nbytes / 2**30:.3f} GiB")
     check(set(captures) == {"decode", *(f"prefill:{T}" for T in buckets)}
           and set(captures.values()) == {1}, f"[4]: captures {captures}")
     check(all(counts[k] > 0 for k in SERVING_KERNELS),
@@ -7014,10 +7837,12 @@ def main() -> int:
     # its ranks' records
     launch_chain(["--dp-worker", "--tp-worker", "--zero-worker",
                   "--z3-worker", "--reduce-worker", "--ep-worker",
-                  "--mx-worker"], args.seed, 2,
-                 "[18b]-[22]: two ranks on one card, every phase's worker")
-    launch_chain(["--ep4-worker", "--mx4-worker"], args.seed, 4,
-                 "[21b], [22a]: four ranks on one card, both workers")
+                  "--mx-worker", "--split-worker"], args.seed, 2,
+                 "[18b]-[23]: two ranks on one card, every phase's worker")
+    launch_chain(["--ep4-worker", "--mx4-worker", "--split4-worker"],
+                 args.seed, 4,
+                 "[21b], [22a], [23c]: four ranks on one card, every "
+                 "phase's worker")
     ref = dp_two_ranks(K, args.seed, rows)
 
     # ---- 19. tensor parallelism and ZeRO, two ranks on the card
@@ -7037,6 +7862,10 @@ def main() -> int:
 
     # ---- 22. GPT-MoE at mp and at ep x mp, grad_reduce at ep, resharding
     mx_ranks(K, args.seed, rows, cfg_ep, ref_ep, step16_s)
+
+    # ---- 23. serving a split model and the sharded save; grad_reduce over
+    #      a MoELayer's experts at ep
+    split_ranks(K, args.seed, rows)
 
     # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -6,8 +6,16 @@ restores what the other wrote: ``manifest.json`` (``format``
 ``sharding`` and per-shard file, offset, shape, CRC32 and byte count; the
 tree's structure with array leaves as ``{"__array__": path}`` markers and
 JSON scalars inline) and one raw ``.bin`` per shard, named by the leaf's
-path and its shard's offsets. Each tensor is one shard at offset zero and
-``sharding`` is null.
+path and its shard's offsets. A tensor is one shard at offset zero and
+``sharding`` is null; a ``resharding.ShardedTensor`` (a rank's block and
+its ``NamedSharding``) is written as the JAX package writes a sharded
+``jax.Array``: each rank writes the blocks it holds as replica 0 (the
+rank at coordinate 0 of every mesh axis the placement does not split),
+one file per box at its global offsets, and ``sharding`` is the JAX
+package's description of the placement (mesh axes, mesh shape, spec). A
+segmented dimension (the qkv projection's q | k | v under mp) gives one
+box per segment, each a box of the global array, so the JAX reader
+assembles them by their offsets as it assembles its own.
 
 Leaves are ``torch.Tensor`` (on any device: snapshotted to the host),
 numpy arrays or scalars, or JSON scalars (int, float, str, bool, None) in
@@ -18,10 +26,11 @@ under the name the JAX package's ``ml_dtypes`` arrays carry, so the bytes
 are the same on both sides. Restored arrays come back as CPU tensors
 (``torch.frombuffer`` over the validated bytes), whatever their dtype.
 
-Across the ranks of a job every array is saved whole, and the JAX
-package's replica-0 rule applies: rank 0 writes every shard, the other
-ranks none (their manifests list each array with no shards), and
-``merge_manifests`` unions the per-rank manifests.
+Across the ranks of a job the JAX package's replica-0 rule applies: a
+whole array is written by rank 0 alone (the other ranks' manifests list
+it with no shards), a sharded one by its replica-0 holders, each its own
+boxes, and ``merge_manifests`` unions the per-rank manifests. Nothing is
+gathered: a save makes no collective of its own.
 
 A restore gives each array whole unless ``shardings`` places it: then
 each rank gets its block of the placement as a ``ShardedTensor`` (the
@@ -126,7 +135,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _is_array_leaf(v) -> bool:
-    return isinstance(v, (torch.Tensor, np.ndarray, np.generic))
+    from ..distributed.resharding import ShardedTensor
+
+    return isinstance(v, (torch.Tensor, np.ndarray, np.generic,
+                          ShardedTensor))
 
 
 def flatten_tree(state) -> Dict[str, Any]:
@@ -191,14 +203,67 @@ def _file_name(path: str, offsets) -> str:
     return f"{base}.o{'_'.join(str(o) for o in offsets)}.bin"
 
 
+def _sharding_desc(sharding) -> dict:
+    """The JAX package's ``_sharding_desc`` of a ``NamedSharding``."""
+    def ent(e):
+        if e is None:
+            return None
+        return list(e) if isinstance(e, tuple) else e
+
+    return {"mesh_axes": list(sharding.mesh.axis_names),
+            "mesh_shape": [int(d) for d in sharding.mesh.devices.shape],
+            "spec": [ent(e) for e in sharding.spec]}
+
+
+def replica_zero(sharding, rank: int) -> bool:
+    """Whether ``rank`` writes its block of ``sharding``: it is on the
+    mesh, at coordinate 0 of every axis the placement does not split."""
+    from ..distributed.mesh import spec_axes
+
+    flat = [int(r) for r in sharding.mesh.devices.reshape(-1)]
+    if rank not in flat:
+        return False
+    split = set(spec_axes(sharding.spec))
+    return all(c == 0 for a, c in sharding.mesh.coords(rank).items()
+               if a not in split)
+
+
+def _snapshot_sharded(st) -> dict:
+    """``snapshot_array`` of a ``ShardedTensor``: this rank's boxes
+    (``block_pieces``: one per segment of a segmented dimension) at their
+    global offsets, copied to the host, when it is the block's replica
+    0; else none."""
+    from ..distributed.resharding import block_pieces
+
+    if st.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"no checkpoint dtype name for {st.dtype}")
+    sh, rank = st.sharding, _world()[0]
+    shards = []
+    if st.block is not None and replica_zero(sh, rank):
+        flat = [int(r) for r in sh.mesh.devices.reshape(-1)]
+        block = st.block.detach()
+        for gs, ls in block_pieces(st.shape, sh, flat.index(rank)):
+            shards.append(([int(g.start) for g in gs],
+                           block[ls].to("cpu", copy=True).contiguous()))
+    return {"global_shape": [int(d) for d in st.shape],
+            "dtype": _DTYPE_NAMES[st.dtype], "sharding": _sharding_desc(sh),
+            "shards": shards}
+
+
 def snapshot_array(arr) -> dict:
     """Host snapshot of one leaf, the only step-blocking part of a save:
     ``{"global_shape", "dtype", "sharding", "shards": [(offsets, host)]}``
     with ``host`` a CPU tensor (or a numpy array) that the training step
     can no longer change; ``write_snapshot`` writes it later. A CUDA
-    tensor is copied to the host here. The leaf is replicated across the
-    ranks, so only rank 0 snapshots it (the replica-0 rule); the other
-    ranks' snapshots hold no shard."""
+    tensor is copied to the host here. A tensor or array leaf is
+    replicated across the ranks, so only rank 0 snapshots it (the
+    replica-0 rule); the other ranks' snapshots hold no shard. A
+    ``ShardedTensor`` snapshots this rank's boxes where it is the block's
+    replica 0 (``replica_zero``)."""
+    from ..distributed.resharding import ShardedTensor
+
+    if isinstance(arr, ShardedTensor):
+        return _snapshot_sharded(arr)
     first = _world()[0] == 0
     host = None
     if isinstance(arr, torch.Tensor):
@@ -262,9 +327,11 @@ def save_tree(directory: str, state, step: Optional[int] = None,
               manifest_name: str = MANIFEST_NAME) -> dict:
     """Write every array leaf of ``state`` under ``directory`` and return
     the manifest dict, published under ``manifest_name`` unless that is
-    empty (the manager publishes its own, then COMMIT). Across ranks, rank
-    0 writes every file and the manifest; the others write nothing, so
-    they wait on a barrier before they read it."""
+    empty (the manager publishes its own, then COMMIT). Across ranks each
+    rank writes its files (``snapshot_array``'s replica-0 rule); the
+    manifest under the default name is rank 0's alone, and under another
+    name (a per-rank part, which ``merge_manifests`` joins) every
+    rank's."""
     os.makedirs(directory, exist_ok=True)
     leaves = [(path, leaf) for path, leaf in flatten_tree(state).items()
               if _is_array_leaf(leaf)]
@@ -278,7 +345,8 @@ def save_tree(directory: str, state, step: Optional[int] = None,
         "arrays": arrays,
         "bytes_written": total,
     }
-    if manifest_name and _world()[0] == 0:
+    if manifest_name and (_world()[0] == 0
+                          or manifest_name != MANIFEST_NAME):
         write_manifest(directory, manifest, manifest_name)
     return manifest
 

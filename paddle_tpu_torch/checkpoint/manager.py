@@ -24,8 +24,10 @@ restore reads and checks its files on up to 8 threads
 ``keep_last_n`` never deletes the newest committed step.
 
 Across the ranks of a ``torch.distributed`` job every rank constructs the
-manager and saves each step: each writes its files (rank 0 all of them at
-data parallelism, the arrays being replicated) and
+manager and saves each step: each snapshots and writes its files (rank 0
+every whole array; each rank the blocks of the ``ShardedTensor`` leaves
+it holds as replica 0, as a train step's ``state_for_checkpoint()``
+gives them over mp, ZeRO and ep, so no array is gathered) and
 ``manifest.part{r}.json``; after a barrier rank 0 merges the parts into
 the manifest, writes COMMIT and removes the parts; a last barrier ends the
 save on every rank. The barriers run on a gloo group of the manager's own,
@@ -84,7 +86,8 @@ class CheckpointManager:
     checkpoint directory. See the module docstring for the protocol.
 
     ``last_save`` holds the latest save's ``blocking_s`` (the snapshot),
-    and, once written, ``total_s`` and ``bytes``; ``last_restore`` the
+    and, once written, ``total_s`` and ``bytes`` (this rank's bytes
+    written); ``last_restore`` the
     latest restore's ``seconds`` and ``bytes``."""
 
     def __init__(self, directory: str, keep_last_n: Optional[int] = None,

@@ -49,7 +49,7 @@ from ....nn.clip import ClipGradByGlobalNorm
 from ...communication import (ReduceOp, all_reduce, gather_along,
                               gather_blocks, reduce_scatter_blocks)
 from ...mesh import PartitionSpec, spec_axes
-from ...sharding_utils import assemble, local_block
+from ...sharding_utils import local_block
 
 SHARDING_AXIS = "sharding"
 _A8 = "ROADMAP queue A item A8 (the long tail)"
@@ -699,12 +699,6 @@ class ZeroPartition:
         whole tensor."""
         d = self.dims.get(name)
         return t if d is None else local_block(t, d, self.rank, self.n)
-
-    def whole(self, name, blocks):
-        """The tensor of parameter ``name``'s whole shape from every rank's
-        slice."""
-        d = self.dims.get(name)
-        return blocks[0] if d is None else assemble(blocks, d)
 
     def _by_dtype(self, names):
         out = {}

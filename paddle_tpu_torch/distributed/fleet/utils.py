@@ -118,10 +118,15 @@ reduction takes the JAX step's semantics, whose fully-manual region gets
 the parameters whole: each rank routes its own rows alone over the whole
 expert stacks (gathered over ep for the step's own forward only,
 ``GPTMoEMLP.local_ep``), the reducer sums the whole stacks' gradients over
-every data axis, ep included, and each rank keeps its ep slice.
+every data axis, ep included, and each rank keeps its ep slice. A
+``MoELayer(group=)``'s expert modules go the same way
+(``MoELayer.local_ep``): each rank routes its rows over all ``E`` experts,
+their stacked weights gathered over ep, every expert's gradient is
+reduced under its JAX name (``expert_j``, in the JAX package's
+name-sorted buckets) and each rank keeps its own experts'; their experts
+must be same-shaped ``ExpertMLP``s (else ``NotImplementedError``).
 ``moe_dispatch="quant"`` raises there (no ep exchange is left to
-compress; the JAX step fails), and so does a ``MoELayer``'s expert
-modules at ep (A5.4d).
+compress; the JAX step fails).
 
 ``param_specs`` (``{name: PartitionSpec}``) is honoured where the port can
 realise the spec: the layer's own; ``PartitionSpec()`` on the weight of
@@ -129,9 +134,13 @@ an mp linear (the whole weight on every rank: ``replicate_weight``); and a
 ``sharding`` entry on a dimension the degree divides, which places that
 parameter's optimizer state there. Any other spec raises
 ``NotImplementedError`` naming ROADMAP queue A item A7 (autoshard's
-layouts). ``state_for_checkpoint()`` gathers the global arrays in the JAX
-package's layout over mp, ep and sharding (collective: every rank calls
-it). ``checkpoint_shardings()`` gives the step's placements, which
+layouts). ``state_for_checkpoint()`` gives the arrays in the JAX
+package's layout: the live tensor where the step holds one whole, a
+``ShardedTensor`` of the live block and its placement over mp, ep and
+sharding, with nothing gathered (``resharding.gather_tree`` gathers,
+counted, where a caller wants whole arrays), so a ``CheckpointManager``
+save writes each rank's replica-0 blocks. ``checkpoint_shardings()``
+gives the step's placements, which
 ``CheckpointManager.restore`` honours on any mesh (each rank reads its
 blocks, as ``ShardedTensor`` leaves); ``live_state()`` gives the live
 blocks as ``ShardedTensor`` leaves, which ``restore(live_state=)`` moves
@@ -144,9 +153,8 @@ reductions run and change no bit.
 Options of the JAX step that the port has not reached raise
 ``NotImplementedError`` naming their ROADMAP items: a mesh axis of size
 above 1 for pipeline (A5.6) or context (A5.7) parallelism, a batch split
-along another dimension than dim 0 (A5.7), ``grad_reduce`` with a
-``MoELayer``'s expert modules at an ep degree above 1 (A5.4d), the
-pipeline options (A5.6) and ``health_stats`` (A6).
+along another dimension than dim 0 (A5.7), the pipeline options (A5.6)
+and ``health_stats`` (A6).
 None is silently ignored.
 """
 
@@ -165,12 +173,12 @@ from ...optimizer.optimizer import _load_slot
 from ...weights import to_torch
 from ..collective import group_of
 from ..comm_opt import normalize_grad_reduce, reducer_for_step
-from ..communication import ReduceOp, all_reduce, gather_blocks
+from ..communication import ReduceOp, all_reduce
 from ..mesh import (DeviceMesh, NamedSharding, PartitionSpec, device_count,
                     spec_axes)
 from ..parallel import DataParallel, GradBuffers, get_rank, grad_buffers
-from ..sharding_utils import (EP_AXIS, assemble, local_block, resolve_spec,
-                              spec_dim)
+from ..sharding_utils import (EP_AXIS, local_block, placement,
+                              resolve_spec, spec_dim)
 from ..topology import LATER_AXES, get_hybrid_communicate_group
 from .hybrid_parallel_optimizer import hybrid_clip_
 from .meta_parallel.mp_layers import _Linear
@@ -387,16 +395,18 @@ class ShardedTrainStep:
         cfg = self._grad_reduce
         # under the explicit reduction at ep every rank routes its own rows
         # over the whole stacks, whose whole gradients the reducer sums
+        self._whole_experts = {}
         self._whole = self._local_routes() if cfg.active else {}
         if cfg.active:
             self._reducer = reducer_for_step(
                 cfg, mesh, data_axes, {
-                    n: (self._reduced_shape(n, p), p.dtype)
-                    for n, p in self.params.items() if p.requires_grad},
+                    g: (self._reduced_shape(n, p), p.dtype)
+                    for n, p in self.params.items() if p.requires_grad
+                    for g in self._reduced_names(n)},
                 group_fn=lambda axes: self._axis_group(axes, "grad_reduce"))
         red = self._reducer
         if red is None:
-            self._whole = {}
+            self._whole, self._whole_experts = {}, {}
         self.ef_state = red.local_ef(red.init_ef(), self.device) \
             if red is not None else {}
         # with overlap, every accumulation microbatch reduces its own
@@ -473,19 +483,21 @@ class ShardedTrainStep:
         """``{name: (block, key)}`` of the expert stacks whose blocks route
         locally under the explicit reduction at an ep degree above 1 (the
         JAX step's fully-manual region: parameters whole, each device's
-        rows routed alone)."""
+        rows routed alone); and ``_whole_experts``, ``{global name:
+        (layer, key, expert)}`` of a MoELayer's expert parameters there,
+        each reduced under its JAX name from the layer's gathered
+        ``whole_grads[key][expert]``."""
+        from ...incubate.distributed.models.moe.moe_layer import STACK_KEYS
+
         if self._ep.nranks == 1:
             return {}
-        if self._ep_local:
-            raise NotImplementedError(
-                "grad_reduce at ep degree above 1 with a MoELayer's expert "
-                "modules split over ep: the reduction of every rank's "
-                f"experts by their global names is {_ITEM} A5.4d")
         out = {}
         for mname, mod in self.model.named_modules():
             if not hasattr(mod, "whole_grads"):
                 continue
-            if mod.cfg.moe_dispatch == "quant":
+            mode = getattr(mod, "dispatch_mode", None) \
+                or getattr(getattr(mod, "cfg", None), "moe_dispatch", None)
+            if mode == "quant":
                 raise ValueError(
                     "moe_dispatch='quant' with grad_reduce at ep degree "
                     f"{self._ep.nranks}: each rank routes its own rows over "
@@ -493,9 +505,39 @@ class ShardedTrainStep:
                     "left to compress (the JAX step fails at this "
                     "combination: its region hands whole stacks an ep "
                     "rank's dispatch slots); route dense")
+            if isinstance(getattr(mod, "experts", None), list):
+                if not mod.fusable():
+                    raise NotImplementedError(
+                        f"grad_reduce at ep degree {self._ep.nranks} over "
+                        f"MoELayer {mname!r}: its experts run gathered as "
+                        "stacks there, which same-shaped ExpertMLPs alone "
+                        f"make ({_ITEM} A5.4d)")
+                prefix = f"{mname}." if mname else ""
+                n = len(mod.experts)
+                for j in range(n * self._ep.nranks):
+                    for key in STACK_KEYS:
+                        self._whole_experts[f"{prefix}expert_{j}.{key}"] = (
+                            mod, key, j)
+                continue
             for key in ("w1", "b1", "w2", "b2"):
                 out[f"{mname}.{key}"] = (mod, key)
         return out
+
+    def _local_mods(self):
+        """The MoE blocks and layers that route locally in the step's own
+        forward, each once."""
+        mods = [m for m, _ in self._whole.values()] \
+            + [m for m, _, _ in self._whole_experts.values()]
+        return list({id(m): m for m in mods}.values())
+
+    def _reduced_names(self, name):
+        """The names parameter ``name``'s gradient is reduced under: a
+        locally routed MoELayer expert's every ep rank's global name (the
+        reducer takes all ``E`` experts' gradients, as the JAX layer holds
+        them), else ``[name]``."""
+        if self._whole_experts and name in self._ep_local:
+            return self._global_names(name)
+        return [name]
 
     def _reduced_shape(self, name, p):
         """The shape of ``name``'s gradient in the explicit reduction: the
@@ -578,7 +620,7 @@ class ShardedTrainStep:
         """The step's own forward under the explicit reduction at ep: each
         GPT-MoE block routes this rank's rows alone over its whole stacks
         (``GPTMoEMLP.local_ep``), and routes globally again after it."""
-        mods = {id(m): m for m, _ in self._whole.values()}.values()
+        mods = self._local_mods()
         for m in mods:
             m.local_ep = self._ep
         try:
@@ -621,9 +663,9 @@ class ShardedTrainStep:
             for p in self.params.values():
                 if p.grad is not None:
                     p.grad.mul_(inv)
-            for mod, key in self._whole.values():
-                if key in mod.whole_grads:
-                    mod.whole_grads[key].mul_(inv)
+            for mod in self._local_mods():
+                for g in mod.whole_grads.values():
+                    g.mul_(inv)
         return loss * inv
 
     def _whole_grads(self, scale=None):
@@ -636,19 +678,24 @@ class ShardedTrainStep:
         for n, p in self.params.items():
             if not p.requires_grad:
                 continue
-            if n in self._whole:
-                mod, key = self._whole[n]
-                g = mod.whole_grads.get(key)
-            else:
-                g = z3.get(n) if n in self._z3 else p.grad
-            if g is None:
-                g = torch.zeros(self._reduced_shape(n, p), dtype=p.dtype,
-                                device=p.device)
-            out[n] = g
+            for r in self._reduced_names(n):
+                if r in self._whole_experts:
+                    mod, key, j = self._whole_experts[r]
+                    g = mod.whole_grads.get(key)
+                    g = None if g is None else g[j]
+                elif n in self._whole:
+                    mod, key = self._whole[n]
+                    g = mod.whole_grads.get(key)
+                else:
+                    g = z3.get(n) if n in self._z3 else p.grad
+                if g is None:
+                    g = torch.zeros(self._reduced_shape(n, p), dtype=p.dtype,
+                                    device=p.device)
+                out[r] = g
         return out
 
     def _clear_whole(self):
-        for mod, _ in self._whole.values():
+        for mod in self._local_mods():
             mod.whole_grads.clear()
 
     def _inv_scale(self, scale):
@@ -689,6 +736,12 @@ class ShardedTrainStep:
         for n in self._whole:  # this ep rank's experts of the whole stack
             reduced[n] = local_block(reduced[n], 0, self._ep.rank,
                                      self._ep.nranks).contiguous()
+        if self._whole_experts:  # this ep rank's MoELayer experts
+            mine = {n: reduced[self._global_names(n)[self._ep.rank]]
+                    for n in self._ep_local}
+            for g in self._whole_experts:
+                reduced.pop(g, None)
+            reduced.update(mine)
         zero = self._zero
         if zero is not None and zero.stage >= 2:
             zero.take_slices(reduced)
@@ -826,28 +879,32 @@ class ShardedTrainStep:
         return self._step_i
 
     # ---------- checkpointing (paddle_tpu_torch.checkpoint) ----------
-    def _globals(self, name, t, sliced=False):
-        """``{checkpoint name: global array}`` of parameter ``name``'s
-        tensor ``t`` (the parameter, or a state leaf shaped like it,
-        ``sliced`` under ZeRO): gathered over sharding, then over mp or ep;
-        a MoELayer expert's every ep rank's under its global name
-        (collective)."""
-        if sliced:
-            t = self._zero.whole(name, gather_blocks(t, self._sh))
-        p = self.params[name]
-        if self._mp.nranks > 1 and _mp_split(p):
-            t = assemble(gather_blocks(t, self._mp), p.mp_dim,
-                         p.mp_segments)
+    def _leaves(self, name, t, sliced=False):
+        """``{checkpoint name: leaf}`` of parameter ``name``'s tensor ``t``
+        (the parameter, or a state leaf shaped like it, ``sliced`` under
+        ZeRO), with no copy and no collective: ``t`` itself where this
+        step places the array whole on every rank, else a
+        ``ShardedTensor`` of ``t`` and its placement; a MoELayer expert at
+        ep, which one ep rank holds whole, under every ep rank's global
+        name, each placed whole on the ranks of that ep rank (the block
+        None on the others)."""
+        from ..resharding import ShardedTensor
+
         if name in self._ep_local:
-            return dict(zip(self._global_names(name),
-                            gather_blocks(t.contiguous(), self._ep)))
-        if name in self._experts:
-            t = torch.cat(gather_blocks(t.contiguous(), self._ep))
-        return {name: t}
+            devs = self.mesh.devices
+            ax = self.mesh.axis_names.index(EP_AXIS)
+            names = [a for a in self.mesh.axis_names if a != EP_AXIS]
+            me = self._ep.rank
+            return {g: ShardedTensor(
+                t if r == me else None,
+                NamedSharding(DeviceMesh(np.take(devs, r, axis=ax), names),
+                              PartitionSpec()), t.shape, t.dtype)
+                for r, g in enumerate(self._global_names(name))}
+        where = self._placement(name, sliced)
+        return {name: t if where.is_replicated else ShardedTensor(t, where)}
 
     def _local(self, name, t, sliced=False):
-        """This rank's block of the global array ``t`` (the inverse of
-        ``_global``)."""
+        """This rank's block of the global array ``t``."""
         p = self.params[name]
         if self._mp.nranks > 1 and _mp_split(p):
             t = local_block(t, p.mp_dim, self._mp.rank, self._mp.nranks,
@@ -885,10 +942,10 @@ class ShardedTrainStep:
         with torch.no_grad():
             params = {}
             for n, p in self.params.items():
-                params.update(self._globals(n, p.detach(), n in self._z3))
+                params.update(self._leaves(n, p.detach(), n in self._z3))
             opt_state = {}
             for n, s in self.optimizer.state.items():
-                slots = {k: self._globals(n, v, self._sliced(n))
+                slots = {k: self._leaves(n, v, self._sliced(n))
                          if isinstance(v, torch.Tensor) else None
                          for k, v in s.items()}
                 for g in self._global_names(n):
@@ -908,20 +965,13 @@ class ShardedTrainStep:
         return dict(self.mesh.shape)
 
     def _placement(self, name, sliced):
-        p = self.params[name]
         if name in self._ep_local:  # a whole expert on one ep rank
             return NamedSharding(self.mesh, PartitionSpec())
-        spec = list(resolve_spec(getattr(p, "dist_spec", None), self.mesh))
+        extra = None
         if sliced:
             d = self._zero.dims[name]
-            spec += [None] * (d + 1 - len(spec))
-            spec[d] = SHARDING_AXIS
-        segments = {p.mp_dim: p.mp_segments} \
-            if self._mp.nranks > 1 and _mp_split(p) and p.mp_segments \
-            else None
-        return NamedSharding(self.mesh, resolve_spec(PartitionSpec(*spec),
-                                                     self.mesh),
-                             segments=segments)
+            extra = [None] * d + [SHARDING_AXIS]
+        return placement(self.params[name], self.mesh, extra)
 
     def checkpoint_shardings(self):
         """Placements aligned with ``state_for_checkpoint().to_tree()``'s
@@ -980,8 +1030,12 @@ class ShardedTrainStep:
 
         want = self._placement(name, sliced)
         if isinstance(v, ShardedTensor):
-            return v.block if v.sharding == want else \
-                reshard(v, want).block
+            if v.sharding == want:
+                return v.block
+            if v.sharding.is_replicated and v.block is not None:
+                # whole on its ranks (a MoELayer expert's ep rank)
+                return self._local(name, v.block, sliced)
+            return reshard(v, want).block
         t = _as_tensor(v)
         whole = ShardedTensor(live, want).shape
         if tuple(t.shape) != whole:

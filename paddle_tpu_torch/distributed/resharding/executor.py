@@ -43,12 +43,17 @@ global array assembled, this rank's destination block cut from it.
 ``plan_for`` raises ``Unplannable`` for it, which the checkpoint's live
 restore answers with file reads, as the JAX package's does.
 
+``gather`` (and ``gather_tree`` over a tree) is the explicit way to the
+whole array: every rank's block all-gathered over the world and
+assembled on every rank, counted in ``stats()["gathered"]``. Nothing
+else in the port turns a block into the whole array.
+
 ``stats()`` holds this rank's counters since ``reset_stats()``: the plans
 run and their steps, the bytes this rank received from other ranks
 (summed over the ranks they equal the plans' ``bytes_wire``), the plans'
 ``bytes_wire`` and ``bytes_naive`` (totals over all ranks, counted once
-per plan on each rank), the seconds spent, and the assembled leaves with
-the bytes they received.
+per plan on each rank), the seconds spent, the assembled leaves with
+the bytes they received, and the explicit gathers with theirs.
 """
 
 from __future__ import annotations
@@ -69,8 +74,9 @@ from .planner import ReshardPlan, plan_reshard
 from .spec import MeshSpec, ShardingSpec, Unplannable, shard_index_map
 
 __all__ = ["ShardedTensor", "SegmentedPlan", "from_named_sharding",
-           "plan_for", "reshard", "reshard_tree", "block_pieces", "block_of",
-           "clear_caches", "stats", "reset_stats"]
+           "plan_for", "reshard", "reshard_tree", "gather", "gather_tree",
+           "block_pieces", "block_of", "clear_caches", "stats",
+           "reset_stats"]
 
 _plan_cache: Dict[Tuple, object] = {}
 _group_cache: Dict[Tuple, object] = {}
@@ -81,7 +87,8 @@ def reset_stats():
     _STATS.clear()
     _STATS.update(plans=0, steps=0, bytes_received=0, bytes_wire=0,
                   bytes_naive=0, seconds=0.0, assembled=0,
-                  assembled_bytes_received=0, reasons={})
+                  assembled_bytes_received=0, gathered=0,
+                  gathered_bytes_received=0, reasons={})
 
 
 reset_stats()
@@ -101,20 +108,23 @@ class ShardedTensor:
     """This rank's ``block`` of a global array that ``sharding`` places
     over a mesh of ranks; ``shape`` is the global array's (from the block
     and the chunk counts when not given). ``block`` is None on a rank
-    the placement's mesh leaves out."""
+    the placement's mesh leaves out, which then gives ``shape`` and
+    ``dtype``."""
 
     def __init__(self, block: Optional[torch.Tensor], sharding: NamedSharding,
-                 shape: Optional[Sequence[int]] = None):
+                 shape: Optional[Sequence[int]] = None,
+                 dtype: Optional[torch.dtype] = None):
         self.block = block
         self.sharding = sharding
         if shape is None:
             counts = _chunk_counts(sharding, block.dim())
             shape = [n * c for n, c in zip(block.shape, counts)]
         self.shape = tuple(int(n) for n in shape)
+        self._dtype = dtype
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.block.dtype
+        return self.block.dtype if self.block is not None else self._dtype
 
     def __repr__(self):
         return (f"ShardedTensor(shape={self.shape}, block="
@@ -492,7 +502,7 @@ def reshard(arr: ShardedTensor, dst_sharding: NamedSharding, *,
     except Unplannable as e:
         block = _assemble(arr, dst_sharding, str(e).split(":")[0])
         _STATS["seconds"] += time.perf_counter() - t0
-        return ShardedTensor(block, dst_sharding, arr.shape)
+        return ShardedTensor(block, dst_sharding, arr.shape, arr.dtype)
     x = arr.block
     received = 0
     if isinstance(plan, SegmentedPlan):
@@ -517,7 +527,45 @@ def reshard(arr: ShardedTensor, dst_sharding: NamedSharding, *,
     _STATS["bytes_naive"] += plan.bytes_naive
     _STATS["seconds"] += time.perf_counter() - t0
     return ShardedTensor(block if me in dflat else None, dst_sharding,
-                         arr.shape)
+                         arr.shape, arr.dtype)
+
+
+def gather(arr: ShardedTensor) -> torch.Tensor:
+    """The whole array of ``arr`` on every rank: each rank's block (zeros
+    on a rank off the placement's mesh, on the CPU when it has no block)
+    all-gathered over the world and assembled by the blocks' positions
+    (collective: every rank calls it for the same leaves in the same
+    order). Counted in ``stats()["gathered"]``; a placement whose mesh is
+    the world and that splits nothing moves nothing."""
+    sh = arr.sharding
+    flat = _flat(sh.mesh)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if sh.is_replicated and sorted(flat) == list(range(world)):
+        return arr.block
+    counts = _chunk_counts(sh, len(arr.shape))
+    x = arr.block if arr.block is not None else torch.zeros(
+        [n // c for n, c in zip(arr.shape, counts)], dtype=arr.dtype)
+    g = group_of(list(range(world)))
+    blocks = gather_blocks(_bytes(x), g)
+    whole = torch.empty(arr.shape, dtype=x.dtype, device=x.device)
+    for p, r in enumerate(flat):
+        b = _from_bytes(blocks[r], x.dtype, x.shape)
+        for gs, ls in block_pieces(arr.shape, sh, p):
+            whole[gs] = b[ls]
+    _STATS["gathered"] += 1
+    _STATS["gathered_bytes_received"] += (world - 1) * x.numel() \
+        * x.element_size()
+    return whole
+
+
+def gather_tree(tree):
+    """``tree`` with every ``ShardedTensor`` leaf ``gather``-ed into its
+    whole array (collective); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v) for v in tree)
+    return gather(tree) if isinstance(tree, ShardedTensor) else tree
 
 
 def reshard_tree(tree, shardings):

@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .mesh import PartitionSpec, spec_axes
+from .mesh import NamedSharding, PartitionSpec, spec_axes
 
 #: the expert-parallel mesh axis: it splits the experts and carries data
 EP_AXIS = "ep"
@@ -67,6 +67,26 @@ def resolve_spec(spec, mesh) -> PartitionSpec:
     while out and out[-1] is None:
         out.pop()
     return PartitionSpec(*out)
+
+
+def placement(param, mesh, extra: Optional[Sequence] = None
+              ) -> NamedSharding:
+    """The placement of the block ``param`` holds on ``mesh``: its
+    ``dist_spec`` resolved on the mesh, with ``extra`` (a spec that adds
+    an axis to a dimension, such as ZeRO's slice) merged in, and the qkv
+    projection's segments when it is split over an ``mp`` axis of more
+    than one rank."""
+    spec = list(resolve_spec(getattr(param, "dist_spec", None), mesh))
+    for d, e in enumerate(extra or ()):
+        if e is not None:
+            spec += [None] * (d + 1 - len(spec))
+            spec[d] = e
+    segments = getattr(param, "mp_segments", None)
+    split = getattr(param, "mp_dim", None) is not None and "mp" in spec_axes(
+        PartitionSpec(*spec)) and mesh.shape.get("mp", 1) > 1
+    return NamedSharding(mesh, resolve_spec(PartitionSpec(*spec), mesh),
+                         segments={param.mp_dim: segments}
+                         if split and segments else None)
 
 
 def spec_dim(spec, axis: str) -> Optional[int]:

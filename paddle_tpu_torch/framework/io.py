@@ -154,11 +154,32 @@ def wait_async_saves():
 
 def save_sharded(state: dict, directory: str):
     """The JAX package's sharded format (a manifest and one file per
-    array, CRC32-checked), through ``checkpoint.save_tree``; no step
-    management (``CheckpointManager`` has it). One process."""
+    shard, CRC32-checked), through ``checkpoint.save_tree``; no step
+    management (``CheckpointManager`` has it). A ``ShardedTensor`` leaf
+    (a train step's ``state_for_checkpoint()`` over mp, ZeRO or ep) is
+    written as its blocks, each by its replica-0 rank, and a whole array
+    by rank 0. Across ranks every rank calls it: each writes its files
+    and its manifest part, and after a barrier rank 0 merges the parts
+    into the manifest; a last barrier ends the save on every rank. No
+    array is gathered."""
     from ..checkpoint import arrays as _ckpt_arrays
+    from ..distributed.communication import barrier
 
-    _ckpt_arrays.save_tree(os.path.abspath(directory), dict(state))
+    path = os.path.abspath(directory)
+    rank, world = _ckpt_arrays._world()
+    if world == 1:
+        _ckpt_arrays.save_tree(path, dict(state))
+        return
+    _ckpt_arrays.save_tree(path, dict(state),
+                           manifest_name=f"manifest.part{rank}.json")
+    barrier()
+    if rank == 0:
+        parts = [f"manifest.part{p}.json" for p in range(world)]
+        _ckpt_arrays.write_manifest(path, _ckpt_arrays.merge_manifests(
+            [_ckpt_arrays.read_manifest(path, name) for name in parts]))
+        for name in parts:
+            os.remove(os.path.join(path, name))
+    barrier()
 
 
 def load_sharded(directory: str, shardings: dict = None) -> dict:

@@ -34,6 +34,13 @@ routes as ``"dense"``, as the JAX package's ``plan_quant_dispatch``
 returns None without an ``ep`` axis. ``global_scatter`` and
 ``global_gather`` are the reference's count-routed exchange across the
 ranks of a group.
+
+``replicated`` (an ep group) is the routing of rows that are the same on
+every rank of the group, as a served model's are: each rank routes them
+as one process does (``capacity`` that of their own ``T``, the dispatch
+local), runs its ``E/ep`` experts on their slots and all-gathers the
+experts' outputs over ep, then combines locally. The values are one
+process's, bit for bit, and the only exchange is the gather.
 """
 
 from __future__ import annotations
@@ -45,9 +52,11 @@ import torch
 from torch import nn
 
 from .....distributed.collective import Group, _resolve_group, group_of
-from .....distributed.communication import (alltoall_single, gather_rows,
+from .....distributed.communication import (alltoall_single, gather_along,
+                                            gather_rows,
                                             reduce_scatter_in_trace, sum_over)
 from .....distributed.fleet.meta_parallel.mp_layers import _Linear
+from .....distributed.sharding_utils import local_block
 from .....distributed.topology import MoEGroups
 from .....nn import functional as F
 from .gate import _route
@@ -75,6 +84,25 @@ def moe_groups(group=None) -> Optional[MoEGroups]:
     from .....distributed.parallel import get_rank
 
     return MoEGroups(g, g, group_of([get_rank()], axis_name="replica"))
+
+
+class _WholeStack(torch.autograd.Function):
+    """An ep rank's block of an expert stack -> the whole stack, gathered
+    over the ep group. The backward adds the whole stack's gradient into
+    ``sink[key]`` (the explicit reduction's input) and hands the block its
+    rows of it."""
+
+    @staticmethod
+    def forward(ctx, w, group, sink, key):
+        ctx.group, ctx.sink, ctx.key = group, sink, key
+        return gather_along(w.contiguous(), group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        prev = ctx.sink.get(ctx.key)
+        ctx.sink[ctx.key] = g if prev is None else prev + g
+        return (local_block(g, 0, ctx.group.rank, ctx.group.nranks),
+                None, None, None)
 
 
 def _slot_choices(slots, n_slots: int):
@@ -148,7 +176,8 @@ class _Combine(torch.autograd.Function):
 
 def moe_route(xt, gate_weight, gate_type: str, capacity: int, run_experts,
               dispatch_mode: str = "dense", quant_block: int = 128, *,
-              groups: Optional[MoEGroups] = None):
+              groups: Optional[MoEGroups] = None,
+              replicated: Optional[Group] = None):
     """Shared routing core (GShard/Switch): gate -> dispatch ->
     ``run_experts([E, C, d] -> [E, C, d'])`` -> combine. Returns
     ``(out [T, d'], aux)``. ``gate_type`` ``"gshard"`` is top-2, anything
@@ -157,7 +186,10 @@ def moe_route(xt, gate_weight, gate_type: str, capacity: int, run_experts,
     rank's ``[E/ep, C, d]`` (module docstring). ``dispatch_mode``
     ``"quant"`` runs the exchanges block-scaled int8 at ``quant_block``
     when there is an ``ep`` exchange (``dispatch.plan_quant_dispatch``),
-    else routes as ``"dense"``."""
+    else routes as ``"dense"``. With ``replicated`` (an ep group, no
+    ``groups``) the rows are the same on every rank of it and
+    ``run_experts`` takes this rank's ``[E/ep, C, d]`` (module docstring;
+    routed ``"dense"``: no dispatch exchange is left to compress)."""
     if dispatch_mode not in ("dense", "quant"):
         raise ValueError(
             f"dispatch_mode must be 'dense' or 'quant', got {dispatch_mode!r}")
@@ -168,6 +200,13 @@ def moe_route(xt, gate_weight, gate_type: str, capacity: int, run_experts,
                                  group=groups.data if groups else None)
     choice = _slot_choices(slots, E * capacity)
     d = xt.shape[-1]
+    if groups is None and replicated is not None and replicated.nranks > 1:
+        ein = _Dispatch.apply(xt, slots, choice).view(E, capacity, d)
+        mine = local_block(ein, 0, replicated.rank, replicated.nranks)
+        full = gather_rows(run_experts(mine), replicated)  # [E, C, d']
+        out = _Combine.apply(full.reshape(E * capacity, -1), weights, slots,
+                             choice)
+        return out, aux
     if groups is None:
         ein = _Dispatch.apply(xt, slots, choice)
         eout = run_experts(ein.view(E, capacity, d))
@@ -194,6 +233,10 @@ def moe_route(xt, gate_weight, gate_type: str, capacity: int, run_experts,
     return out, aux
 
 
+#: the stacked ExpertMLP weights the batched expert product takes, and
+#: the keys of a MoELayer's ``whole_grads``
+STACK_KEYS = ("fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias")
+
 #: the activations the batched expert product takes (paddle's gelu is
 #: exact, not the tanh form)
 _FUSED_ACTS = {"gelu": lambda x: F.gelu(x, approximate=False),
@@ -219,7 +262,16 @@ class MoELayer(nn.Module):
     reference: ``E = n * len(experts)`` experts in rank order, the gate
     over all of them, and the tokens this rank's rows of the global batch
     (``moe_route`` over ``moe_groups(group)``). A group of one rank routes
-    as no group does."""
+    as no group does.
+
+    ``local_ep`` (set for its own forward by the train step whose explicit
+    gradient reduction runs over an ep axis, as the JAX step's
+    fully-manual region holds every expert, and None again after it)
+    makes each rank route its own rows alone over all ``E`` experts, at
+    the capacity of its own ``T``: the experts' stacked weights are
+    gathered over that group (same-shaped ``ExpertMLP``s only), and their
+    whole gradients collect in ``whole_grads`` under ``"fc1.weight"``,
+    ``"fc1.bias"``, ``"fc2.weight"`` and ``"fc2.bias"`` (``[E, ...]``)."""
 
     def __init__(self, d_model: int, experts: Sequence[nn.Module],
                  gate="gshard", top_k: Optional[int] = None,
@@ -252,24 +304,37 @@ class MoELayer(nn.Module):
             d_model, self.num_experts, device=device, dtype=dtype))
         nn.init.xavier_uniform_(self.gate_weight)
         self.aux_loss = None
+        self.local_ep = None
+        self.whole_grads = {}
 
-    def _fused_experts(self):
-        """``run_experts`` over the stacked weights when every expert is a
-        same-shaped ``ExpertMLP`` with a batched activation, else None."""
+    def fusable(self) -> bool:
+        """Whether every expert is a same-shaped ``ExpertMLP`` with a
+        batched activation (the experts then run as one batched product
+        over their stacked weights)."""
         e0 = self.experts[0]
         if not all(type(e) is ExpertMLP for e in self.experts):
-            return None
+            return False
         shapes = (e0.fc1.weight.shape, e0.fc2.weight.shape)
-        if not all((e.fc1.weight.shape, e.fc2.weight.shape) == shapes
-                   and e._act_name == e0._act_name for e in self.experts):
+        return all((e.fc1.weight.shape, e.fc2.weight.shape) == shapes
+                   and e._act_name == e0._act_name for e in self.experts) \
+            and e0._act_name in _FUSED_ACTS
+
+    def _fused_experts(self):
+        """``run_experts`` over the stacked weights when ``fusable``, else
+        None; under ``local_ep`` over every expert's, gathered."""
+        if not self.fusable():
             return None
-        act = _FUSED_ACTS.get(e0._act_name)
-        if act is None:
-            return None
-        w1, b1, w2, b2 = (torch.stack([getattr(getattr(e, fc), p)
-                                       for e in self.experts])
-                          for fc, p in (("fc1", "weight"), ("fc1", "bias"),
-                                        ("fc2", "weight"), ("fc2", "bias")))
+        act = _FUSED_ACTS[self.experts[0]._act_name]
+        stacks = []
+        for key in STACK_KEYS:
+            fc, p = key.split(".")
+            w = torch.stack([getattr(getattr(e, fc), p)
+                             for e in self.experts])
+            if self.local_ep is not None:
+                w = _WholeStack.apply(w, self.local_ep, self.whole_grads,
+                                      key)
+            stacks.append(w)
+        w1, b1, w2, b2 = stacks
 
         def run_experts(ein):
             h = act(torch.bmm(ein.float(), w1.float()) + b1.float()[:, None])
@@ -281,7 +346,8 @@ class MoELayer(nn.Module):
     def forward(self, x):
         shape = x.shape
         xt = x.reshape(-1, shape[-1])  # [T, d]
-        T = xt.shape[0] * (self.groups.data.nranks if self.groups else 1)
+        groups = self.groups if self.local_ep is None else None
+        T = xt.shape[0] * (groups.data.nranks if groups else 1)
         capacity = max(1, int(self.capacity_factor * T / self.num_experts))
         run_experts = self._fused_experts()
         if run_experts is None:
@@ -290,7 +356,7 @@ class MoELayer(nn.Module):
                                     for i, e in enumerate(self.experts)])
         out, aux = moe_route(xt, self.gate_weight, self.gate_type, capacity,
                              run_experts, dispatch_mode=self.dispatch_mode,
-                             groups=self.groups)
+                             groups=groups)
         self.aux_loss = aux
         return out.reshape(*shape[:-1], out.shape[-1])
 

@@ -31,9 +31,20 @@ embedding and tied logits ``c_identity(h) @ W_local.T`` of
 entropy (``forward_with_loss`` unchunked, as the JAX package's at mp). A
 GPT-MoE block at mp holds its experts whole on every rank of the mp group
 (placed ``P("ep", ...)`` only), as the JAX package places them: the mp
-ranks route the same rows through the same experts. Serving an mp- or
-ep-split model (ROADMAP queue A item A5.5b), pipeline and sequence
-parallelism (A5.6, A5.7) raise.
+ranks route the same rows through the same experts. Pipeline and
+sequence parallelism (ROADMAP queue A items A5.6, A5.7) raise.
+
+The serving protocol runs on a split model too: at mp each rank's
+attention prefills and decodes over its own query and K/V heads (its KV
+cache holds its ``num_kv_heads/mp`` heads only), the row-parallel
+projections all-reduce as in training, and the vocabulary-parallel
+logits are gathered over mp (``mp_ops.c_concat``) into the whole ``[B, V]``
+before anything samples them, so every rank sees the same bits. A GPT-MoE
+block served at ep routes the rows, which are the same on every rank, as
+one process would (the capacity of their ``T``), runs this rank's
+``E/ep`` experts on their slots and gathers the experts' outputs over ep
+before the combine (``moe_route(replicated=)``): the one process's values,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -53,8 +64,7 @@ from ..distributed.fleet.meta_parallel import (
 from ..distributed.fleet.meta_parallel.mp_layers import mp_group_of
 from ..distributed.fleet.recompute import recompute
 from ..distributed.mesh import PartitionSpec
-from ..distributed.communication import gather_along
-from ..distributed.sharding_utils import annotate_parameter, local_block
+from ..distributed.sharding_utils import annotate_parameter
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn import functional as F
 
@@ -119,14 +129,6 @@ GPT_TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
                 max_seq_len=64)
 
 
-def _no_mp(module, what: str, item: str):
-    """Raise when ``module``'s mp group has more than one rank."""
-    n = module.mp_group.nranks
-    if n > 1:
-        raise NotImplementedError(f"{what} at mp degree {n} is not ported "
-                                  f"yet (ROADMAP queue A item {item})")
-
-
 class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
@@ -182,15 +184,17 @@ class GPTAttention(nn.Module):
         ``paged_extend_attend``. Dense (``kv_cache=(k, v)``, each
         ``[B, H_kv, S_max, D]``): write the one token at
         ``cache_positions``, then ``decode_attend`` over all ``S_max``
-        positions, masked to the valid prefix."""
+        positions, masked to the valid prefix. At mp every tensor here is
+        this rank's heads (``num_heads/mp`` and ``num_kv_heads/mp``), and
+        the row-parallel ``proj`` sums the ranks' outputs."""
         from ..serving import kv_cache as _kvc
 
-        _no_mp(self.qkv, "serving", "A5.5b (serving a sharded model)")
         q, k, v = self._split(qkv, B, S)
+        width = self.num_heads * self.cfg.head_dim
         if return_kv:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                  training=False)
-            out = out.reshape(B, S, self.cfg.hidden_size)
+            out = out.reshape(B, S, width)
             return (self.dropout(self.proj(out)),
                     (k.transpose(1, 2), v.transpose(1, 2)))
         if len(kv_cache) == 3:
@@ -213,7 +217,7 @@ class GPTAttention(nn.Module):
             _kvc.write_kv(vc, v.transpose(1, 2), cache_positions)
             o = _kvc.decode_attend(q.transpose(1, 2), kc, vc,
                                    cache_positions)
-        out = o.transpose(1, 2).reshape(B, S, self.cfg.hidden_size)
+        out = o.transpose(1, 2).reshape(B, S, width)
         return self.dropout(self.proj(out)), (kc, vc)
 
 
@@ -230,25 +234,6 @@ class GPTMLP(nn.Module):
 
     def forward(self, x):
         return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate=True)))
-
-
-class _WholeStack(torch.autograd.Function):
-    """An ep rank's block of an expert stack -> the whole stack, gathered
-    over the ep group. The backward adds the whole stack's gradient into
-    ``sink[key]`` (the explicit reduction's input) and hands the block its
-    rows of it."""
-
-    @staticmethod
-    def forward(ctx, w, group, sink, key):
-        ctx.group, ctx.sink, ctx.key = group, sink, key
-        return gather_along(w.contiguous(), group, 0)
-
-    @staticmethod
-    def backward(ctx, g):
-        prev = ctx.sink.get(ctx.key)
-        ctx.sink[ctx.key] = g if prev is None else prev + g
-        return (local_block(g, 0, ctx.group.rank, ctx.group.nranks),
-                None, None, None)
 
 
 class GPTMoEMLP(nn.Module):
@@ -272,7 +257,12 @@ class GPTMoEMLP(nn.Module):
     region does, and ``None`` again after it) makes
     each rank route its own rows alone, at the capacity of its own ``T``,
     over the whole stacks gathered over that group; their gradients
-    collect, whole, in ``whole_grads``."""
+    collect, whole, in ``whole_grads``.
+
+    ``forward(x, replicated=True)`` (the serving forward) takes rows that
+    are the same on every rank: they are routed as one process routes
+    them, at the capacity of their own ``T``, and each ep rank runs its
+    experts on their slots (``moe_route(replicated=)``)."""
 
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None):
         super().__init__()
@@ -304,6 +294,8 @@ class GPTMoEMLP(nn.Module):
     def _stacks(self):
         """``(w1, b1, w2, b2)`` as the forward uses them: this rank's, or
         under ``local_ep`` the whole ones."""
+        from ..incubate.distributed.models.moe.moe_layer import _WholeStack
+
         ws = (self.w1, self.b1, self.w2, self.b2)
         if self.local_ep is None:
             return ws
@@ -319,13 +311,16 @@ class GPTMoEMLP(nn.Module):
         h = F.gelu(h, approximate=True)
         return torch.bmm(h, w2.to(dt)) + b2.to(dt)[:, None]
 
-    def forward(self, x):
+    def forward(self, x, *, replicated: bool = False):
         from ..incubate.distributed.models.moe.moe_layer import moe_route
 
         cfg = self.cfg
         B, S, d = x.shape
         xt = x.reshape(-1, d)
         groups = self.groups if self.local_ep is None else None
+        ep = None
+        if replicated and groups is not None:
+            groups, ep = None, groups.ep
         T = xt.shape[0] * (groups.data.nranks if groups else 1)
         capacity = max(1, int(cfg.moe_capacity_factor * T
                               / cfg.moe_num_experts))
@@ -333,7 +328,7 @@ class GPTMoEMLP(nn.Module):
         out, aux = moe_route(
             xt, self.gate_weight, "gshard" if cfg.moe_top_k == 2 else "switch",
             capacity, lambda ein: self._experts(ein, stacks),
-            dispatch_mode=cfg.moe_dispatch, groups=groups)
+            dispatch_mode=cfg.moe_dispatch, groups=groups, replicated=ep)
         self.aux_loss = aux
         return self.dropout(out.reshape(B, S, d))
 
@@ -354,16 +349,15 @@ class GPTBlock(nn.Module):
     def forward(self, x, kv_cache=None, cache_positions=None,
                 return_kv=False):
         if return_kv or kv_cache is not None:
-            if getattr(self.mlp, "groups", None) is not None:
-                raise NotImplementedError(
-                    "serving a GPT-MoE model that routes over ranks (built "
-                    "after fleet.init at a data world above 1) is not "
-                    "ported yet (ROADMAP queue A item A5.5b)")
             a, kv = self.attn(self.ln1(x), kv_cache=kv_cache,
                               cache_positions=cache_positions,
                               return_kv=return_kv)
             x = x + a
-            return x + self.mlp(self.ln2(x)), kv
+            h = self.ln2(x)
+            # the served rows are the same on every rank
+            h = self.mlp(h, replicated=True) if isinstance(
+                self.mlp, GPTMoEMLP) else self.mlp(h)
+            return x + h, kv
         x = x + self.attn(self.ln1(x))
         return x + self.mlp(self.ln2(x))
 
@@ -486,12 +480,26 @@ class GPTForCausalLM(nn.Module):
         """The group the model's mp layers are split over."""
         return self.gpt.embeddings.word_embeddings.mp_group
 
+    @property
+    def local_kv_heads(self) -> int:
+        """The K/V heads this rank's attention holds (``num_kv_heads/mp``),
+        which its serving caches are sized by."""
+        return self.gpt.layers[0].attn.num_kv_heads
+
     def _logits(self, h):
         """Logits, this rank's ``V/mp`` of them at mp above 1."""
         if self.cfg.tie_word_embeddings:
             W = self.gpt.embeddings.word_embeddings.weight
             return torch.matmul(mp_ops.c_identity(h, self.mp_group), W.t())
         return self.lm_head(h)
+
+    def _whole_logits(self, h):
+        """The serving logits: whole ``[..., V]`` on every rank, this
+        rank's ``V/mp`` gathered over mp (the same bits on every rank)."""
+        logits = self._logits(h)
+        if self.mp_group.nranks > 1:
+            logits = mp_ops.c_concat(logits, self.mp_group, dim=-1)
+        return logits
 
     def forward(self, input_ids, position_ids=None):
         return self._logits(self.gpt(input_ids, position_ids))
@@ -568,7 +576,7 @@ class GPTForCausalLM(nn.Module):
                 .clamp(0, T - 1)
             h_last = torch.gather(
                 h, 1, idx[:, None, None].expand(B, 1, h.shape[-1]))
-        return self._logits(h_last)[:, 0], kvs
+        return self._whole_logits(h_last)[:, 0], kvs
 
     def decode_step(self, tokens, kv_caches, positions):
         """One cached decode step: ``tokens`` ``[B]`` (or ``[B, 1]``) ids,
@@ -588,7 +596,7 @@ class GPTForCausalLM(nn.Module):
         position_ids = pos.clamp(0, self.cfg.max_seq_len - 1).long()[:, None]
         h, new = self.gpt(ids, position_ids=position_ids,
                           kv_caches=kv_caches, cache_positions=pos)
-        return self._logits(h)[:, -1], new
+        return self._whole_logits(h)[:, -1], new
 
     def extend_step(self, tokens, kv_caches, positions):
         """Multi-token cached step: ``tokens`` ``[B, T]`` ids, row ``b``'s
@@ -607,7 +615,7 @@ class GPTForCausalLM(nn.Module):
         h, new = self.gpt(ids, position_ids=qpos.clamp(
             0, self.cfg.max_seq_len - 1), kv_caches=kv_caches,
             cache_positions=pos)
-        return self._logits(h), new
+        return self._whole_logits(h), new
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,

@@ -19,11 +19,21 @@ requests into free KV-cache slots (a prefill, or a prefix splice plus a
 suffix prefill, and the first token), then runs one batched decode (or
 verify-k) step over every running request.
 
+A model split over ranks (built after ``fleet.init`` at mp, at ep, or
+both) is served by one engine on every rank, each fed the same requests:
+the caches hold this rank's K/V heads, the logits come back whole on
+every rank, and every host decision (admission, eviction, prefix matches,
+speculative acceptance, finishes, buckets) is taken from the same tokens,
+so the ranks stay in lockstep and enter every collective together. A
+split model whose groups run on gloo serves eagerly (a CUDA graph cannot
+record a host collective; ``graphs.capturable``); over NCCL its programs
+are captured as one process's are.
+
 Ported: both KV layouts, the radix prefix cache (``prefix_cache``),
-n-gram speculative decoding (``speculative``), ``cached_generate`` and
-``load_weights`` (which takes no ``shardings=`` until ROADMAP queue A item
-A5.5b). Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
-item: ``request_trace_dir`` (A6).
+n-gram speculative decoding (``speculative``), ``cached_generate``,
+serving a split model and ``load_weights(shardings=)``. Not ported yet,
+raising ``NotImplementedError`` naming its ROADMAP item:
+``request_trace_dir`` (A6).
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.mesh import DeviceMesh, NamedSharding, device_count
+from ..distributed.sharding_utils import placement
 from ..kernels.paged_attention import no_tpu_tier
 from . import graphs as _graphs
 from . import sampling as _sampling
@@ -70,20 +82,21 @@ def _generate_state(model, key: tuple) -> _GenerateState:
     model._generate_state = state = None
     B, S, S_max = key[:3]
     cfg, dev = model.cfg, model.device
-    cache = KVCache(cfg.num_layers, B, cfg.num_kv_heads, S_max, cfg.head_dim,
-                    model.dtype, device=dev)
+    cache = KVCache(cfg.num_layers, B, model.local_kv_heads, S_max,
+                    cfg.head_dim, model.dtype, device=dev)
     pre = _graphs.Buffers(
         ids=torch.zeros((B, S), dtype=torch.long, device=dev),
         length=torch.full((B,), S, dtype=torch.long, device=dev),
         row=torch.arange(B, device=dev))
     step = _graphs.StepBuffers(B, None, None, dev)
     gen = torch.Generator(device=dev)
+    eager = not _graphs.capturable(model, dev)
     model._generate_state = _GenerateState(
         key, cache,
         _graphs.CapturedStep(_graphs.prefill_program(model, cache, pre, S),
-                             pre, dev),
+                             pre, dev, eager=eager),
         _graphs.CapturedStep(_graphs.decode_program(model, cache, gen, step),
-                             step, dev, gen),
+                             step, dev, gen, eager=eager),
         gen)
     return model._generate_state
 
@@ -116,6 +129,11 @@ def cached_generate(model, input_ids, *, max_new_tokens: int = 32,
     filtered distribution with ``generator`` (the model device's default
     generator when None), which advances by the draws as an eager run
     would advance it; a greedy call leaves it as it was.
+
+    A model split over ranks is driven on every rank with the same ids;
+    its logits are whole on every rank, so the ranks draw the same tokens
+    when their generators hold the same state (seed them alike, or pass
+    generators seeded alike).
 
     The JAX package compiles one prefill and one decode executable per
     ``(B, S, S_max, dtypes, do_sample, temperature, top_k)`` per model.
@@ -256,11 +274,17 @@ class Engine:
 
     ``device`` defaults to ``cuda`` (raising without a card) and must be the
     model's device. Sampled requests draw from ``generator`` (a
-    ``torch.Generator`` on that device, seed 0 when omitted). ``steps``
+    ``torch.Generator`` on that device, seed 0 when omitted: every rank of
+    a split model draws alike). ``steps``
     holds the programs made so far (``"prefill:T"`` and ``"extend:T"`` per
     bucket ``T``, ``"decode"``, ``"verify"``), each captured once for the
     engine's lifetime on CUDA, all into one memory pool: a program's
-    outputs are valid until the engine replays any program.
+    outputs are valid until the engine replays any program. ``captured``
+    says whether they are captured (``graphs.capturable``: not for a
+    split model over gloo, whose programs run eagerly).
+
+    A model split over ranks (module docstring) is served by an engine on
+    every rank, each given the same requests in the same order.
     """
 
     def __init__(self, model, config: Optional[EngineConfig] = None, *,
@@ -280,6 +304,8 @@ class Engine:
                 f"model's position table ({cfg.max_seq_len})")
         B, S_max = self.config.max_batch_size, self.config.max_seq_len
         dt = self.config.cache_dtype or model.dtype
+        # this rank's K/V heads: num_kv_heads / mp
+        hkv = model.local_kv_heads
         self.page_alloc: Optional[PageAllocator] = None
         if self.config.kv_layout == "paged":
             ps = self.config.page_size
@@ -287,12 +313,13 @@ class Engine:
             if num_pages is None:
                 num_pages = B * (S_max // ps) + 1  # full budget + trash page
             self.cache = PagedKVCache(
-                cfg.num_layers, B, cfg.num_kv_heads, S_max, cfg.head_dim, dt,
+                cfg.num_layers, B, hkv, S_max, cfg.head_dim, dt,
                 page_size=ps, num_pages=num_pages, device=self.device)
             self.page_alloc = PageAllocator(num_pages)
         else:
-            self.cache = KVCache(cfg.num_layers, B, cfg.num_kv_heads, S_max,
+            self.cache = KVCache(cfg.num_layers, B, hkv, S_max,
                                  cfg.head_dim, dt, device=self.device)
+        self.captured = _graphs.capturable(model, self.device)
         self.scheduler = Scheduler(B)
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
@@ -315,25 +342,61 @@ class Engine:
         # (a prefill's logits sampled, a step's tokens read back) before
         # the next replay
         self._graph_pool = (torch.cuda.graph_pool_handle()
-                            if self.device.type == "cuda" else None)
+                            if self.captured else None)
 
     # -- weight management --
+    def shardings(self) -> Dict[str, NamedSharding]:
+        """The placement of each served parameter (``state_dict`` names):
+        the block this rank's model holds, on the hybrid topology's mesh
+        (``fleet.init``'s), else on a ``("dp",)`` mesh of the world, where
+        every parameter is whole. ``load_weights`` moves its ``params``
+        onto these; ``CheckpointManager.restore(shardings={"params":
+        engine.shardings()})`` reads each rank's blocks of a save."""
+        from ..distributed.topology import get_hybrid_communicate_group
+
+        hcg = get_hybrid_communicate_group()
+        mesh = hcg.get_mesh() if hcg is not None \
+            else DeviceMesh(np.arange(device_count()), ("dp",))
+        return {name: placement(p, mesh) for name, p in
+                self.model.state_dict(keep_vars=True).items()}
+
     @torch.no_grad()
     def load_weights(self, params, shardings=None,
                      allow_missing: bool = False):
         """Swap in serving weights: ``params`` maps the model's
         ``state_dict`` names (as ``weights.from_paddle_tpu`` makes them) to
-        tensors or numpy arrays. Each is copied into the existing parameter
-        in place, so the captured steps go on reading the same addresses.
-        Shapes and dtypes must match exactly; a missing name raises unless
+        whole tensors or numpy arrays, which are sliced to this rank's
+        block, or to ``resharding.ShardedTensor`` blocks (from
+        ``CheckpointManager.restore(shardings=)``, or a live train step's
+        ``live_state()`` / ``state_for_checkpoint()`` on any layout),
+        which move device to device onto this rank's block through the
+        resharding executor (collective: every rank loads the same names).
+        Each block is copied into the existing parameter in place, so the
+        captured steps go on reading the same addresses. Global shapes and
+        dtypes must match exactly; a missing name raises unless
         ``allow_missing``. Nothing is copied unless every entry passes.
-        ``shardings`` (a serving layout per parameter) waits for
-        serving a split model (ROADMAP queue A item A5.5b): anything but
-        None raises."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "Engine.load_weights(shardings=...) is not ported yet "
-                "(ROADMAP queue A item A5.5b, serving a split model)")
+
+        ``shardings`` (``{name: NamedSharding}``, a serving layout per
+        parameter) defaults to the model's own placement (``shardings()``),
+        as the JAX engine's default keeps each parameter's sharding; an
+        empty dict, and a None entry, mean the same. A placement the built
+        model does not hold raises ``ValueError``: the JAX engine relays
+        its arrays and recompiles, while a built ``nn.Module`` holds its
+        blocks and cannot change them; build the model on the mesh that
+        places them so."""
+        from ..distributed.resharding import ShardedTensor, block_of, reshard
+
+        own = self.shardings()
+        for name, want in (shardings or {}).items():
+            if name not in own:
+                raise KeyError(f"load_weights: shardings names no parameter "
+                               f"of the model: {name!r}")
+            if want is not None and want != own[name]:
+                raise ValueError(
+                    f"load_weights: shardings[{name!r}] = {want!r}, but the "
+                    f"built model holds {own[name]!r}; a built model cannot "
+                    "change its blocks' layout (the JAX engine relays and "
+                    "recompiles): build it on the mesh that places them so")
         current = self.model.state_dict(keep_vars=True)
         missing = [k for k in current if k not in params]
         if missing and not allow_missing:
@@ -346,15 +409,29 @@ class Engine:
             leaf = params[name]
             if isinstance(leaf, np.ndarray):
                 leaf = torch.from_numpy(leaf)
-            if tuple(leaf.shape) != tuple(cur.shape) \
-                    or leaf.dtype != cur.dtype:
+            whole = ShardedTensor(cur, own[name]).shape
+            if tuple(leaf.shape) != whole or leaf.dtype != cur.dtype:
                 raise ValueError(
                     f"load_weights: param {name!r} is "
                     f"{tuple(leaf.shape)}/{leaf.dtype}, the engine serves "
-                    f"{tuple(cur.shape)}/{cur.dtype}")
+                    f"{whole}/{cur.dtype}")
             new[name] = leaf
-        for name, leaf in new.items():
-            current[name].copy_(leaf)
+        rank = torch.distributed.get_rank() \
+            if torch.distributed.is_initialized() else 0
+        for name, leaf in new.items():  # collective: one name at a time
+            want = own[name]
+            if isinstance(leaf, ShardedTensor):
+                block = leaf.block if leaf.sharding == want \
+                    else reshard(leaf, want).block
+            elif want.is_replicated:
+                block = leaf
+            else:
+                flat = [int(r) for r in want.mesh.devices.reshape(-1)]
+                block = block_of(leaf.__getitem__, leaf.shape, want,
+                                 flat.index(rank))
+            new[name] = block
+        for name, block in new.items():
+            current[name].copy_(block)
         return self
 
     # -- request API --
@@ -437,7 +514,8 @@ class Engine:
                 f"program {name!r}; want 'decode', 'verify', or 'prefill:T' "
                 f"/ 'extend:T' for T in {self.config.prefill_buckets}")
         step = _graphs.CapturedStep(fn, bufs, self.device, gen,
-                                    self._graph_pool)
+                                    self._graph_pool,
+                                    eager=not self.captured)
         self.steps[name] = step
         return step
 

@@ -37,8 +37,13 @@ copied) before it; the engine samples each prefill's logits and reads each
 step's tokens back before it replays another program.
 
 On the CPU the same function runs eagerly on CPU buffers, because the
-caller asked for the CPU. On CUDA nothing runs it eagerly: a capture that
-fails raises.
+caller asked for the CPU. On CUDA a program is captured unless its model
+is split over a group whose collectives run on the host (gloo's, which a
+CUDA graph cannot record): ``capturable`` decides that once, from the
+groups' backend, and such an engine runs every program eagerly
+(``CapturedStep(eager=True)``, counted in ``eager_steps``). Over NCCL a
+split model's programs are captured with their collectives. Nothing
+falls back: a capture that fails raises.
 
 A kernel wrapper counts its launches where it launches: the warm-up run
 and the capture (which records the launch into the graph) each add one.
@@ -54,9 +59,26 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .kv_cache import PAGE_SENTINEL, PagedKVCache
 from .sampling import sample_batched
+
+
+def capturable(model, device) -> bool:
+    """Whether ``model``'s serving programs are captured on ``device``: on
+    CUDA, unless a group its serving forward communicates over (its mp
+    layers' group, its MoE blocks' ep group) has more than one rank on
+    gloo, whose collectives run on the host, out of a graph's reach."""
+    if torch.device(device).type != "cuda":
+        return False
+    for mod in model.modules():
+        for g in (getattr(mod, "mp_group", None),
+                  getattr(getattr(mod, "groups", None), "ep", None)):
+            if g is not None and g.nranks > 1 and g.process_group is not None \
+                    and dist.get_backend(g.process_group) == "gloo":
+                return False
+    return True
 
 
 class Buffers:
@@ -184,34 +206,42 @@ def extend_program(model, cache, bufs: PrefillBuffers, T: int):
 
 class CapturedStep:
     """``fn`` over ``buffers``, captured as a CUDA graph on its first call
-    and replayed after (run eagerly on CPU buffers). ``captures`` counts
+    and replayed after (run eagerly on CPU buffers, and with ``eager``,
+    which ``capturable`` decides for a split model over gloo, on CUDA
+    ones). ``captures`` counts
     the captures, ``capture_seconds`` is the host time of the capture with
     its warm-up run, ``outputs`` holds ``fn``'s outputs (on CUDA the
     graph's static output tensors, in the graph's memory pool: its own, or
     ``pool`` shared with other programs, when they are valid until any of
     them replays), and ``fn`` stays callable for a comparison on the same
-    buffers. ``replays`` counts the graph's replays."""
+    buffers. ``replays`` counts the graph's replays, ``eager_steps`` the
+    eager runs."""
 
     def __init__(self, fn: Callable[[], Sequence[torch.Tensor]],
                  buffers: Buffers, device,
-                 generator: Optional[torch.Generator] = None, pool=None):
+                 generator: Optional[torch.Generator] = None, pool=None,
+                 eager: bool = False):
         self.fn = fn
         self.buffers = buffers
         self.device = torch.device(device)
         self.generator = generator
         self.pool = pool
+        self.eager = eager or self.device.type == "cpu"
         self.captures = 0
         self.capture_seconds = 0.0
         self.replays = 0
+        self.eager_steps = 0
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self._graph = None
 
     def run(self, **host: np.ndarray) -> Tuple[torch.Tensor, ...]:
         """Copy ``host`` into the buffers and run the step once (on CUDA,
-        captured first if it was not); returns its outputs."""
+        captured first if it was not, unless ``eager``); returns its
+        outputs."""
         self.buffers.write(**host)
-        if self.device.type == "cpu":
+        if self.eager:
             self.outputs = tuple(self.fn())
+            self.eager_steps += 1
             return self.outputs
         if self._graph is None:
             self._capture()

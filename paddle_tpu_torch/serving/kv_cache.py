@@ -8,7 +8,9 @@ table. Both are preallocated at construction. Where the JAX package
 donates the buffers to each compiled step and rebinds the returned arrays,
 the port writes into them in place on the device (``write_kv``,
 ``paged_write_kv`` and the prefill writes), and no second copy of a cache
-is ever live.
+is ever live. ``num_kv_heads`` is the K/V heads the cache's model holds: a
+model split at mp holds ``num_kv_heads/mp`` of them, and so does each
+rank's cache (the engine passes ``model.local_kv_heads``).
 
 ``decode_attend`` is the dense layout's attention, plain PyTorch on every
 device as the JAX package's is plain jnp (no TPU kernel corresponds); it

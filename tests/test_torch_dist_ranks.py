@@ -31,6 +31,7 @@ from paddle_tpu_torch import nn as port_nn
 from paddle_tpu_torch import distributed as D
 from paddle_tpu_torch.checkpoint import CheckpointManager
 from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed.resharding import ShardedTensor, gather
 from paddle_tpu_torch.models.gpt import GPT_TINY, GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
@@ -364,7 +365,11 @@ def job_ckpt(directory, inp, rank):
 
 def _tree_copy(tree):
     """Tensors and numpy leaves as CPU tensors (numpy scalars as 0-d
-    tensors of their dtype), JSON leaves as they are."""
+    tensors of their dtype), ``ShardedTensor`` blocks gathered into their
+    whole arrays (``resharding.gather``: collective, so every rank copies
+    the same tree), JSON leaves as they are."""
+    if isinstance(tree, ShardedTensor):
+        return gather(tree).detach().clone()
     if isinstance(tree, dict):
         return {k: _tree_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -511,8 +516,8 @@ def job_mp(directory, inp, rank):
     out["refuse_kv"] = _raises(lambda: GPTForCausalLM(GPTConfig(
         **{**TINY, "num_kv_heads": 1}), device="cpu"))
     model, _ = _tiny_on(blocks)
-    out["refuse_serving"] = _raises(lambda: model.prefill_with_cache(
-        xs[0][:1, :8]))
+    with torch.no_grad():  # serving at mp: the whole logits on every rank
+        out["serving"] = model.prefill_with_cache(xs[0][:1, :8])[0]
 
     step = _tp_step(blocks, hcg)
     for k in range(2):

@@ -1752,3 +1752,134 @@ def test_reshard_over_nccl_across_two_cards(cuda, tmp_path):
     for r in range(2):
         out = torch.load(tmp_path / f"out.{r}.pt")
         assert out["backend"] == "nccl" and all(out["equal"]), (r, out)
+
+
+def _tiny_serving_model(dev, seed=0):
+    """The tiny GPT at hidden 256 (4 query heads of D 64, which the flash
+    kernel is built for; 2 K/V heads) on ``dev`` with weights of std 0.2
+    drawn on the CPU from ``seed``, and those weights by name."""
+    from paddle_tpu_torch.models.gpt import GPT_TINY, GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**{**GPT_TINY, "hidden_size": 256, "num_kv_heads": 2})
+    g = torch.Generator().manual_seed(seed)
+    model = GPTForCausalLM(cfg, device=dev)
+    weights = {k: (0.2 * torch.randn(v.shape, generator=g)
+                   if v.dim() >= 2 else v.detach().cpu())
+               for k, v in model.state_dict().items()}
+    return model, weights
+
+
+SPLIT_PROMPTS = [[5, 17, 3], [9, 2, 11, 4], list(range(1, 30)), [7] * 12]
+
+
+@pytest.mark.gpu
+def test_split_engine_load_weights_over_one_nccl_rank(cuda, tmp_path,
+                                                      monkeypatch):
+    """``Engine.load_weights(shardings=)`` over an NCCL world of one rank
+    (``fleet.init`` at mp 1): whole arrays, and ``ShardedTensor`` blocks
+    placed otherwise (moved by the resharding executor on the card), land
+    in the CUDA parameters bitwise; the engine's programs are captured
+    (no gloo group), once each, and serve the tokens of an engine built
+    without a process group."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import DeviceMesh, NamedSharding
+    from paddle_tpu_torch.distributed import PartitionSpec as P
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import resharding as rs
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    ref, weights = _tiny_serving_model(cuda)
+    sp = SamplingParams(max_new_tokens=6)
+    ref_eng = Engine(ref, EngineConfig(max_batch_size=2, max_seq_len=64))
+    ref_eng.load_weights(weights)
+    want = ref_eng.generate(SPLIT_PROMPTS, sp)
+    for var in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "MASTER_ADDR",
+                "PADDLE_DISTRI_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PADDLE_MASTER", f"file://{tmp_path / 'store'}")
+    dist.destroy_process_group()
+    try:
+        st = fleet.DistributedStrategy()
+        st.hybrid_configs = {"mp_degree": 1}
+        fleet.init(is_collective=True, strategy=st)
+        assert dist.get_backend() == "NCCL"
+        model, _ = _tiny_serving_model(cuda, seed=1)
+        eng = Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64))
+        assert eng.captured
+        own = eng.shardings()
+        eng.load_weights({k: v.numpy() for k, v in weights.items()},
+                         shardings=own)
+        assert all(torch.equal(p.cpu(), weights[k])
+                   for k, p in model.state_dict().items())
+        one = DeviceMesh([0], ("x",))
+        placed = {k: rs.ShardedTensor(v.to(cuda) + 0, NamedSharding(
+            one, P("x") if v.dim() else P())) for k, v in weights.items()}
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
+        rs.reset_stats()
+        eng.load_weights(placed)
+        assert rs.stats()["plans"] == len(
+            [v for v in weights.values() if v.dim()])
+        assert all(torch.equal(p.cpu(), weights[k])
+                   for k, p in model.state_dict().items())
+        assert eng.generate(SPLIT_PROMPTS, sp) == want
+        assert all(s.captures == 1 and s.eager_steps == 0
+                   for s in eng.steps.values())
+    finally:
+        dist.destroy_process_group()
+
+
+def _split_serve_rank(rank, store, out_dir, weights):
+    """One of two ranks, each on its own card over NCCL: the tiny GPT at
+    mp 2 served by the paged engine, its programs captured."""
+    import os
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    os.environ.update(PADDLE_TRAINER_ID=str(rank), PADDLE_TRAINERS_NUM="2",
+                      PADDLE_MASTER=f"file://{store}")
+    torch.cuda.set_device(rank)
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"mp_degree": 2}
+    fleet.init(is_collective=True, strategy=st)
+    try:
+        model, _ = _tiny_serving_model(torch.device("cuda", rank), seed=1)
+        eng = Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64))
+        eng.load_weights(weights)
+        got = eng.generate(SPLIT_PROMPTS, SamplingParams(max_new_tokens=6))
+        torch.cuda.synchronize()
+        torch.save({"tokens": got, "captured": eng.captured,
+                    "captures": [s.captures for s in eng.steps.values()],
+                    "kv_heads": eng.cache.num_kv_heads},
+                   f"{out_dir}/out.{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        from paddle_tpu_torch import distributed as dist
+
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_split_engine_over_nccl_across_two_cards(cuda, tmp_path):
+    """The tiny GPT at mp 2 over NCCL, one rank a card: the paged engine's
+    programs are captured with their collectives, each rank's cache holds
+    its K/V head, and both ranks serve one process's tokens."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL refuses two ranks on one)")
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+
+    ref, weights = _tiny_serving_model(cuda)
+    eng = Engine(ref, EngineConfig(max_batch_size=2, max_seq_len=64))
+    eng.load_weights(weights)
+    want = eng.generate(SPLIT_PROMPTS, SamplingParams(max_new_tokens=6))
+    mp.spawn(_split_serve_rank, args=(str(tmp_path / "store"), str(tmp_path),
+                                      weights), nprocs=2, join=True)
+    for r in range(2):
+        out = torch.load(tmp_path / f"out.{r}.pt")
+        assert out["captured"] and set(out["captures"]) == {1}, out
+        assert out["kv_heads"] == 1
+        assert out["tokens"] == want, (r, out["tokens"], want)

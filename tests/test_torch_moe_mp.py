@@ -20,9 +20,14 @@ block 1) and batches:
 - a ``MoELayer(group=)`` with each rank's two experts of four, trained 3
   steps, against the JAX ``MoELayer`` holding all four on the global
   batch: losses, every parameter under the JAX package's checkpoint
-  names, and the tree restored into a fresh step.
+  names, and the tree restored into a fresh step;
+- the same layer under ``grad_reduce`` ``"fp32"`` and ``"int8"`` at ep 2
+  and at dp 2 x ep 2 (A5.4d), against the JAX step with the same
+  reduction on the matching ``("dp", "ep")`` mesh, which trains there:
+  each device routes its own rows over all four experts.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -74,10 +79,12 @@ def _jax_run(mesh, xs, ys, grad_reduce=None):
     return losses, {k: np.asarray(v) for k, v in step.params.items()}
 
 
-def _jax_layer(x):
+def _jax_layer(x, mesh=None, grad_reduce=None):
     """The JAX ``MoELayer`` (4 ``ExpertMLP``s, its own init) trained
-    ``STEPS`` AdamW steps on the mean square of its output: its initial
-    weights, the losses and the final checkpoint tree."""
+    ``STEPS`` AdamW steps on the mean square of its output (on ``mesh``
+    under ``grad_reduce`` when given): its initial weights, the losses and
+    the final checkpoint tree."""
+    _reset_jax_world()
     paddle.seed(5)
     d, f = x.shape[-1], 32
     layer = jmoe.MoELayer(d, [jmoe.ExpertMLP(d, f) for _ in range(4)])
@@ -93,10 +100,28 @@ def _jax_layer(x):
     opt = paddle.optimizer.AdamW(learning_rate=R.LR, epsilon=R.EPS,
                                  weight_decay=0.01,
                                  parameters=model.parameters())
-    step = j_make_step(model, opt,
+    step = j_make_step(model, opt, mesh=mesh, grad_reduce=grad_reduce,
                        loss_fn=lambda o, y: (o.astype("float32") ** 2).mean())
     losses = [float(step(x[k], x[k])) for k in range(STEPS)]
-    return weights, losses, step.state_for_checkpoint().to_tree()
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  step.state_for_checkpoint().to_tree())
+    return weights, losses, tree
+
+
+def _assert_layer_reduce(got, want, reduced):
+    """A rank's ``_layer_reduce`` runs against the JAX layer's under the
+    same reduction: losses, and every expert's parameters under its JAX
+    name (the int8 runs within Adam's bound, as the GPT-MoE's)."""
+    for mode, (_, jl, jtree) in want.items():
+        run = got[mode]
+        assert run["reduced"] == reduced, run["reduced"]
+        assert _err(run["losses"], jl) <= (
+            LOSS_TOL if mode == "fp32" else INT8_LOSS_TOL), (
+            mode, run["losses"], jl)
+        assert set(run["params"]) == set(jtree["params"])
+        tol = PARAM_TOL if mode == "fp32" else INT8_PARAM_TOL
+        for name, v in jtree["params"].items():
+            assert _err(run["params"][name], v) <= tol, (mode, name)
 
 
 def test_moe_at_mp_and_grad_reduce_and_moe_layer_at_ep(tmp_path):
@@ -158,16 +183,53 @@ def test_moe_at_mp_and_grad_reduce_and_moe_layer_at_ep(tmp_path):
             for fc in ("fc1", "fc2") for p in ("weight", "bias"))
 
 
+def _layer_inputs():
+    lx = np.random.default_rng(5).standard_normal(LAYER_SHAPE).astype(
+        np.float32)
+    weights = _jax_layer(lx)[0]
+    return lx, weights
+
+
+#: the MoELayer's four experts' parameters, reduced under their JAX names
+LAYER_REDUCED = sorted(f"0.expert_{j}.{k}" for j in range(4)
+                       for k in ("fc1.weight", "fc1.bias", "fc2.weight",
+                                 "fc2.bias"))
+
+
+def test_moe_layer_grad_reduce_at_ep(tmp_path):
+    """A5.4d at ep 2: the MoELayer's expert modules under grad_reduce fp32
+    and int8 against the JAX step on an ``("ep",)`` mesh."""
+    lx, weights = _layer_inputs()
+    torch.save({"layer": _torch_tree(weights),
+                "layer_x": torch.from_numpy(lx)}, tmp_path / "inputs.pt")
+    with R.Ranks("moe_layer_ep2", tmp_path) as ranks:
+        want = {mode: _jax_layer(lx, _mesh((2,), ("ep",)), mode)
+                for mode in ("fp32", "int8")}
+        outs = ranks.results()
+    for out in outs:
+        _assert_layer_reduce(out, want, LAYER_REDUCED)
+    # every rank keeps the same whole experts
+    for mode in want:
+        assert all(torch.equal(v, outs[1][mode]["params"][k])
+                   for k, v in outs[0][mode]["params"].items())
+
+
 def test_four_ranks_ep_mp_and_grad_reduce_at_dp_ep(tmp_path):
     _, params = _moe_jax_model()
     xs, ys = _batches()
+    lx, weights = _layer_inputs()
     torch.save({"params": _torch_tree(params), "x": torch.from_numpy(xs),
-                "y": torch.from_numpy(ys)}, tmp_path / "inputs.pt")
+                "y": torch.from_numpy(ys), "layer": _torch_tree(weights),
+                "layer_x": torch.from_numpy(lx)}, tmp_path / "inputs.pt")
     with R.Ranks("moe_mp4", tmp_path, world=4) as ranks:
         jepmp = _jax_run(_mesh((2, 2), ("ep", "mp")), xs, ys)
         jred = {mode: _jax_run(_mesh((2, 2), ("dp", "ep")), xs, ys, mode)
                 for mode in ("fp32", "int8")}
+        jlayer = {mode: _jax_layer(lx, _mesh((2, 2), ("dp", "ep")), mode)
+                  for mode in ("fp32", "int8")}
         outs = ranks.results()
+    for out in outs:  # A5.4d at dp 2 x ep 2
+        _assert_layer_reduce(out["layer"], jlayer, LAYER_REDUCED)
     for out in outs:
         assert _err(out["ep_mp"]["losses"], jepmp[0]) <= LOSS_TOL, (
             out["ep_mp"]["losses"], jepmp[0])

@@ -392,10 +392,15 @@ def test_load_weights_copies_in_place_and_checks(models):
 
 
 def test_load_weights_takes_the_reference_signature(models):
-    """``load_weights(params, shardings=None, allow_missing=False)``: a
-    reference-style positional ``load_weights(params, shardings)`` raises,
-    naming A5, and copies nothing (the dict must not be read as
-    ``allow_missing``); ``load_weights(params, None, True)`` loads."""
+    """``load_weights(params, shardings=None, allow_missing=False)``, as the
+    reference: a positional ``shardings`` dict is read as the layout (not
+    as ``allow_missing``), so a missing name still raises and nothing is
+    copied; ``shardings={}`` (falsy) and a None entry keep the current
+    layout and load; a placement the built model does not hold raises,
+    copying nothing; ``load_weights(params, None, True)`` loads."""
+    from paddle_tpu_torch.distributed.mesh import (DeviceMesh, NamedSharding,
+                                                   PartitionSpec)
+
     jm, tm, params = models
     model = _port_model(params)
     eng = Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64),
@@ -403,10 +408,20 @@ def test_load_weights_takes_the_reference_signature(models):
     before = {n: p.clone() for n, p in model.state_dict().items()}
     sd = from_paddle_tpu(_random_params(jm, 1))
     missing = {k: v for k, v in sd.items() if k != "gpt.final_ln.bias"}
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(KeyError, match="missing"):
         eng.load_weights(missing, {"gpt.final_ln.bias": None})
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.load_weights(sd, shardings={})
+    own = eng.shardings()
+    assert own["gpt.final_ln.bias"].is_replicated
+    other = NamedSharding(DeviceMesh([0], ("mp",)), PartitionSpec("mp"))
+    with pytest.raises(ValueError, match="cannot change"):
+        eng.load_weights(sd, shardings={"gpt.final_ln.bias": other})
+    assert all(torch.equal(before[n], p)
+               for n, p in model.state_dict().items())
+    eng.load_weights(sd, shardings={})
+    assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items())
+    eng.load_weights({k: before[k] for k in sd},
+                     {"gpt.final_ln.bias": None, **{
+                         k: own[k] for k in list(own)[:3]}})
     assert all(torch.equal(before[n], p)
                for n, p in model.state_dict().items())
     eng.load_weights(missing, None, True)

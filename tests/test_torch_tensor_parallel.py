@@ -71,6 +71,10 @@ OPS_TOL = 2e-6
 #: parallel CE on bf16 logits against the same logits in fp32: both run
 #: in fp32, so they agree to fp32 rounding
 BF16_CE_TOL = 1e-6
+#: the mp-2 model's served prefill logits against one process's on the
+#: same weights: fp32 partial sums over 2 ranks in another order, logits
+#: of order 1
+SERVING_TOL = 1e-5
 QKV = "gpt.layers.0.attn.qkv.weight"
 
 
@@ -263,6 +267,11 @@ def test_mp_matches_the_reference(tmp_path):
         jspec = _jax_step(mesh, param_specs={QKV: P()})
         lspec = _jax_run(jspec, xs, ys)
         outs = ranks.results()
+    one = GPTForCausalLM(GPTConfig(**R.TINY), device="cpu")
+    one.load_state_dict(params)
+    with torch.no_grad():
+        one_logits = one.prefill_with_cache(torch.from_numpy(
+            xs[0][:1, :8]))[0]
     _assert_hcg(outs, [1, 1, 1, 1, 1, 2])
     _assert_mp_ops(want_ops, outs)
     _assert_parity(jplain, lplain, outs, "plain", 3)
@@ -277,8 +286,11 @@ def test_mp_matches_the_reference(tmp_path):
         # a MoE block at mp holds every expert on every rank (A5.4c;
         # trained against the JAX step in test_torch_moe_mp.py)
         assert out["moe_w1"] == (4, 64, 256), out["moe_w1"]
-        assert out["refuse_serving"].startswith("NotImplementedError") \
-            and "A5.5" in out["refuse_serving"], out["refuse_serving"]
+        # serving at mp (A5.5b): the whole prefill logits, the same bits
+        # on both ranks, within summation order of one process's
+        assert torch.equal(out["serving"], outs[0]["serving"])
+        assert float((out["serving"] - one_logits).abs().max()) \
+            <= SERVING_TOL
         assert out["refuse_kv"].startswith("ValueError") \
             and "num_kv_heads" in out["refuse_kv"], out["refuse_kv"]
     back = jckpt.CheckpointManager(str(tmp_path / "port_ck")).restore()
@@ -409,13 +421,15 @@ def test_rng_tracker_replays_and_advances():
 
 
 def test_options_left_out_raise(monkeypatch):
-    """Sequence parallelism (A5.7), a spec the port cannot realise (A7),
-    ring attention's ppermute (A5.7) and ``grad_reduce`` at an ep degree
-    above 1 over a ``MoELayer``'s expert modules (A5.4d) raise naming
-    their items. ``MoELayer(group=)`` takes its rank's experts (``E`` is
-    the group's size times theirs), and a GPT-MoE model built without the
-    step's groups (routing its rank's rows alone) cannot join a step at
-    dp 2."""
+    """Sequence parallelism (A5.7), a spec the port cannot realise (A7)
+    and ring attention's ppermute (A5.7) raise naming their items.
+    ``MoELayer(group=)`` takes its rank's experts (``E`` is the group's
+    size times theirs); ``grad_reduce`` at an ep degree above 1 over its
+    expert modules reduces every expert's gradient under its JAX name, as
+    the JAX step, which trains there, holds them (A5.4d; trained against
+    it in ``test_torch_moe_mp.py``), and refuses experts that are not
+    same-shaped ``ExpertMLP``s; a GPT-MoE model built without the step's
+    groups (routing its rank's rows alone) cannot join a step at dp 2."""
     from paddle_tpu_torch.distributed.fleet import utils as tutils
     from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertMLP,
                                                                   MoELayer)
@@ -434,9 +448,20 @@ def test_options_left_out_raise(monkeypatch):
     net = torch.nn.Sequential(MoELayer(
         64, [ExpertMLP(64, 32, device="cpu") for _ in range(2)],
         group=Group([0, 1])))
+    step = tutils.make_sharded_train_step(
+        net, AdamW(parameters=net.named_parameters()),
+        loss_fn=lambda o, y: o.square().mean(),
+        mesh=D.DeviceMesh([0, 1], ("ep",)), grad_reduce="int8",
+        device="cpu")
+    assert sorted(step._whole_experts) == sorted(
+        f"0.expert_{j}.{k}" for j in range(4)
+        for k in ("fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias"))
+    odd = torch.nn.Sequential(MoELayer(
+        64, [ExpertMLP(64, 32, device="cpu"),
+             ExpertMLP(64, 16, device="cpu")], group=Group([0, 1])))
     with pytest.raises(NotImplementedError, match="A5.4d"):
         tutils.make_sharded_train_step(
-            net, AdamW(parameters=net.named_parameters()),
+            odd, AdamW(parameters=odd.named_parameters()),
             loss_fn=lambda o, y: o.square().mean(),
             mesh=D.DeviceMesh([0, 1], ("ep",)), grad_reduce="int8",
             device="cpu")

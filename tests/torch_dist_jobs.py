@@ -1,6 +1,9 @@
-"""The rank jobs of the port's ZeRO-3, gradient-reduction and expert-
-parallel tests (``tests/test_torch_zero3.py``,
-``tests/test_torch_comm_opt.py``, ``tests/test_torch_expert_parallel.py``).
+"""The rank jobs of the port's ZeRO-3, gradient-reduction, expert-
+parallel, resharding, split-serving and sharded-save tests
+(``tests/test_torch_zero3.py``, ``tests/test_torch_comm_opt.py``,
+``tests/test_torch_expert_parallel.py``, ``tests/test_torch_moe_mp.py``,
+``tests/test_torch_resharding.py``, ``tests/test_torch_split_serving.py``,
+``tests/test_torch_sharded_save.py``).
 Imports no JAX: ``tests/test_torch_dist_ranks.py``, the script each rank
 runs, looks a job up here when it is not one of its own.
 """
@@ -12,6 +15,7 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch import distributed as D
 from paddle_tpu_torch.checkpoint import CheckpointManager
 from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.framework.io import save_sharded
 from paddle_tpu_torch.distributed.comm_opt import (GradReduceConfig,
                                                    plan_as_dict,
                                                    reducer_for_step)
@@ -25,6 +29,7 @@ from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM, gpt_moe_tiny
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 from paddle_tpu_torch.weights import from_paddle_tpu, to_paddle_tpu
 
 import test_torch_dist_ranks as R
@@ -497,8 +502,8 @@ def job_ep4(directory, inp, rank):
 
 # ---------------- GPT-MoE at mp, grad_reduce and MoELayer at ep (A5.4c) ----
 def _moe_layer(li, hcg, rank):
-    """A ``MoELayer`` over the ep group holding this rank's experts of the
-    JAX layer's weights ``li``, wrapped so the step trains it."""
+    """A ``MoELayer`` over the ep group holding ep rank ``rank``'s experts
+    of the JAX layer's weights ``li``, wrapped so the step trains it."""
     n_loc = li["fc1_w"].shape[0] // 2
     experts = [ExpertMLP(*li["fc1_w"].shape[1:], device="cpu")
                for _ in range(n_loc)]
@@ -575,6 +580,38 @@ def job_moe_mp2(directory, inp, rank):
     return out
 
 
+def _layer_reduce(li, lx, hcg, rank, rows, modes=("fp32", "int8")):
+    """A ``MoELayer(group=)`` holding this ep rank's experts of ``li``,
+    trained on ``lx[k][rows]`` under each ``grad_reduce`` mode (A5.4d):
+    losses and the checkpoint tree's params, gathered (every expert under
+    its JAX name)."""
+    out = {}
+    e = hcg.get_expert_parallel_rank()
+    for mode in modes:
+        lay = _moe_layer(li, hcg, e)
+        step = fleet.make_sharded_train_step(
+            lay, AdamW(learning_rate=R.LR, epsilon=R.EPS, weight_decay=0.01,
+                       parameters=lay.named_parameters()),
+            loss_fn=lambda o, y: o.float().square().mean(),
+            mesh=hcg.get_mesh(), grad_reduce=mode, device="cpu")
+        losses = [step(lx[k][rows], lx[k][rows]).item()
+                  for k in range(lx.shape[0])]
+        out[mode] = {"losses": losses, "reduced": sorted(
+            step._whole_experts), "params": R._tree_copy(
+                step.state_for_checkpoint().to_tree()["params"])}
+    return out
+
+
+def job_moe_layer_ep2(directory, inp, rank):
+    """Two ranks at ep 2: a MoELayer(group=) with each rank's two experts
+    of four under grad_reduce fp32 and int8 (A5.4d), each rank on its half
+    of every batch."""
+    hcg = R._hybrid_init({"ep_degree": 2})
+    lx = inp["layer_x"]
+    half = slice(rank * lx.shape[1] // 2, (rank + 1) * lx.shape[1] // 2)
+    return _layer_reduce(inp["layer"], lx, hcg, rank, half)
+
+
 def job_moe_mp4(directory, inp, rank):
     """Four ranks: 3 steps of the tiny GPT-MoE at ep 2 x mp 2 (each ep
     rank on its half of every batch, the mp ranks on the same rows) and at
@@ -598,6 +635,10 @@ def job_moe_mp4(directory, inp, rank):
             model, opt, mesh=hcg.get_mesh(), grad_reduce=mode, device="cpu")
         out[f"dp_ep_{mode}"] = R._run_global(step, xs, ys,
                                              slice(rank, rank + 1))
+    # A5.4d: a MoELayer's expert modules at dp 2 x ep 2, each rank on its
+    # quarter of every batch
+    out["layer"] = _layer_reduce(inp["layer"], inp["layer_x"], hcg, rank,
+                                 slice(rank, rank + 1))
     return out
 
 
@@ -805,9 +846,241 @@ def _spec_tree(tree):
             dict(tree.segments))
 
 
+# ---------------- serving a split model (A5.5b) -----------------------------
+#: the engines each split model serves the prompts through
+ENGINES = {"paged": {}, "dense": {"kv_layout": "dense"},
+           "spec": {"prefix_cache": True, "speculative": 3}}
+#: the sampled requests' settings
+SAMPLED = SamplingParams(max_new_tokens=8, do_sample=True, temperature=0.8,
+                         top_k=20)
+
+
+def _serve(model, weights, prompts, kw, sampling):
+    """One engine on ``model`` (``kw`` its config), ``weights`` loaded by
+    ``load_weights``, serving ``prompts``: each request's tokens, finish
+    reason and prefix hits, the slot table after every step, the page
+    table at the end and the speculation counters."""
+    eng = Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64, **kw),
+                 device="cpu")
+    eng.load_weights(weights)
+    reqs = [eng.add_request(p, sampling) for p in prompts]
+    slots = []
+    while eng.has_unfinished:
+        eng.step()
+        slots.append([None if r is None else reqs.index(r)
+                      for r in eng._slots])
+    page = getattr(eng.cache, "page_table", None)
+    return {"tokens": [r.output_ids for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "hits": [r.prefix_hit_blocks for r in reqs], "slots": slots,
+            "pages": None if page is None else torch.from_numpy(page.copy()),
+            "spec": [eng.spec_drafted, eng.spec_accepted],
+            "captured": eng.captured,
+            "eager_steps": sum(st.eager_steps for st in eng.steps.values()),
+            "kv_heads": eng.cache.num_kv_heads}
+
+
+def _serve_all(cfg, weights, inp):
+    """The split model of ``cfg`` (built on the current topology) through
+    every engine, greedy, and the paged one sampled; ``generate`` greedy
+    and sampled (a generator seeded alike on every rank)."""
+    model = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
+    model.eval()
+    greedy = SamplingParams(max_new_tokens=8)
+    out = {name: _serve(model, weights, inp["prompts"], kw, greedy)
+           for name, kw in ENGINES.items()}
+    out["sampled"] = _serve(model, weights, inp["prompts"], {}, SAMPLED)
+    ids = inp["gen_ids"]
+    out["generate"] = model.generate(ids, max_new_tokens=8)
+    out["generate_sampled"] = model.generate(
+        ids, max_new_tokens=8, do_sample=True, top_k=20,
+        generator=torch.Generator().manual_seed(5))
+    return model, out
+
+
+def job_split_mp2(directory, inp, rank):
+    """Two ranks: the tiny GPT at mp 2 served through every engine and
+    ``generate``; its weights by ``load_weights`` from a live ZeRO-3
+    (``p_g_os``) step at sharding 2 and from that step's sharded save,
+    against the same weights whole; a placement the model does not hold
+    refused."""
+    from paddle_tpu_torch.distributed import resharding as rs
+
+    cfg = {**R.TINY, "num_kv_heads": 2}
+    out = {}
+    # the sharding-2 step on the second weights, one step taken
+    hcg = R._hybrid_init({"sharding_degree": 2})
+    model, opt = _model(inp["params2"], num_kv_heads=2)
+    model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+    step = fleet.make_sharded_train_step(model, opt, mesh=hcg.get_mesh(),
+                                         device="cpu")
+    step(inp["x"][0][rank * 2:rank * 2 + 2], inp["y"][0][rank * 2:rank * 2 + 2])
+    live = step.live_state()["params"]
+    whole = R._tree_copy(step.state_for_checkpoint().to_tree()["params"])
+    _save(step, directory / "z3_ck", 1)
+
+    hcg = R._hybrid_init({"mp_degree": 2})
+    model, out["mp"] = _serve_all(cfg, from_paddle_tpu(inp["params"]), inp)
+    greedy = SamplingParams(max_new_tokens=8)
+    eng = Engine(model, EngineConfig(max_batch_size=2, max_seq_len=64),
+                 device="cpu")
+    rs.reset_stats()
+    eng.load_weights(live)
+    out["live_stats"] = rs.stats()
+    out["live"] = eng.generate(inp["prompts"], greedy)
+    tree = CheckpointManager(directory / "z3_ck").restore(
+        shardings={"params": eng.shardings()})
+    eng.load_weights(tree["params"])
+    out["from_save"] = eng.generate(inp["prompts"], greedy)
+    eng.load_weights(whole)
+    out["whole"] = eng.generate(inp["prompts"], greedy)
+    qkv = "gpt.layers.0.attn.qkv.weight"
+    out["refuse"] = R._raises(lambda: eng.load_weights(whole, shardings={
+        qkv: D.NamedSharding(hcg.get_mesh(), D.PartitionSpec())}))
+    out["qkv_block"] = model.gpt.layers[0].attn.qkv.weight.detach().clone()
+    out["whole_qkv"] = whole[qkv]
+    return out
+
+
+def job_split_ep2(directory, inp, rank):
+    """Two ranks: the tiny GPT-MoE at ep 2 served through every engine and
+    ``generate``."""
+    R._hybrid_init({"ep_degree": 2})
+    cfg = {**R.TINY, "num_layers": 2, "moe_num_experts": 4,
+           "moe_every_k": 2, "num_kv_heads": None}
+    return {"ep": _serve_all(cfg, from_paddle_tpu(inp["moe_params"]),
+                             inp)[1]}
+
+
+def job_split_ep_mp4(directory, inp, rank):
+    """Four ranks: the tiny GPT-MoE at ep 2 x mp 2 served through every
+    engine and ``generate``."""
+    R._hybrid_init({"ep_degree": 2, "mp_degree": 2})
+    cfg = {**R.TINY, "num_layers": 2, "moe_num_experts": 4,
+           "moe_every_k": 2, "num_kv_heads": None}
+    return {"ep_mp": _serve_all(cfg, from_paddle_tpu(inp["moe_params"]),
+                                inp)[1]}
+
+
+# ---------------- the sharded save (A5.5b) ---------------------------------
+#: the tensor collectives of torch.distributed (barriers aside)
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single", "all_to_all",
+               "broadcast", "send", "recv", "isend", "irecv", "reduce",
+               "gather", "scatter", "all_gather_object",
+               "broadcast_object_list")
+
+
+class _CountCollectives:
+    """Counts the calls of ``torch.distributed``'s tensor collectives while
+    it is entered (every port module looks them up there at call time)."""
+
+    def __enter__(self):
+        self.calls, self._saved = [], {}
+        dist = torch.distributed
+        for name in COLLECTIVES:
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.calls.append(_name)
+                return _fn(*a, **kw)
+
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(torch.distributed, name, fn)
+
+
+def _leaf_bytes(t):
+    return t.numel() * t.element_size()
+
+
+def _sharded_save(step, path, rank, at):
+    """``state_for_checkpoint()`` and a ``CheckpointManager`` save of it,
+    the tensor collectives they make counted; this rank's bytes written
+    against its replica-0 blocks' (every split leaf is split over all the
+    ranks here, so each rank writes its block of each, and rank 0 the
+    whole arrays too); the state gathered by the explicit gather."""
+    from paddle_tpu_torch.distributed.resharding import ShardedTensor
+
+    mgr = CheckpointManager(path)
+    with _CountCollectives() as count:
+        tree = step.state_for_checkpoint().to_tree()
+        mgr.save(at, tree)
+        mgr.wait_until_finished()
+    leaves = [v for part in ("params", "opt_state")
+              for v in _flat_leaves(tree[part])]
+    blocks = sum(_leaf_bytes(v.block) for v in leaves
+                 if isinstance(v, ShardedTensor))
+    whole = sum(_leaf_bytes(torch.as_tensor(np.asarray(v)))
+                for v in leaves if not isinstance(v, ShardedTensor))
+    out = {"collectives": count.calls, "bytes": mgr.last_save["bytes"],
+           "expected": blocks + (whole if rank == 0 else 0),
+           "sharded": sum(isinstance(v, ShardedTensor) for v in leaves),
+           "blocking_s": mgr.last_save["blocking_s"],
+           "gathered": R._tree_copy({k: tree[k] for k in
+                                     ("params", "opt_state")})}
+    mgr.close()
+    return out
+
+
+def _flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flat_leaves(v)]
+    return [tree] if tree is not None and not isinstance(
+        tree, (int, float, str)) else []
+
+
+def job_sharded_save2(directory, inp, rank):
+    """Two ranks: the tiny GPT at mp 2 and at ZeRO-3 sharding 2 and the
+    tiny GPT-MoE at ep 2, two steps each, saved sharded (no collective;
+    each rank its replica-0 blocks; at mp 2 through ``framework.io.
+    save_sharded`` too), then restored into a step built on other weights,
+    which takes the third step."""
+    xs, ys = inp["x"], inp["y"]
+    half = slice(rank * xs.shape[1] // 2, (rank + 1) * xs.shape[1] // 2)
+    out = {}
+
+    def run(key, make, rows):
+        step = make(inp["params"] if key != "ep" else inp["moe_params"])
+        for k in range(2):
+            step(xs[k][rows], ys[k][rows])
+        out[key] = _sharded_save(step, directory / f"{key}_ck", rank, 2)
+        if key == "mp":  # the same blocks through framework.io
+            save_sharded(step.state_for_checkpoint().to_tree(),
+                         str(directory / "mp_io"))
+        noise = {k: torch.randn_like(v) for k, v in (
+            inp["params"] if key != "ep" else inp["moe_params"]).items()}
+        fresh = make(noise)
+        fresh.restore_from_checkpoint(CheckpointManager(
+            directory / f"{key}_ck").restore(
+                shardings=fresh.checkpoint_shardings()))
+        out[key]["resumed"] = fresh(xs[2][rows], ys[2][rows]).item()
+
+    hcg = R._hybrid_init({"mp_degree": 2})
+    run("mp", lambda w: R._tp_step(
+        from_paddle_tpu({k: v.numpy() for k, v in w.items()},
+                        mp_rank=rank, mp_degree=2), hcg), slice(None))
+    hcg = R._hybrid_init({"sharding_degree": 2})
+    run("zero3", lambda w: _z3_step(w, hcg.get_mesh())[1], half)
+    hcg = R._hybrid_init({"ep_degree": 2})
+    run("ep", lambda w: fleet.make_sharded_train_step(
+        *_moe_model(w, hcg=hcg), mesh=hcg.get_mesh(), device="cpu"), half)
+    return out
+
+
 JOBS = {"reducer": job_reducer, "grad_reduce": job_grad_reduce,
         "zero3": job_zero3, "zero3_state": job_zero3_state,
         "dp_sharding_4": job_dp_sharding_4,
         "dp_mp_4": job_dp_mp_4, "ep2": job_ep2, "ep4": job_ep4,
         "moe_mp2": job_moe_mp2, "moe_mp4": job_moe_mp4,
+        "moe_layer_ep2": job_moe_layer_ep2,
+        "split_mp2": job_split_mp2, "split_ep2": job_split_ep2,
+        "split_ep_mp4": job_split_ep_mp4,
+        "sharded_save2": job_sharded_save2,
         "reshard": job_reshard, "reshard_ckpt": job_reshard_ckpt}
