@@ -29,6 +29,12 @@
     python3 chip_smoke.py --mx-worker DIR | --mx4-worker DIR
         # one rank of [22] | [22a]'s ep 2 x mp 2; the launcher starts two |
         # four
+    python3 chip_smoke.py --split-of DIR | --pp-of DIR
+        # a checkout's serving over ranks and sharded save ([23]) | its
+        # pipeline parallelism ([24]) alone
+    python3 chip_smoke.py --pp-worker DIR | --pp4-worker DIR
+        # one rank of [24] | [24a]'s pp 2 x dp 2 and pp 2 x mp 2; the
+        # launcher starts two | four
 
 Phases, each of which exits non-zero on failure:
 
@@ -318,12 +324,35 @@ Phases, each of which exits non-zero on failure:
    ``MoELayer(group=)`` of config 5's FFN width at ep 2 under grad_reduce
    fp32 and int8 (every expert's gradient reduced under its JAX name): a
    reduction repeated on the CPU, the reduced gradients bitwise.
+24. pipeline parallelism, gloo ranks on the card in the same launcher
+   starts (``--pp-worker``, ``--pp4-worker``): [24a] the 1.3B's width at
+   depth 4 in fp32 at pp 2 under 1f1b (M 2 and 4), gpipe, no remat and 2
+   virtual stages, config 5's width with every block MoE under 1f1b and
+   gpipe, and four ranks at pp 2 x dp 2 and pp 2 x mp 2, each against one
+   process's plain step on the card on the same weights (losses within
+   ``DP_LOSS_TOL``, every parameter, the stages joined, within
+   ``DP_PARAM_TOL``), every fp32 flash launch on the CUDA cores; with
+   dropout the 1f1b, gpipe and no-remat runs and a repeat equal to the
+   bit; [24b] GPT-3 1.3B whole at pp 2 (12 blocks a stage), bf16, [6]'s
+   AdamW, ``PP_MAIN_B`` x ``PP_MAIN_S`` at M ``PP_MAIN_M``, 1f1b with
+   remat: each rank's step by host clock against one process's at the
+   batch, the transfers' calls and bytes against the 1F1B table's and
+   their host share, parameter and optimizer elements against the whole
+   model's, launches and the profiler's kernels against the counts the
+   code gives (2 flash forwards, 1 dq and 1 dk/dv a block a microbatch,
+   4 + 2 LayerNorm forwards and 2 + 1 backwards on the last stage, one
+   AdamW), and peak memory at ``PP_MEM_M`` microbatches under 1f1b with
+   remat against gpipe without; [24c] [24a]'s model in bf16 saved
+   sharded (no tensor collective, each rank's bytes its replica-0
+   blocks'), restored onto a step of other weights bitwise and resumed
+   within ``DP_LOSS_TOL``. The two ranks share the card, so their stages'
+   work serialises: no pipeline bubble is measured.
 
-The ranks of [18b]-[23] start once for each world size: each rank runs
+The ranks of [18b]-[24] start once for each world size: each rank runs
 the phases' workers in turn (``launch_chain``), and each phase then checks
 its ranks' records (``chained_records``); ``--mp-of``, ``--zero3-of``,
-``--ep-of``, ``--mx-of`` and ``--split-of`` chain only their own phases'
-workers (``--split-of``'s take [22c]'s step and gathered save
+``--ep-of``, ``--mx-of``, ``--split-of`` and ``--pp-of`` chain only their
+own phases' workers (``--split-of``'s take [22c]'s step and gathered save
 themselves).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -4520,7 +4549,8 @@ def zero_worker(directory: Path, seed: int) -> int:
 # starts once for the whole script
 WORKERS = ("dp_worker", "tp_worker", "zero_worker", "z3_worker",
            "reduce_worker", "ep_worker", "mx_worker", "split_worker",
-           "ep4_worker", "mx4_worker", "split4_worker")
+           "pp_worker", "ep4_worker", "mx4_worker", "split4_worker",
+           "pp4_worker")
 # flag -> the work directory its ranks wrote, in a chained launch
 CHAINED = {}
 # [4]'s one-process readings, which [23b] prints beside its own
@@ -7282,6 +7312,557 @@ def split_ranks(K, seed: int, rows):
           flush=True)
 
 
+# --------------------------------------------------------------- phase 24
+# [24a]: the 1.3B's width (hidden 2048, 16 heads) at depth PP_LAYERS in
+# fp32, two gloo ranks at pp 2, PP_STEPS steps on PP_B x PP_S batches,
+# against one process's plain step on the card on the same weights and
+# with the same accumulate_steps; config 5's width with every block MoE
+# the same way; the four-rank chain's pp 2 x dp 2 and pp 2 x mp 2. With
+# dropout PP_DROPOUT the 1f1b, gpipe and no-remat runs and a repeat agree
+# to the bit (the stated bound: 0)
+PP_B, PP_S, PP_STEPS, PP_LAYERS, PP_DROPOUT = 4, 256, 3, 4, 0.1
+# [24b]: GPT-3 1.3B whole at pp 2, bf16, [6]'s AdamW, B x S, M
+# microbatches, 1f1b with remat; peak memory at PP_MEM_M under 1f1b with
+# remat against gpipe without it
+PP_MAIN_B, PP_MAIN_S, PP_MAIN_M, PP_MEM_M, PP_TIMED = 8, 2048, 4, 8, 3
+#: the [24a] runs: (name, accumulate_steps, step options)
+PP_RUNS = (("1f1b_m2", 2, {}), ("1f1b_m4", 4, {}),
+           ("gpipe_m2", 2, {"pp_schedule": "gpipe"}),
+           ("noremat_m2", 2, {"pp_remat": False}),
+           ("vpp2_m2", 2, {"virtual_pp_degree": 2}))
+
+
+def pp_config(moe: bool, **over):
+    """[24a]'s model: the 1.3B's width at depth PP_LAYERS, or config 5's
+    width with every block MoE."""
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig
+
+    if moe:
+        return GPTConfig(**{**MOE5, "num_layers": PP_LAYERS,
+                            "moe_every_k": 1, "use_recompute": False,
+                            **over})
+    return GPTConfig(**{**GPT3_1p3B, "num_layers": PP_LAYERS,
+                        "dropout": 0.0, **over})
+
+
+def pp_batches(seed: int, vocab: int):
+    g = torch.Generator(device="cuda").manual_seed(seed + 24)
+    x = torch.randint(0, vocab, (PP_STEPS, PP_B, PP_S), generator=g,
+                      device="cuda")
+    return x, torch.roll(x, -1, dims=2)
+
+
+def pp_run(cfg, weights, x, y, M, rows=slice(None), mesh=None, steps=None,
+           **kw):
+    """``steps`` (PP_STEPS) steps of ``cfg`` on ``weights`` (this rank's,
+    or the whole model's in one process) at ``M`` microbatches: the
+    losses, the parameters after them (on the host) and the step."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    model.load_state_dict(weights)
+    model.train()
+    opt = AdamW(parameters=model.named_parameters(), **ep_parity_opt())
+    step = fleet.make_sharded_train_step(model, opt, accumulate_steps=M,
+                                         mesh=mesh, **kw)
+    losses = [step(x[k][rows], y[k][rows]).item()
+              for k in range(steps or PP_STEPS)]
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return losses, params, step
+
+
+def pp_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def pp_p2p_plan(n: int, M: int, rank: int, nbytes: int):
+    """What the 1F1B table (``_1f1b_ticks``) makes rank ``rank`` exchange
+    in a step after the first on batches of one shape (the transfers'
+    shapes known, no shape headers): exchange calls, tensors sent and
+    received, and bytes sent and received (``nbytes`` an activation or
+    gradient)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        pipeline_parallel as PPm
+
+    plan = dict(calls=0, sent=0, received=0, bytes_sent=0, bytes_received=0)
+    for row in PPm._1f1b_ticks(n, M):
+        mine = [m for m in PPm._messages(row, n, n) if rank in m[:2]]
+        if not mine:
+            continue
+        out = sum(m[0] == rank for m in mine)
+        plan["calls"] += 1
+        plan["sent"] += out
+        plan["received"] += len(mine) - out
+        plan["bytes_sent"] += out * nbytes
+        plan["bytes_received"] += (len(mine) - out) * nbytes
+    return plan
+
+
+class P2PTally:
+    """The pipeline's transfers while it is open: host seconds inside
+    ``pipeline_parallel.p2p_exchange`` (where the schedules look it up),
+    and ``communication.p2p_counts``' growth at ``close``."""
+
+    def __init__(self):
+        from paddle_tpu_torch.distributed import communication
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+            pipeline_parallel as PPm
+
+        self.mod, self.comm = PPm, communication
+        self.counts0 = dict(communication.p2p_counts)
+        self.seconds = 0.0
+        fn = self.fn = PPm.p2p_exchange
+
+        def clocked(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        PPm.p2p_exchange = clocked
+
+    def close(self):
+        self.mod.p2p_exchange = self.fn
+        return {k: v - self.counts0[k]
+                for k, v in self.comm.p2p_counts.items()}
+
+
+def pp_main_model(seed: int):
+    """[24b]'s GPT-3 1.3B (bf16, [6]'s AdamW) at pp 2 and its whole
+    parameter count; this rank's batch of PP_MAIN_B x PP_MAIN_S."""
+    from paddle_tpu_torch.models.gpt import GPT3_1p3B, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**GPT3_1p3B, dropout=0.0, use_recompute=True,
+                    recompute_interval=1, loss_chunk=128)
+    model = GPTForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.train()
+    whole = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                multi_precision=True, moment_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randint(0, cfg.vocab_size, (PP_MAIN_B, PP_MAIN_S), generator=g,
+                      device="cuda")
+    return cfg, model, opt, whole, x, torch.roll(x, -1, dims=1)
+
+
+def pp_worker(directory: Path, seed: int) -> int:
+    """One rank of [24], chained after [23]'s worker in its launch (two
+    ranks over gloo on the one card). [24a] the depth-4 fp32 runs of
+    PP_RUNS, the GPT-MoE under 1f1b and gpipe, the dropout runs; [24b] the
+    1.3B at pp 2: a warm-up step, PP_TIMED timed steps (host clock,
+    launches, transfers), one profiled, the parameter and optimizer
+    elements against the whole model's, and peak memory at PP_MEM_M
+    microbatches under 1f1b with remat and gpipe without; [24c] the
+    depth-4 model in bf16 saved sharded, restored onto a fresh step and
+    resumed."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed import communication, fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg, cfg_moe = pp_config(False), pp_config(True)
+    whole = ep_weights(seed + 24, cfg, torch.float32)
+    whole_moe = ep_weights(seed + 25, cfg_moe, torch.float32)
+    hcg = rank_init({"pp_degree": 2})
+    rank = fleet.worker_index()
+    x, y = pp_batches(seed, cfg.vocab_size)
+    xm, ym = pp_batches(seed + 1, cfg_moe.vocab_size)
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "stage": hcg.get_stage_id(),
+           "pp_group": hcg.get_pipe_parallel_group().ranks}
+    # ---- [24a]
+    K.reset_launch_counts()
+    for name, M, kw in PP_RUNS:
+        losses, params, step = pp_run(cfg, whole, x, y, M, **kw)
+        rec[name] = {"losses": losses, "peak_stash": step.pp_stats["peak_stash"]}
+        torch.save(params, directory / f"{name}.{rank}.pt")
+        del step
+    rec["parity_routes"] = {w: dict(getattr(K, w).route_launches)
+                            for w in FLASH_WRAPPERS}
+    for name, kw in (("moe_1f1b", {}), ("moe_gpipe", {"pp_schedule": "gpipe"})):
+        losses, params, step = pp_run(cfg_moe, whole_moe, xm, ym, 2, **kw)
+        rec[name] = {"losses": losses}
+        torch.save(params, directory / f"{name}.{rank}.pt")
+        del step
+    cfg_d = pp_config(False, dropout=PP_DROPOUT)
+    for name, kw in (("drop_1f1b", {}), ("drop_gpipe", {"pp_schedule": "gpipe"}),
+                     ("drop_noremat", {"pp_remat": False}), ("drop_again", {})):
+        losses, params, step = pp_run(cfg_d, whole, x, y, 2, **kw)
+        rec[name] = {"losses": losses, "digest": pp_digest(params)}
+        del step
+    del whole, whole_moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [24b] the 1.3B at pp 2
+    cfg_b, model, opt, n_whole, xb, yb = pp_main_model(seed)
+    step = fleet.make_sharded_train_step(model, opt,
+                                         accumulate_steps=PP_MAIN_M)
+    rec["main_elements"] = [sum(p.numel() for p in step.params.values()),
+                            n_whole]
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(xb, yb)]
+    gc.collect()
+    K.reset_launch_counts()
+    staged0 = dict(communication.staged_ops)
+    tally = P2PTally()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PP_TIMED):
+        losses.append(step(xb, yb))
+    torch.cuda.synchronize()
+    m = {"step_s": (time.perf_counter() - t0) / PP_TIMED}
+    counts = tally.close()
+    m["p2p"] = {k: v / PP_TIMED for k, v in counts.items()}
+    m["p2p_s"] = tally.seconds / PP_TIMED
+    m["launches"] = {k: v / PP_TIMED for k, v in K.launch_counts().items()}
+    m["staged"] = {k: (v - staged0.get(k, 0)) / PP_TIMED
+                   for k, v in communication.staged_ops.items()}
+    m["flash_routes"] = {w: dict(getattr(K, w).route_launches)
+                         for w in FLASH_WRAPPERS}
+    m["master_copies"] = opt.master_copies
+    m["peak_m4"] = torch.cuda.max_memory_allocated()
+    kernels = profile_launches(lambda: losses.append(step(xb, yb)))
+    m["profiled"] = launches_of(kernels, (
+        FWD_SYMBOL, *BWD_SYMBOLS.values(), NORM_SYMBOLS["fwd"],
+        NORM_SYMBOLS["bwd"], "fused_adamw"))
+    m["losses"] = [float(v) for v in losses]
+    m["param_bytes"] = tensor_bytes(step.params.values())
+    m["opt_bytes"] = opt_state_bytes(step)
+    m["stash_m4"] = step.pp_stats["peak_stash"]
+    del step
+    # peak memory at PP_MEM_M microbatches: 1f1b with remat, gpipe without
+    for name, kw in (("1f1b", {}), ("gpipe", {"pp_schedule": "gpipe",
+                                              "pp_remat": False})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = fleet.make_sharded_train_step(
+            model, opt, accumulate_steps=PP_MEM_M, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m[f"mem_{name}"] = [float(step(xb, yb)), base,
+                            torch.cuda.max_memory_allocated(),
+                            step.pp_stats["peak_stash"]]
+        del step
+    rec["main"] = m
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [24c] the save: the depth-4 model in bf16 at pp 2
+    sd = ep_weights(seed + 26, cfg, torch.bfloat16)
+
+    def bf16_step(weights):
+        mdl = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+        mdl.load_state_dict(weights)
+        mdl.train()
+        return fleet.make_sharded_train_step(
+            mdl, AdamW(learning_rate=1e-4, parameters=mdl.named_parameters(),
+                       multi_precision=True, moment_dtype="bfloat16"),
+            accumulate_steps=2)
+
+    step = bf16_step(sd)
+    for k in range(2):
+        step(x[k], y[k])
+    ck = directory / "pp_ck"
+    mgr = CheckpointManager(ck)
+    with DistCalls() as calls:
+        tree = step.state_for_checkpoint().to_tree()
+        mgr.save(2, tree)
+        mgr.wait_until_finished()
+    from paddle_tpu_torch.distributed.resharding import ShardedTensor
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [v for x_ in t.values() for v in leaves(x_)]
+        return [t]
+
+    def host(v):
+        return v if isinstance(v, torch.Tensor) \
+            else torch.as_tensor(np.asarray(v))
+
+    flat = [v for part in ("params", "opt_state") for v in leaves(tree[part])
+            if v is not None]
+    mine = sum(v.block.numel() * v.block.element_size() for v in flat
+               if isinstance(v, ShardedTensor))
+    repl = sum(host(v).numel() * host(v).element_size() for v in flat
+               if not isinstance(v, ShardedTensor))
+    # what was saved, copied before the next step updates the live tensors
+    saved = [(v.block if isinstance(v, ShardedTensor) else host(v))
+             .detach().clone() for v in flat]
+    c = {"collectives": calls.calls, "bytes": mgr.last_save["bytes"],
+         "expected": mine + (repl if rank == 0 else 0)}
+    mgr.close()
+    c["third"] = float(step(x[2], y[2]))
+    del step, tree, flat
+    fresh = bf16_step({k: v * 0.5 for k, v in sd.items()})
+    mgr = CheckpointManager(ck)
+    fresh.restore_from_checkpoint(mgr.restore(
+        shardings=fresh.checkpoint_shardings()))
+    mgr.close()
+    back = fresh.state_for_checkpoint().to_tree()
+    back = [v for part in ("params", "opt_state") for v in leaves(back[part])
+            if v is not None]
+    c["bitwise"] = len(back) == len(saved) and all(
+        torch.equal((v.block if isinstance(v, ShardedTensor) else host(v))
+                    .detach().cpu(), w.cpu()) for v, w in zip(back, saved))
+    c["resumed"] = float(fresh(x[2], y[2]))
+    rec["save"] = c
+    del fresh, sd
+    shutil.rmtree(ck, ignore_errors=True)
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def pp4_worker(directory: Path, seed: int) -> int:
+    """One rank of [24a]'s four-rank runs, chained after [23c]'s worker:
+    the depth-4 fp32 model at pp 2 x dp 2 (this rank's half of each
+    batch) and at pp 2 x mp 2 (its mp blocks), M 2."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.weights import from_paddle_tpu
+
+    cfg = pp_config(False)
+    whole = ep_weights(seed + 24, cfg, torch.float32)
+    x, y = pp_batches(seed, cfg.vocab_size)
+    hcg = rank_init({"dp_degree": 2, "pp_degree": 2})
+    rank = fleet.worker_index()
+    r = hcg.get_data_parallel_rank()
+    rows = slice(r * PP_B // 2, (r + 1) * PP_B // 2)
+    rec = {"rank": rank}
+    losses, params, step = pp_run(cfg, whole, x, y, 2, rows=rows,
+                                  mesh=hcg.get_mesh())
+    rec["dp"] = {"losses": losses}
+    torch.save(params, directory / f"dp.{rank}.pt")
+    del step
+    hcg = rank_init({"pp_degree": 2, "mp_degree": 2})
+    np_whole = {k: v.cpu().numpy() for k, v in whole.items()}
+    blocks = {k: v.cuda() for k, v in from_paddle_tpu(
+        np_whole, mp_rank=hcg.get_model_parallel_rank(), mp_degree=2).items()}
+    losses, params, step = pp_run(cfg, blocks, x, y, 2, mesh=hcg.get_mesh())
+    rec["mp"] = {"losses": losses}
+    torch.save(params, directory / f"mp.{rank}.pt")
+    del step
+    (directory / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def pp_ranks(K, seed: int, rows):
+    """[24]: the pipeline's two- and four-rank runs against one process on
+    the card; the 1.3B pipelined against [6]'s step at its batch; the
+    save."""
+    import math
+
+    from paddle_tpu_torch.weights import to_paddle_tpu
+
+    t_phase = time.perf_counter()
+    smi = f"{nvidia_smi_line()}, {torch.cuda.device_count()} card(s)"
+    work, work4 = CHAINED["--pp-worker"], CHAINED["--pp4-worker"]
+    try:
+        recs = chained_records("--pp-worker", "[24] pp 2, two ranks on one "
+                               "card")
+        recs4 = chained_records("--pp4-worker", "[24a] pp 2 x dp 2 and pp 2 "
+                                "x mp 2, four ranks on one card", 4)
+        cfg, cfg_moe = pp_config(False), pp_config(True)
+        x, y = pp_batches(seed, cfg.vocab_size)
+        xm, ym = pp_batches(seed + 1, cfg_moe.vocab_size)
+        refs = {}
+        for key, c, wseed, xx, yy, M in (
+                ("m2", cfg, 24, x, y, 2), ("m4", cfg, 24, x, y, 4),
+                ("moe", cfg_moe, 25, xm, ym, 2)):
+            w = ep_weights(seed + wseed, c, torch.float32)
+            losses, params, step = pp_run(c, w, xx, yy, M, mesh=None)
+            refs[key] = {"losses": losses, "params": params}
+            del step, w
+        torch.cuda.empty_cache()
+        print(f"    [24a] one process on the card (depth {PP_LAYERS}, fp32, "
+              f"{PP_STEPS} steps on {PP_B} x {PP_S}): losses M 2 "
+              f"{refs['m2']['losses']}, M 4 {refs['m4']['losses']}, GPT-MoE "
+              f"{refs['moe']['losses']}", flush=True)
+
+        ok = True
+        for name, M, _ in PP_RUNS:
+            ref = refs["m4" if M == 4 else "m2"]
+            got = to_paddle_tpu([torch.load(work / f"{name}.{r}.pt")
+                                 for r in range(2)], pp_degree=2)
+            errs = parity_errors(cfg, ref, recs[0][name]["losses"], got)
+            print(f"    (i) 1.3B width, depth {PP_LAYERS}, fp32, pp 2, "
+                  f"{name}: losses {recs[0][name]['losses']}; against one "
+                  f"process: losses {errs[0]:.3e} (tol {DP_LOSS_TOL:g}), "
+                  f"every parameter joined over the stages {errs[1]:.3e} "
+                  f"(tol {DP_PARAM_TOL:g}), the qkv biases' K third "
+                  f"{errs[2]:.3e}; stash peak "
+                  f"{[r[name]['peak_stash'] for r in recs]} cells ({smi})",
+                  flush=True)
+            ok &= parity_ok(errs) and recs[0][name]["losses"] == \
+                recs[1][name]["losses"]
+        for name in ("moe_1f1b", "moe_gpipe"):
+            got = to_paddle_tpu([torch.load(work / f"{name}.{r}.pt")
+                                 for r in range(2)], pp_degree=2)
+            errs = parity_errors(cfg_moe, refs["moe"],
+                                 recs[0][name]["losses"], got)
+            print(f"    (i) config 5's width, every block MoE, depth "
+                  f"{PP_LAYERS}, fp32, pp 2, {name}: losses "
+                  f"{recs[0][name]['losses']}; against one process: losses "
+                  f"{errs[0]:.3e}, parameters {errs[1]:.3e}, K third "
+                  f"{errs[2]:.3e}", flush=True)
+            ok &= parity_ok(errs)
+        for key, stages, join in (("dp", [(0,), (1,)], {}),
+                                  ("mp", [(0, 1), (2, 3)], {"mp_degree": 2})):
+            files = [work4 / f"{key}.{r}.pt" for st in stages for r in st]
+            got = to_paddle_tpu([torch.load(f) for f in files], pp_degree=2,
+                                **join)
+            errs = parity_errors(cfg, refs["m2"], recs4[0][key]["losses"], got)
+            print(f"    (i) pp 2 x {key} 2, four ranks: losses "
+                  f"{recs4[0][key]['losses']}; against one process: losses "
+                  f"{errs[0]:.3e}, parameters {errs[1]:.3e}, K third "
+                  f"{errs[2]:.3e}", flush=True)
+            ok &= parity_ok(errs) and all(
+                r[key]["losses"] == recs4[0][key]["losses"] for r in recs4)
+        drops = {n: (recs[0][n]["losses"], [r[n]["digest"] for r in recs])
+                 for n in ("drop_1f1b", "drop_gpipe", "drop_noremat",
+                           "drop_again")}
+        same = len({str(v) for v in drops.values()}) == 1
+        print(f"    (i) dropout {PP_DROPOUT}: losses and parameter digests "
+              f"{drops}; all equal to the bit: {same} (bound 0)", flush=True)
+        routes = recs[0]["parity_routes"]
+        check(ok and same and all(v["cuda_cores"] == sum(v.values()) > 0
+                                  for v in routes.values())
+              and all(r["backend"] == "GLOO" for r in recs),
+              f"[24a]: parity failed or a flash launch left the fp32 route "
+              f"{routes}")
+
+        # ---- [24b]
+        one = pp_one_process(seed)
+        nbytes = PP_MAIN_B // PP_MAIN_M * PP_MAIN_S * 2048 * 2
+        L = 12
+        for r in recs:
+            mm = r["main"]
+            last = r["stage"] == 1
+            ln, prof = mm["launches"], mm["profiled"]
+            M = PP_MAIN_M
+            want = {"flash_attention_fwd": 2 * L * M,
+                    "flash_attention_bwd_dq": L * M,
+                    "flash_attention_bwd_dkv": L * M,
+                    "fused_layer_norm": 4 * L * M + 2 * M * last,
+                    "layer_norm_bwd": 2 * L * M + M * last,
+                    "fused_adamw_multi": 1}
+            want_prof = {FWD_SYMBOL: want["flash_attention_fwd"],
+                         BWD_SYMBOLS["dq"]: L * M, BWD_SYMBOLS["dkv"]: L * M,
+                         NORM_SYMBOLS["fwd"]: want["fused_layer_norm"],
+                         NORM_SYMBOLS["bwd"]: want["layer_norm_bwd"],
+                         "fused_adamw": 1}
+            plan = pp_p2p_plan(2, M, r["stage"], nbytes)
+            frac = r["main_elements"]
+            share = frac[0] / frac[1]
+            mem = {k: mm[f"mem_{k}"] for k in ("1f1b", "gpipe")}
+            print(f"    (ii) rank {r['rank']} (stage {r['stage']}), GPT-3 "
+                  f"1.3B bf16 whole ({L} blocks a stage) at pp 2, batch "
+                  f"{PP_MAIN_B} x {PP_MAIN_S}, M {M}, 1f1b with remat: "
+                  f"losses {mm['losses']}; step {mm['step_s'] * 1e3:.1f} ms "
+                  f"host clock (one process {one['step_s'] * 1e3:.1f} ms; "
+                  f"the two ranks share the card, so their stages' work "
+                  f"serialises and no bubble is saved); transfers a step "
+                  f"{mm['p2p']} (the table's {plan}), "
+                  f"{mm['p2p_s'] * 1e3:.1f} ms host clock inside them = "
+                  f"{mm['p2p_s'] / mm['step_s']:.3f} of the step (waits on "
+                  f"the peer included); staged through the host "
+                  f"{mm['staged']}; parameter and optimizer elements "
+                  f"{frac[0]} of {frac[1]} = {share:.4f}, bytes "
+                  f"{(mm['param_bytes'] + mm['opt_bytes']) / 2**30:.2f} GiB "
+                  f"(one process {one['bytes'] / 2**30:.2f} GiB = "
+                  f"{(mm['param_bytes'] + mm['opt_bytes']) / one['bytes']:.4f})"
+                  f"; peak memory at M {M} {mm['peak_m4'] / 2**30:.2f} GiB "
+                  f"(one process at the batch {one['peak'] / 2**30:.2f}), "
+                  f"stash {mm['stash_m4']} cells; launches a step "
+                  f"{ {k: v for k, v in ln.items() if v} }; profiled step "
+                  f"{prof} ({smi})", flush=True)
+            print(f"    (iii) rank {r['rank']} at M {PP_MEM_M}: [loss, "
+                  f"allocated before, peak, stash cells] 1f1b with remat "
+                  f"{mem['1f1b']}, gpipe without {mem['gpipe']}: peak gap "
+                  f"{(mem['gpipe'][2] - mem['1f1b'][2]) / 2**30:.2f} GiB",
+                  flush=True)
+            check(all(math.isfinite(v) for v in mm["losses"])
+                  and abs(mm["losses"][0] - one["losses"][0]) <= 2e-2
+                  and all(ln[k] == v for k, v in want.items())
+                  and prof == want_prof
+                  and {k: mm["p2p"][k] for k in plan} == plan
+                  and mm["master_copies"] == 0
+                  and all(v["wgmma"] == sum(v.values()) > 0
+                          for v in mm["flash_routes"].values())
+                  and abs(share - 0.54) <= 0.01
+                  and mem["gpipe"][2] > mem["1f1b"][2]
+                  and mem["1f1b"][3] <= 2 and mem["gpipe"][3] == PP_MEM_M,
+                  f"[24b] rank {r['rank']}: launches {ln} (want {want}), "
+                  f"profiled {prof} (want {want_prof}), transfers "
+                  f"{mm['p2p']} (want {plan}), share {share}, memory {mem}, "
+                  f"first loss {mm['losses'][0]} against one process's "
+                  f"{one['losses'][0]}")
+        for name in TRAINING_KERNELS:
+            rows[name]["launches_pp"] = [r["main"]["launches"].get(name)
+                                         for r in recs]
+
+        # ---- [24c]
+        for r in recs:
+            c = r["save"]
+            print(f"    (iv) rank {r['rank']}: depth {PP_LAYERS} bf16 at pp "
+                  f"2 saved sharded: {len(c['collectives'])} tensor "
+                  f"collectives, {c['bytes']} bytes written against its "
+                  f"replica-0 blocks' {c['expected']}; restored onto a step "
+                  f"of other weights bitwise: {c['bitwise']}; resumed loss "
+                  f"{c['resumed']:.6f} against the uninterrupted "
+                  f"{c['third']:.6f} (tol {DP_LOSS_TOL:g})", flush=True)
+            check(not c["collectives"] and c["bytes"] == c["expected"]
+                  and c["bitwise"]
+                  and abs(c["resumed"] - c["third"]) <= DP_LOSS_TOL,
+                  f"[24c] rank {r['rank']}: {c}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(work4, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"    phase 24 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def pp_one_process(seed: int):
+    """[24b]'s model as one process at its batch (M 1, the plain step):
+    its first loss, step time, peak memory and parameter and optimizer
+    bytes."""
+    from paddle_tpu_torch.distributed import fleet
+
+    cfg, model, opt, _, x, y = pp_main_model(seed)
+    step = fleet.make_sharded_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(x, y))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PP_TIMED):
+        losses.append(float(step(x, y)))
+    torch.cuda.synchronize()
+    out = {"step_s": (time.perf_counter() - t0) / PP_TIMED,
+           "losses": losses, "peak": torch.cuda.max_memory_allocated(),
+           "bytes": tensor_bytes(step.params.values()) + opt_state_bytes(step)}
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7328,6 +7909,16 @@ def main() -> int:
                     help="run as one rank of phase 23c's ep 2 x mp 2 (the "
                     "port's launcher starts four), writing its results into "
                     "DIR")
+    ap.add_argument("--pp-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 24 (the port's launcher "
+                    "starts two), writing its results into DIR")
+    ap.add_argument("--pp4-worker", metavar="DIR", type=Path,
+                    help="run as one rank of phase 24a's pp 2 x dp 2 and pp "
+                    "2 x mp 2 (the port's launcher starts four), writing its "
+                    "results into DIR")
+    ap.add_argument("--pp-of", metavar="DIR", type=Path,
+                    help="only build and run phase 24 with the package in "
+                    "DIR, and exit")
     ap.add_argument("--split-of", metavar="DIR", type=Path,
                     help="only build and run phase 23 (its workers take "
                     "[22c]'s step and gathered save themselves) with the "
@@ -7363,7 +7954,8 @@ def main() -> int:
         return 2
     repo = (args.paged_shapes_of or args.train_of or args.moe_of
             or args.mp_of or args.zero3_of or args.ep_of or args.mx_of
-            or args.split_of or Path(__file__).parent).resolve()
+            or args.split_of or args.pp_of
+            or Path(__file__).parent).resolve()
     if not (repo / "paddle_tpu_torch" / "__init__.py").exists():
         print(f"chip_smoke: no paddle_tpu_torch package in {repo}",
               file=sys.stderr)
@@ -7497,6 +8089,23 @@ def main() -> int:
         launch_chain(["--split4-worker"], args.seed, 4,
                      "[23c]: four ranks on one card")
         split_ranks(K, args.seed, rows)
+        print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.pp_of:
+        from paddle_tpu_torch import kernels as K
+        from paddle_tpu_torch.kernels import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[1] device: {nvidia_smi_line()}; pipeline parallelism of "
+              f"{repo}", flush=True)
+        print(f"[2] nvcc built in {_build.build_all():.1f} s", flush=True)
+        rows = {name: {} for name in ALL_KERNELS}
+        launch_chain(["--pp-worker"], args.seed, 2,
+                     "[24]: two ranks on one card")
+        launch_chain(["--pp4-worker"], args.seed, 4,
+                     "[24a]: four ranks on one card")
+        pp_ranks(K, args.seed, rows)
         print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.train_of:
@@ -7837,11 +8446,11 @@ def main() -> int:
     # its ranks' records
     launch_chain(["--dp-worker", "--tp-worker", "--zero-worker",
                   "--z3-worker", "--reduce-worker", "--ep-worker",
-                  "--mx-worker", "--split-worker"], args.seed, 2,
-                 "[18b]-[23]: two ranks on one card, every phase's worker")
-    launch_chain(["--ep4-worker", "--mx4-worker", "--split4-worker"],
-                 args.seed, 4,
-                 "[21b], [22a], [23c]: four ranks on one card, every "
+                  "--mx-worker", "--split-worker", "--pp-worker"], args.seed,
+                 2, "[18b]-[24]: two ranks on one card, every phase's worker")
+    launch_chain(["--ep4-worker", "--mx4-worker", "--split4-worker",
+                  "--pp4-worker"], args.seed, 4,
+                 "[21b], [22a], [23c], [24a]: four ranks on one card, every "
                  "phase's worker")
     ref = dp_two_ranks(K, args.seed, rows)
 
@@ -7866,6 +8475,10 @@ def main() -> int:
     # ---- 23. serving a split model and the sharded save; grad_reduce over
     #      a MoELayer's experts at ep
     split_ranks(K, args.seed, rows)
+
+    # ---- 24. pipeline parallelism: pp 2 (with dp 2 and mp 2), the 1.3B
+    #      pipelined, the sharded save
+    pp_ranks(K, args.seed, rows)
 
     # ---- results
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -34,7 +34,9 @@ there, so each backward sums them.
 gradient-reduction paths; on a gloo group, ops other than all-reduce and
 broadcast on CUDA tensors go through pinned host memory (``staged_ops``
 counts them), since gloo runs only those two on the card's tensors for
-certain.
+certain. ``p2p_exchange`` is the pipeline's point-to-point transfers of
+one tick, posted together and then waited on (staged the same way on
+gloo; ``p2p_counts`` counts them).
 """
 
 from __future__ import annotations
@@ -369,6 +371,55 @@ def _through_host(pg, t: torch.Tensor, op: str) -> bool:
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+#: the pipeline's point-to-point exchanges: ``calls`` (one a tick that moves
+#: anything), tensors and bytes sent and received, by this process
+p2p_counts = {"calls": 0, "sent": 0, "received": 0, "bytes_sent": 0,
+              "bytes_received": 0}
+
+
+def p2p_exchange(sends, recvs, group) -> None:
+    """One batch of point-to-point transfers over ``group``: ``sends`` are
+    ``(dst, tensor, tag)`` and ``recvs`` ``(src, tensor, tag)`` (global
+    ranks; each received tensor is written in place), all posted together
+    (``batch_isend_irecv``) and then waited on, so two ranks that send to
+    each other in one batch cannot deadlock. Each side of a pair posts its
+    transfers in one order, which matches them; the tags keep kinds
+    apart. On a gloo group CUDA tensors go through pinned host memory
+    (gloo's send and recv take CPU tensors), counted in ``staged_ops``."""
+    g = _resolve_group(group)
+    pg = _pg(g)
+    if pg is None:
+        raise ValueError(f"p2p_exchange: {g} has no process group")
+    gloo = str(dist.get_backend(pg)) == "gloo"
+    ops, after = [], []
+    for dst, t, tag in sends:
+        src = t.contiguous()
+        if gloo and src.is_cuda:
+            staged_ops["send"] = staged_ops.get("send", 0) + 1
+            src = _pinned(src)
+        ops.append(dist.P2POp(dist.isend, src, _src(g, dst), group=pg,
+                              tag=tag))
+        p2p_counts["sent"] += 1
+        p2p_counts["bytes_sent"] += t.numel() * t.element_size()
+    for src_rank, t, tag in recvs:
+        dst = t
+        if gloo and t.is_cuda:
+            staged_ops["recv"] = staged_ops.get("recv", 0) + 1
+            dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            after.append((t, dst))
+        ops.append(dist.P2POp(dist.irecv, dst, _src(g, src_rank), group=pg,
+                              tag=tag))
+        p2p_counts["received"] += 1
+        p2p_counts["bytes_received"] += t.numel() * t.element_size()
+    if not ops:
+        return
+    p2p_counts["calls"] += 1
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for t, host in after:
+        t.copy_(host)
 
 
 def gather_blocks(t: torch.Tensor, group) -> list:

@@ -113,7 +113,9 @@ def init(role_maker=None, is_collective: bool = True,
 
 
 def distributed_model(model):
-    """``TensorParallel(model)`` at mp above 1, ``ShardingParallel`` in
+    """``PipelineParallel`` (``PipelineParallelWithInterleave`` at a
+    ``virtual_pp_degree`` above 1) for a ``PipelineLayer`` at pp above 1,
+    ``TensorParallel(model)`` at mp above 1, ``ShardingParallel`` in
     the sharding mode, ``DataParallel`` in the data mode (the hybrid
     topology's ``get_parallel_mode()``), else the model itself; at an ep
     degree above 1 without sharding, the model itself too (the train step
@@ -124,6 +126,17 @@ def distributed_model(model):
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return model
+    from .meta_parallel import (PipelineLayer, PipelineParallel,
+                                PipelineParallelWithInterleave)
+
+    if hcg.get_pipe_parallel_world_size() > 1 \
+            and isinstance(model, PipelineLayer):
+        vpp = (_strategy.pipeline_configs.get("virtual_pp_degree", 1)
+               if _strategy is not None else 1)
+        if vpp and vpp > 1:
+            return PipelineParallelWithInterleave(model, hcg=hcg,
+                                                  strategy=_strategy)
+        return PipelineParallel(model, hcg=hcg, strategy=_strategy)
     if hcg.get_expert_parallel_world_size() > 1 \
             and hcg.get_parallel_mode() == "data":
         return model

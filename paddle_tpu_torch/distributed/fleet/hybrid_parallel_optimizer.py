@@ -28,36 +28,51 @@ from ..parallel import grad_buffers
 
 @torch.no_grad()
 def hybrid_clip_(clip, grads, *, mp_split, sliced, mp_group,
-                 sharding_group, ep_split=None, ep_group=None):
+                 sharding_group, ep_split=None, ep_group=None,
+                 pp_counted=None, pp_group=None):
     """``clip``'s global-norm clip over ``grads`` held across ranks:
     ``mp_split[i]`` says gradient ``i`` is this rank's block of an
     mp-split parameter (its squares are summed over ``mp_group``),
     ``sliced[i]`` that it is a ZeRO-2 slice (summed over
     ``sharding_group`` first), and ``ep_split[i]`` that it is this ep
-    rank's block of an expert stack (summed over ``ep_group`` last).
-    Every gradient is scaled in place."""
+    rank's block of an expert stack (summed over ``ep_group`` last). Under
+    pipeline parallelism ``pp_counted[i]`` says this stage counts
+    gradient ``i`` (its own blocks, and a parameter every stage holds on
+    one stage only), and the squares are summed over ``pp_group``. A group
+    of None is one rank. Every gradient is scaled in place."""
     dev = grads[0].device if grads else None
     ep_split = ep_split or [False] * len(grads)
+    counted = pp_counted or [True] * len(grads)
     sums = torch.zeros(2, 2, 2, dtype=torch.float32, device=dev)
-    for g, m, s, e in zip(grads, mp_split, sliced, ep_split):
-        sums[int(e), int(s), int(m)] += g.float().square().sum()
+    for g, m, s, e, c in zip(grads, mp_split, sliced, ep_split, counted):
+        if c:
+            sums[int(e), int(s), int(m)] += g.float().square().sum()
     part = sums[:, 1].clone()
-    all_reduce(part, group=sharding_group)
+    _sum_over(part, sharding_group)
     whole = sums[:, 0] + part
     split = whole[:, 1:].clone()
-    all_reduce(split, group=mp_group)
+    _sum_over(split, mp_group)
     total = whole[:, 0] + split[:, 0]
     if any(ep_split):
         experts = total[1:].clone()
-        all_reduce(experts, group=ep_group)
-        norm = torch.sqrt(total[0] + experts[0])
+        _sum_over(experts, ep_group)
+        sq = total[0] + experts[0]
     else:
-        norm = torch.sqrt(total[0])
+        sq = total[0]
+    if pp_group is not None:
+        sq = sq.clone()
+        _sum_over(sq, pp_group)
+    norm = torch.sqrt(sq)
     if clip.auto_skip_clip and float(norm) <= clip.clip_norm:
         return
     scale = clip.clip_norm / torch.clamp(norm, min=clip.clip_norm)
     for g in grads:
         g.copy_(g.float() * scale)
+
+
+def _sum_over(t, group):
+    if group is not None:
+        all_reduce(t, group=group)
 
 
 class HybridParallelClipGrad(ClipGradByGlobalNorm):

@@ -128,6 +128,38 @@ must be same-shaped ``ExpertMLP``s (else ``NotImplementedError``).
 ``moe_dispatch="quant"`` raises there (no ep exchange is left to
 compress; the JAX step fails).
 
+Pipeline parallelism (a ``pp`` axis above 1, the model providing
+``pipeline_spec()``, as the JAX step asks): each rank keeps its stage's
+chunks of the block stack (chunk ``r * pp + stage`` for ``r`` below
+``virtual_pp_degree``; the other stages' blocks are dropped from the
+model and the optimizer) and the parameters outside it, replicated over
+pp. Each step splits the batch into ``accumulate_steps`` (default: the pp
+degree) microbatches, rows ``m::M``, and runs them through the schedule
+(``meta_parallel.pipeline_parallel``): ``pp_schedule`` ``"1f1b"`` (the
+interleaved 1F1B table under ``virtual_pp_degree`` with ``pp_remat``) or
+``"gpipe"`` (the interleaved forward-then-backward table under
+``virtual_pp_degree``), ``pp_remat`` recomputing each cell's forward in
+its backward (the model's own recompute policy does not run inside a
+cell, as in the JAX step). Each (microbatch, global chunk) cell runs
+under generators seeded from ``mix_seed(step key, m, chunk)``, so
+dropout draws the same masks under every schedule and in a recomputed
+forward; every schedule runs a chunk's backward cells in microbatch
+order, so 1f1b, gpipe and no-remat runs agree to the bit. The gradients
+are averaged over the microbatches, those of the parameters every stage
+holds (the embeddings, the tied head, the final LayerNorm) summed over
+pp before the reduction over the data axes; the clip counts each block on
+its stage and each replicated parameter once; the scaler's found-inf
+flag is reduced over pp too; the returned loss is the last stage's mean
+(plus a MoE model's aux term, summed over pp), on every rank.
+``state_for_checkpoint()`` names the blocks as the JAX pp step does,
+``{prefix}.__stacked__.<suffix>`` of shape ``[pp, L/pp, ...]`` (``[pp, v,
+L/(pp*v), ...]`` under interleaving), each a ``ShardedTensor`` of this
+stage's blocks (stacked, a copy) placed ``P("pp", None, *spec)``, and the
+optimizer state alike; ``restore_from_checkpoint`` takes such leaves (or
+their global arrays) back into the stage's blocks. ZeRO stage 3 and
+expert parallelism at pp above 1 raise ``NotImplementedError`` naming
+ROADMAP queue A item A5.6b.
+
 ``param_specs`` (``{name: PartitionSpec}``) is honoured where the port can
 realise the spec: the layer's own; ``PartitionSpec()`` on the weight of
 an mp linear (the whole weight on every rank: ``replicate_weight``); and a
@@ -152,15 +184,16 @@ reductions run and change no bit.
 
 Options of the JAX step that the port has not reached raise
 ``NotImplementedError`` naming their ROADMAP items: a mesh axis of size
-above 1 for pipeline (A5.6) or context (A5.7) parallelism, a batch split
-along another dimension than dim 0 (A5.7), the pipeline options (A5.6)
-and ``health_stats`` (A6).
-None is silently ignored.
+above 1 for context parallelism (A5.7), a batch split along another
+dimension than dim 0 (A5.7) and ``health_stats`` (A6). None is silently
+ignored; the pipeline options act only at a pp axis above 1, as in the
+JAX step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import re
 
 import numpy as np
 import torch
@@ -237,16 +270,10 @@ class ShardedTrainStep:
                  pp_remat=True, virtual_pp_degree=1, pp_schedule="1f1b",
                  scaler=None, grad_reduce=None, health_stats=None,
                  param_specs=None, *, device=None):
-        pipe = f"{_ITEM} A5.6 (pipeline parallelism)"
-        for what, on, item in (
-                ("pp_remat", pp_remat is not True, pipe),
-                ("virtual_pp_degree", virtual_pp_degree != 1, pipe),
-                ("pp_schedule", pp_schedule != "1f1b", pipe),
-                ("health_stats", bool(health_stats), f"{_ITEM} A6 "
-                 "(observability)")):
-            if on:
-                raise NotImplementedError(f"make_sharded_train_step: {what} "
-                                          f"is not ported yet ({item})")
+        if health_stats:
+            raise NotImplementedError(f"make_sharded_train_step: health_stats "
+                                      f"is not ported yet ({_ITEM} A6 "
+                                      "(observability))")
         if param_specs is not None and not isinstance(param_specs, dict):
             raise NotImplementedError(
                 f"param_specs must be a {{name: PartitionSpec}} table, got "
@@ -259,8 +286,11 @@ class ShardedTrainStep:
         self.device = resolve_device(device)
         self.model = model
         self.optimizer = optimizer
-        self.params = dict(model.named_parameters())
-        off = sorted(n for n, p in self.params.items()
+        if mesh is None:
+            hcg = get_hybrid_communicate_group()
+            mesh = hcg.get_mesh() if hcg is not None \
+                else DeviceMesh(np.arange(device_count()), ("dp",))
+        off = sorted(n for n, p in model.named_parameters()
                      if p.device.type != self.device.type)
         if off:
             raise ValueError(f"model parameters {off[:3]} are not on "
@@ -270,20 +300,183 @@ class ShardedTrainStep:
             raise NotImplementedError(
                 f"{type(clip).__name__}: only ClipGradByGlobalNorm is ported")
         self._clip = clip
+        self._pp_n = mesh.shape.get("pp", 1)
+        self._pspec = None
+        if self._pp_n > 1:
+            self._setup_pipeline(mesh, accumulate_steps, pp_remat,
+                                 virtual_pp_degree, pp_schedule, param_specs)
+        self.params = dict(model.named_parameters())
         self._scaler = scaler if scaler is not None and scaler.is_enable() \
             else None
         self._use_fwl = loss_fn is None and hasattr(model, "forward_with_loss")
         self.loss_fn = loss_fn if loss_fn is not None \
             else getattr(model, "loss", None)
-        if not self._use_fwl and self.loss_fn is None:
-            raise ValueError(f"{type(model).__name__} has no .loss/"
-                             ".forward_with_loss; pass loss_fn= to "
-                             "make_sharded_train_step")
-        self._accum = accumulate_steps if accumulate_steps else 1
+        if self._pspec is None:
+            if not self._use_fwl and self.loss_fn is None:
+                raise ValueError(f"{type(model).__name__} has no .loss/"
+                                 ".forward_with_loss; pass loss_fn= to "
+                                 "make_sharded_train_step")
+            self._accum = accumulate_steps if accumulate_steps else 1
         self._step_i = 0  # optimizer steps taken, as the JAX step counts
         self._init_parallel(mesh, batch_spec, wrapper, stage,
                             param_specs or {})
         optimizer.init_state(self._state_targets())
+
+    # ---------- pipeline parallelism ----------
+    def _setup_pipeline(self, mesh, accumulate_steps, remat, vpp, schedule,
+                        param_specs):
+        """The model's ``PipelineSpec``, this rank's chunks of blocks (the
+        other stages' blocks dropped from the model and the optimizer),
+        the microbatch count and the schedule, as the JAX step takes them
+        at a pp axis above 1. Every refusal comes before the model or the
+        optimizer is changed."""
+        from .meta_parallel.pipeline_parallel import (block_param_name,
+                                                      stage_chunks)
+
+        pp, model = self._pp_n, self.model
+        pipe_b = f"{_ITEM} A5.6b (pipeline parallelism with ZeRO-3 and " \
+            "expert parallelism)"
+        if self._stage3 is not None:
+            raise NotImplementedError(
+                f"ZeRO stage 3 (p_g_os) at pp degree {pp} is not ported yet "
+                f"({pipe_b})")
+        if mesh.shape.get(EP_AXIS, 1) > 1:
+            raise NotImplementedError(
+                f"expert parallelism at pp degree {pp} is not ported yet "
+                f"({pipe_b})")
+        if not hasattr(model, "pipeline_spec"):
+            raise ValueError(
+                f"mesh has pp={pp} but {type(model).__name__} provides no "
+                "pipeline_spec(); implement the PipelineSpec protocol "
+                "(see meta_parallel.pipeline_parallel)")
+        if param_specs:
+            raise ValueError("param_specs overrides are not supported with "
+                             "pipeline parallelism (pp>1): block params are "
+                             "restacked with a pp leading dim")
+        if schedule not in ("1f1b", "gpipe"):
+            raise ValueError(f"pp_schedule must be '1f1b' or 'gpipe', got "
+                             f"{schedule!r}")
+        spec = model.pipeline_spec()
+        v = max(int(vpp), 1)
+        L = spec.n_blocks
+        stage = mesh.coords(get_rank())["pp"]
+        chunks = stage_chunks(L, stage, pp, v)
+        prefix = spec.block_prefix
+        box = model.get_submodule(prefix) if prefix else model
+        self._my_layers = [i for ch in chunks for i in ch]
+        missing = [i for i in self._my_layers
+                   if box._modules.get(str(i)) is None]
+        if missing:
+            raise ValueError(f"the model lacks blocks {missing} of pipeline "
+                             f"stage {stage}")
+        self._pspec, self._vpp = spec, v
+        self._remat, self._pp_schedule = bool(remat), schedule
+        self._accum = accumulate_steps if accumulate_steps else pp
+        keep = set(self._my_layers)
+        for i in range(L):
+            if i not in keep and box._modules.get(str(i)) is not None:
+                setattr(box, str(i), None)
+        self._chunks = [[box._modules[str(i)] for i in ch] for ch in chunks]
+        self._block_re = re.compile(
+            rf"^{re.escape(prefix)}\.(\d+)\.(.+)$" if prefix
+            else r"^(\d+)\.(.+)$")
+        first = self._my_layers[0]
+        self._suffixes = sorted(
+            n for n, _ in box._modules[str(first)].named_parameters())
+        self._layer_name = lambda i, sfx: block_param_name(prefix, i, sfx)
+        self._stack_prefix = (f"{prefix}." if prefix else "") + "__stacked__."
+        live = {id(p) for p in model.parameters()}
+        _prune_optimizer(self.optimizer, live)
+        #: the last run's schedule facts (``peak_stash``, ``ticks``)
+        self.pp_stats = {}
+        #: the transfers' shapes by the batch's shape and dtype: a step on a
+        #: batch of a shape seen before sends no shape headers
+        self._edge_shapes = {}
+
+    def _is_block(self, name) -> bool:
+        """Whether ``name`` is a block parameter (pp-split): the others
+        every stage holds, replicated over pp."""
+        return self._pspec is not None and bool(self._block_re.match(name))
+
+    def _cuda_index(self):
+        """The step's card's index (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return self.device.index if self.device.index is not None \
+            else torch.cuda.current_device()
+
+    def _reseed(self, key):
+        """Seed the default generators of the CPU and the step's card."""
+        torch.random.default_generator.manual_seed(key)
+        dev = self._cuda_index()
+        if dev is not None:
+            torch.cuda.default_generators[dev].manual_seed(key)
+
+    def _pipeline_forward_backward(self, x, y, scale):
+        """The pp step's forward and backward: microbatch ``m`` (rows
+        ``m::M``) through this rank's chunks under the schedule, each cell
+        under generators seeded from ``mix_seed(step key, m, chunk)``; the
+        gradients averaged over the microbatches and those of the
+        parameters every stage holds summed over pp. Returns the mean loss
+        (times ``scale``), the same on every pp rank."""
+        from .meta_parallel import pipeline_parallel as P
+
+        M, spec, v = self._accum, self._pspec, self._vpp
+        if x.shape[0] % M:
+            raise ValueError(f"batch {x.shape[0]} not divisible by "
+                             f"accumulate_steps {M}")
+        xs = [x[m::M] for m in range(M)]
+        ys = [y[m::M] for m in range(M)]
+        with_aux = spec.block_with_aux is not None
+
+        def stage_fn(blocks, h, c):
+            if c == 0:
+                h = spec.pre(h)
+            aux = None
+            for blk in blocks:
+                if with_aux:
+                    h, a = spec.block_with_aux(blk, h)
+                    aux = a if aux is None else aux + a
+                else:
+                    h = spec.block(blk, h)
+            return (h, aux) if with_aux else h
+
+        key = self._key
+        kw = dict(loss_fn=lambda h, m: spec.post_loss(h, ys[m]),
+                  aux_weight=spec.aux_weight, grad_scale=scale,
+                  cell_seed=lambda m, c: self._reseed(mix_seed(key, m, c)),
+                  group=self._pp, device=self.device, stats=self.pp_stats,
+                  edge_shapes=self._edge_shapes.setdefault(
+                      (tuple(x.shape), x.dtype), {}))
+        if v > 1:
+            fn = P.pipeline_schedule_interleaved_1f1b \
+                if self._pp_schedule == "1f1b" and self._remat \
+                else P.pipeline_schedule_interleaved
+            out = fn(stage_fn, self._chunks, xs, "pp", self._pp_n,
+                     virtual_stages=v, remat=self._remat, with_aux=with_aux,
+                     **kw)
+        else:
+            fn = P.pipeline_schedule_1f1b if self._pp_schedule == "1f1b" \
+                else P.pipeline_schedule
+            out = fn(stage_fn, self._chunks[0], xs, "pp", self._pp_n,
+                     remat=self._remat, with_aux=with_aux, **kw)
+        losses, aux = out if with_aux else (out, None)
+        total = losses.sum() if losses is not None else torch.zeros(
+            (), dtype=torch.float32, device=self.device)
+        all_reduce(total, ReduceOp.SUM, group=self._pp)
+        if aux is not None:
+            total = total + spec.aux_weight * aux
+        inv = 1.0 / M
+        with torch.no_grad():
+            for n, p in self.params.items():
+                if M > 1 and p.grad is not None:
+                    p.grad.mul_(inv)
+                if not self._is_block(n) and p.requires_grad:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    all_reduce(p.grad, ReduceOp.SUM, group=self._pp)
+        loss = total * inv
+        return loss if scale is None else loss * scale
 
     # ---------- the mesh, its groups and the placements ----------
     def _axis_group(self, axes, name):
@@ -308,10 +501,6 @@ class ShardedTrainStep:
         parameters and their optimizer state, ``param_specs`` realised;
         the gradients' buffers (collective: every rank builds the
         step)."""
-        if mesh is None:
-            hcg = get_hybrid_communicate_group()
-            mesh = hcg.get_mesh() if hcg is not None \
-                else DeviceMesh(np.arange(device_count()), ("dp",))
         self.mesh = mesh
         spec = resolve_spec(batch_spec, mesh)
         if any(e is not None for e in spec[1:]):
@@ -324,8 +513,8 @@ class ShardedTrainStep:
             if n > 1 and axis in LATER_AXES:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {n}: the train step runs "
-                    f"data, tensor, ZeRO and expert parallelism ({_ITEM} "
-                    f"{LATER_AXES[axis]})")
+                    f"data, tensor, ZeRO, expert and pipeline parallelism "
+                    f"({_ITEM} {LATER_AXES[axis]})")
         if mesh.shape.get(SHARDING_AXIS, 1) > 1 \
                 and SHARDING_AXIS not in data_axes:
             raise ValueError(f"batch_spec {spec} leaves out the sharding "
@@ -340,6 +529,8 @@ class ShardedTrainStep:
             "sharding_group")
         self._ep = self._axis_group(
             (EP_AXIS,) if EP_AXIS in mesh.shape else (), "ep_group")
+        self._pp = self._axis_group(("pp",) if "pp" in mesh.shape else (),
+                                    "pp_group")
         if wrapper is not None and wrapper != self._dp.ranks:
             raise ValueError(
                 f"the model's DataParallel averages over ranks "
@@ -770,13 +961,10 @@ class ShardedTrainStep:
         key = mix_seed(self._seed, self._step_i)
         if self._dp_world > 1:  # ranks draw apart for their own rows
             key = mix_seed(key, self._dp_rank)
-        cuda = self.device.type == "cuda"
-        dev = (self.device.index if self.device.index is not None
-               else torch.cuda.current_device()) if cuda else None
-        with torch.random.fork_rng(devices=[dev] if cuda else []):
-            torch.random.default_generator.manual_seed(key)
-            if cuda:
-                torch.cuda.default_generators[dev].manual_seed(key)
+        self._key = key
+        dev = self._cuda_index()
+        with torch.random.fork_rng(devices=[] if dev is None else [dev]):
+            self._reseed(key)
             return self._keyed_step(x, y, lr)
 
     def _global_mean(self, loss):
@@ -791,16 +979,22 @@ class ShardedTrainStep:
         or ZeRO-2 slices."""
         zero = self._zero
         sliced = zero is not None and zero.stage >= 2 and zero.n > 1
-        if self._mp.nranks == 1 and not sliced and not self._experts:
+        pp = self._pp.nranks > 1
+        if self._mp.nranks == 1 and not sliced and not self._experts \
+                and not pp:
             self._clip.clip_(list(grads.values()))
             return
         names = [k for k, g in grads.items() if g is not None]
+        # over pp each block counts on its stage, the rest on stage 0
+        first = self._pp.rank == 0
         hybrid_clip_(
             self._clip, [grads[k] for k in names],
             mp_split=[_mp_split(self.params[k]) for k in names],
             sliced=[sliced and k in zero.dims for k in names],
             mp_group=self._mp, sharding_group=self._sh,
-            ep_split=[k in self._experts for k in names], ep_group=self._ep)
+            ep_split=[k in self._experts for k in names], ep_group=self._ep,
+            pp_counted=[first or self._is_block(k) for k in names],
+            pp_group=self._pp if pp else None)
 
     def _buffers(self):
         return [b for b in (self._grads, self._expert_grads) if b is not None]
@@ -818,7 +1012,9 @@ class ShardedTrainStep:
         if self._reducer is not None:
             loss, ef = self._reduce_explicitly(x, y, scale)
         else:
-            loss = self._forward_backward(x, y, scale)
+            loss = self._forward_backward(x, y, scale) \
+                if self._pspec is None \
+                else self._pipeline_forward_backward(x, y, scale)
             for buffers in self._buffers():
                 buffers.reduce()
             if zero is not None and zero.stage >= 2:
@@ -833,6 +1029,7 @@ class ShardedTrainStep:
                 all_reduce(flag, ReduceOp.MAX, group=self._dp)
                 all_reduce(flag, ReduceOp.MAX, group=self._mp)
                 all_reduce(flag, ReduceOp.MAX, group=self._sh)
+                all_reduce(flag, ReduceOp.MAX, group=self._pp)
             skip = flag is not None and bool(flag)
             sc._found_inf = skip
             sc.update()
@@ -942,15 +1139,21 @@ class ShardedTrainStep:
         with torch.no_grad():
             params = {}
             for n, p in self.params.items():
-                params.update(self._leaves(n, p.detach(), n in self._z3))
+                if not self._is_block(n):
+                    params.update(self._leaves(n, p.detach(), n in self._z3))
             opt_state = {}
             for n, s in self.optimizer.state.items():
+                if self._is_block(n):
+                    continue
                 slots = {k: self._leaves(n, v, self._sliced(n))
                          if isinstance(v, torch.Tensor) else None
                          for k, v in s.items()}
                 for g in self._global_names(n):
                     opt_state[g] = {k: s[k] if v is None else v[g]
                                     for k, v in slots.items()}
+            if self._pspec is not None:
+                params.update(self._stacked_params())
+                opt_state.update(self._stacked_state())
         return TrainState(
             params=params,
             opt_state=opt_state,
@@ -963,6 +1166,87 @@ class ShardedTrainStep:
     def axis_sizes(self):
         """{axis: size} of this step's mesh."""
         return dict(self.mesh.shape)
+
+    # ---------- the JAX package's stacked layout at pp ----------
+    def _stacked_placement(self, sfx, sliced):
+        """Where the stacked leaf of block suffix ``sfx`` lies: over ``pp``
+        on dim 0 (``[pp, L/pp, ...]``, or ``[pp, v, L/(pp*v), ...]`` under
+        interleaving), then each block's own placement."""
+        base = self._placement(self._layer_name(self._my_layers[0], sfx),
+                               sliced)
+        lead = ("pp", None, None) if self._vpp > 1 else ("pp", None)
+        return NamedSharding(self.mesh, PartitionSpec(*lead, *base.spec),
+                             segments={d + len(lead): sz
+                                       for d, sz in base.segments})
+
+    def _stacked(self, sfx, get, sliced):
+        """A ``ShardedTensor`` of this stage's blocks of suffix ``sfx``
+        stacked (``get(name)`` gives each block's tensor), placed over
+        pp."""
+        from ..resharding import ShardedTensor
+        from .meta_parallel.pipeline_parallel import stack_stage
+
+        block = stack_stage([get(self._layer_name(i, sfx))
+                             for i in self._my_layers], self._vpp)
+        return ShardedTensor(block, self._stacked_placement(sfx, sliced))
+
+    def _stacked_params(self):
+        return {self._stack_prefix + sfx: self._stacked(
+            sfx, lambda n: self.params[n].detach(), False)
+            for sfx in self._suffixes}
+
+    def _stacked_state(self):
+        out = {}
+        for sfx in self._suffixes:
+            ref = self._layer_name(self._my_layers[0], sfx)
+            first = self.optimizer.state[ref]
+            out[self._stack_prefix + sfx] = {
+                k: self._stacked(sfx, lambda n, k=k: self.optimizer.state[n][k],
+                                 self._sliced(ref))
+                if isinstance(v, torch.Tensor) else v
+                for k, v in first.items()}
+        return out
+
+    def _unstack(self, saved, sliced_of, slots=False):
+        """``saved`` (by checkpoint name) with each stacked leaf turned
+        into this rank's blocks by layer name (``_Mine``, each already the
+        block this rank holds; with ``slots``, dicts of them)."""
+        from ..resharding import ShardedTensor, reshard
+        from .meta_parallel.pipeline_parallel import stage_rows
+
+        out = {}
+        stage = self._pp.rank
+        for name, v in saved.items():
+            if not name.startswith(self._stack_prefix):
+                out[name] = v
+                continue
+            sfx = name[len(self._stack_prefix):]
+            ref = self._layer_name(self._my_layers[0], sfx)
+            sliced = sliced_of(ref)
+
+            def mine(leaf):
+                if isinstance(leaf, ShardedTensor):
+                    want = self._stacked_placement(sfx, sliced)
+                    block = leaf.block if leaf.sharding == want \
+                        else reshard(leaf, want).block
+                    return [_Mine(b) for b in stage_rows(block, self._vpp)]
+                if np.ndim(leaf) == 0:  # a step power: every block's
+                    return [leaf] * len(self._my_layers)
+                flat = stage_rows(_as_tensor(leaf)[stage:stage + 1],
+                                  self._vpp)
+                return [_Mine(self._local(self._layer_name(i, sfx), flat[j],
+                                          sliced))
+                        for j, i in enumerate(self._my_layers)]
+
+            if slots:
+                per = {k: mine(x) for k, x in v.items()}
+                for j, i in enumerate(self._my_layers):
+                    out[self._layer_name(i, sfx)] = {
+                        k: x[j] for k, x in per.items()}
+            else:
+                for i, x in zip(self._my_layers, mine(v)):
+                    out[self._layer_name(i, sfx)] = x
+        return out
 
     def _placement(self, name, sliced):
         if name in self._ep_local:  # a whole expert on one ep rank
@@ -984,14 +1268,26 @@ class ShardedTrainStep:
         leaves that ``restore_from_checkpoint`` adopts as they are."""
         params, opt = {}, {}
         for n in self.params:
+            if self._is_block(n):
+                continue
             for g in self._global_names(n):
                 params[g] = self._placement(n, n in self._z3)
         whole = NamedSharding(self.mesh, PartitionSpec())
         for n, slots in self.optimizer.state.items():
+            if self._is_block(n):
+                continue
             for g in self._global_names(n):
                 opt[g] = {k: self._placement(n, self._sliced(n))
                           if isinstance(v, torch.Tensor) else whole
                           for k, v in slots.items()}
+        for sfx in (self._suffixes if self._pspec is not None else ()):
+            ref = self._layer_name(self._my_layers[0], sfx)
+            params[self._stack_prefix + sfx] = self._stacked_placement(
+                sfx, False)
+            opt[self._stack_prefix + sfx] = {
+                k: self._stacked_placement(sfx, self._sliced(ref))
+                if isinstance(v, torch.Tensor) else whole
+                for k, v in self.optimizer.state[ref].items()}
         return {"params": params, "opt_state": opt}
 
     def live_state(self):
@@ -1008,16 +1304,23 @@ class ShardedTrainStep:
                 return None
             return ShardedTensor(t.detach(), self._placement(n, sliced))
 
-        return {
+        out = {
             "params": {g: placed(n, p, n in self._z3)
                        for n, p in self.params.items()
+                       if not self._is_block(n)
                        for g in self._global_names(n)},
             "opt_state": {
                 g: {k: placed(n, v, self._sliced(n))
                     if isinstance(v, torch.Tensor) else v
                     for k, v in slots.items()}
                 for n, slots in self.optimizer.state.items()
+                if not self._is_block(n)
                 for g in self._global_names(n)}}
+        if self._pspec is not None:  # stacked copies of the stage's blocks
+            with torch.no_grad():
+                out["params"].update(self._stacked_params())
+                out["opt_state"].update(self._stacked_state())
+        return out
 
     def _adopt(self, name, v, live, sliced):
         """This rank's block for the live tensor ``live`` of parameter
@@ -1028,6 +1331,8 @@ class ShardedTrainStep:
         ``ShardedTensor`` carries one."""
         from ..resharding import ShardedTensor, reshard
 
+        if isinstance(v, _Mine):
+            return v.block
         want = self._placement(name, sliced)
         if isinstance(v, ShardedTensor):
             if v.sharding == want:
@@ -1079,7 +1384,11 @@ class ShardedTrainStep:
 
         ts = tree if isinstance(tree, TrainState) \
             else TrainState.from_tree(tree)
-        saved = self._mine(ts.params, self.params, "params")
+        params_in, opt_in = ts.params, ts.opt_state
+        if self._pspec is not None:
+            params_in = self._unstack(params_in, lambda n: False)
+            opt_in = self._unstack(opt_in, self._sliced, slots=True)
+        saved = self._mine(params_in, self.params, "params")
         _copy_named(self.params, {
             n: self._adopt(n, v, self.params[n], n in self._z3)
             for n, v in saved.items()}, "params")
@@ -1087,7 +1396,7 @@ class ShardedTrainStep:
             _copy_named(dict(self.model.named_buffers()), ts.buffers,
                         "buffers")
         state = self.optimizer.init_state(self._state_targets())
-        opt = self._mine(ts.opt_state, state, "opt_state")
+        opt = self._mine(opt_in, state, "opt_state")
         for name, slots in state.items():
             if set(opt[name]) != set(slots):
                 raise KeyError(f"restore_from_checkpoint: {name}'s slots "
@@ -1113,6 +1422,28 @@ class ShardedTrainStep:
         if ts.rng and "seed" in ts.rng:
             self._seed = int(ts.rng["seed"])
         return self
+
+
+class _Mine:
+    """A block this rank holds already (a stacked leaf's row of this
+    stage), adopted as it is."""
+
+    def __init__(self, block):
+        self.block = block
+
+
+def _prune_optimizer(optimizer, live):
+    """Drop from the optimizer (and the wrappers around it) the parameters
+    the model no longer holds (``live``: the ``id``s it does)."""
+    seen = set()
+    while optimizer is not None and id(optimizer) not in seen:
+        seen.add(id(optimizer))
+        params = getattr(optimizer, "_params", None)
+        if isinstance(params, dict):
+            optimizer._params = {k: p for k, p in params.items()
+                                 if id(p) in live}
+        optimizer = getattr(optimizer, "_inner_opt",
+                            getattr(optimizer, "_inner", None))
 
 
 def _as_tensor(v):

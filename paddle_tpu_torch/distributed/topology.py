@@ -8,10 +8,11 @@ grid, the model axis varying fastest. ``HybridCommunicateGroup`` builds the
 ``collective.group_of`` (a process group for each set of ranks that varies
 along the axis; every rank builds all of them, in one order).
 
-Data, tensor (``model``), ZeRO (``sharding``) and expert (``expert``)
-parallelism are ported; a degree above 1 on any other axis raises
-``NotImplementedError`` naming its ROADMAP item (``pipe`` A5.6, ``sep``
-A5.7). ``moe_groups()`` gives the groups a MoE block routes over
+Data, tensor (``model``), ZeRO (``sharding``), expert (``expert``) and
+pipeline (``pipe``: ``get_stage_id``, ``is_first_stage``,
+``is_last_stage`` and the pp group) parallelism are ported; a ``sep``
+degree above 1 raises ``NotImplementedError`` naming its ROADMAP item
+(A5.7). ``moe_groups()`` gives the groups a MoE block routes over
 (``MoEGroups``), built with the axes' groups.
 """
 
@@ -33,8 +34,7 @@ _AXIS_ALIAS = {"data": "dp", "pipe": "pp", "sharding": "sharding",
 
 #: the ROADMAP item that ports parallelism over each axis not ported yet,
 #: by paddle and by mesh name
-LATER_AXES = {"pipe": "A5.6 (pipeline parallelism)",
-              "sep": "A5.7 (context parallelism)"}
+LATER_AXES = {"sep": "A5.7 (context parallelism)"}
 LATER_AXES.update({_AXIS_ALIAS[k]: v for k, v in list(LATER_AXES.items())})
 
 
@@ -114,8 +114,8 @@ class HybridCommunicateGroup:
             if topology.get_dim(name) > 1 and name in LATER_AXES:
                 raise NotImplementedError(
                     f"{name} degree {topology.get_dim(name)}: data, tensor, "
-                    f"ZeRO and expert parallelism are ported (ROADMAP queue A "
-                    f"item {LATER_AXES[name]})")
+                    f"ZeRO, expert and pipeline parallelism are ported "
+                    f"(ROADMAP queue A item {LATER_AXES[name]})")
         self._topo = topology
         self.global_rank = global_rank
         self.nranks = topology.world_size()

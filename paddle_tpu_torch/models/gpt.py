@@ -423,6 +423,10 @@ class GPTModel(nn.Module):
                               return_kv=return_kv)
                 kvs.append(kv)
             return self.final_ln(h), kvs
+        if any(b is None for b in self.layers):
+            raise RuntimeError(
+                "this model holds its pipeline stage's blocks only: it runs "
+                "through the pipelined train step")
         interval = max(self.cfg.recompute_interval, 1)
         aux = None
         for i, block in enumerate(self.layers):
@@ -484,7 +488,8 @@ class GPTForCausalLM(nn.Module):
     def local_kv_heads(self) -> int:
         """The K/V heads this rank's attention holds (``num_kv_heads/mp``),
         which its serving caches are sized by."""
-        return self.gpt.layers[0].attn.num_kv_heads
+        return next(b for b in self.gpt.layers
+                    if b is not None).attn.num_kv_heads
 
     def _logits(self, h):
         """Logits, this rank's ``V/mp`` of them at mp above 1."""
@@ -531,34 +536,68 @@ class GPTForCausalLM(nn.Module):
         cross entropy), it is ``loss(forward(input_ids), labels)``. A MoE
         model adds ``moe_aux_weight`` times the blocks' summed aux loss
         either way."""
+        loss = self._lm_loss(self.gpt(input_ids), labels)
+        aux = self._moe_aux()
+        return loss if aux is None else loss + aux
+
+    def _lm_loss(self, h, labels):
+        """The LM head and the mean cross entropy on the trunk's output
+        ``h`` (after the final LayerNorm): per sequence chunk as
+        ``forward_with_loss`` says, else on the whole logits."""
         chunk = self.cfg.loss_chunk
-        B, S = input_ids.shape
+        B, S = labels.shape
         if not chunk or S % chunk or self.mp_group.nranks > 1:
-            loss = self.loss(self.forward(input_ids), labels)
-            aux = self._moe_aux()
-            return loss if aux is None else loss + aux
-        h = self.gpt(input_ids)
+            return self.loss(self._logits(h), labels)
         W = (self.gpt.embeddings.word_embeddings.weight
              if self.cfg.tie_word_embeddings else self.lm_head.weight)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c in range(0, S, chunk):
             total = total + recompute(self._chunk_ce, h[:, c:c + chunk],
                                       labels[:, c:c + chunk], W)
-        aux = self._moe_aux()
-        return total / (B * S) if aux is None else total / (B * S) + aux
+        return total / (B * S)
 
     def _chunk_ce(self, h_c, y_c, W):
         logits = (h_c @ (W.t() if self.cfg.tie_word_embeddings else W)).float()
         gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
         return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
+    # ---- the pipeline-parallel protocol (PipelineSpec) ----
+    def embed(self, input_ids):
+        """The pipeline's first stage before the blocks: the embeddings."""
+        return self.gpt.embeddings(input_ids)
+
+    def head_loss(self, h, labels):
+        """The pipeline's last stage after the blocks: the final LayerNorm,
+        the LM head and the cross entropy, per sequence chunk under
+        ``cfg.loss_chunk`` as in ``forward_with_loss``. The chunked sum
+        agrees with the JAX package's ``head_loss`` on the whole logits to
+        fp32 rounding (its order of summation is the only difference)."""
+        return self._lm_loss(self.gpt.final_ln(h), labels)
+
     def pipeline_spec(self):
-        """The pipeline-parallel partition of the JAX package's
-        ``make_sharded_train_step`` under a ``pp`` axis; raises until the
-        port has a mesh."""
-        raise NotImplementedError("GPTForCausalLM.pipeline_spec: pipeline "
-                                  "parallelism is not ported yet (ROADMAP "
-                                  "queue A item A5.6)")
+        """The ``PipelineSpec`` the train step pipelines this model by
+        under a ``pp`` axis: the embeddings before the homogeneous
+        ``gpt.layers`` stack, the final LayerNorm, head and loss after it.
+        A GPT-MoE model pipelines with every block MoE only
+        (``moe_every_k=1``), its gate's aux through ``block_with_aux``."""
+        from ..distributed.fleet.meta_parallel.pipeline_parallel import \
+            make_layer_stack_pipeline_spec
+
+        layer = next(b for b in self.gpt.layers if b is not None)
+        if self.cfg.moe_num_experts > 0:
+            if self.cfg.moe_every_k != 1:
+                raise NotImplementedError(
+                    "pipelined GPT-MoE needs a homogeneous stack: set "
+                    "moe_every_k=1 (every block MoE) so the scanned stage "
+                    "params stack; mixed dense/MoE stacks compose with "
+                    "dp x ep x sharding x mp instead")
+            return make_layer_stack_pipeline_spec(
+                self, layer, "gpt.layers", self.cfg.num_layers,
+                context_parallel=True, aux_attr="mlp.aux_loss",
+                aux_weight=self.cfg.moe_aux_weight)
+        return make_layer_stack_pipeline_spec(
+            self, layer, "gpt.layers", self.cfg.num_layers,
+            context_parallel=True)
 
     # ---- serving decode protocol (paddle_tpu_torch/serving engine) ----
     def prefill_with_cache(self, input_ids, lengths=None, position_ids=None):

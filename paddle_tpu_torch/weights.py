@@ -25,6 +25,15 @@ so on an ep x mp mesh ``from_paddle_tpu(..., mp_rank=, mp_degree=,
 ep_rank=, ep_degree=)`` gives a rank both, and ``to_paddle_tpu(blocks,
 mp_degree=m)`` joins the dicts of every rank in rank order (ep major, mp
 minor).
+
+For a model split over ``pp_degree`` pipeline stages,
+``from_paddle_tpu(params, pp_rank=r, pp_degree=n, virtual_pp_degree=v)``
+gives stage ``r``'s blocks (those of chunks ``k * n + r``, chunk ``j``
+being blocks ``[j * L/(n*v), (j+1) * L/(n*v))``) and every other
+parameter, from flat names or from the JAX pp step's stacked ones
+(``gpt.layers.__stacked__.<suffix>``, ``[pp, L/pp, ...]`` or
+``[pp, v, L/(pp*v), ...]``); ``to_paddle_tpu(dicts, pp_degree=n)`` joins
+the stages' dicts (in rank order, pp outermost) back to the flat names.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ _EXPERT_STACKS = _MOE_MLP[1:]
 _FINAL = ("gpt.final_ln.weight", "gpt.final_ln.bias")
 _HEAD = "lm_head.weight"
 _LAYER_RE = re.compile(r"^gpt\.layers\.(\d+)\.")
+_STACKED = "gpt.layers.__stacked__."
 
 
 def to_torch(a: np.ndarray) -> torch.Tensor:
@@ -130,7 +140,7 @@ def _gathered_state(model):
     return sd
 
 
-def to_paddle_tpu(blocks, *, mp_degree: int = None
+def to_paddle_tpu(blocks, *, mp_degree: int = None, pp_degree: int = 1
                   ) -> Dict[str, torch.Tensor]:
     """The global arrays (CPU tensors, under the JAX package's names and
     layout) from every rank's state dict, in rank order: the inverse of
@@ -144,6 +154,13 @@ def to_paddle_tpu(blocks, *, mp_degree: int = None
     group)."""
     if isinstance(blocks, torch.nn.Module):
         blocks = [blocks]
+    if pp_degree > 1:  # each stage's dicts joined, then the stages
+        n = len(blocks) // pp_degree
+        out = {}
+        for s in range(pp_degree):
+            out.update(to_paddle_tpu(blocks[s * n:(s + 1) * n],
+                                     mp_degree=mp_degree))
+        return out
     blocks = [_gathered_state(b) if isinstance(b, torch.nn.Module) else b
               for b in blocks]
     blocks = [{k: torch.as_tensor(v).detach().cpu() for k, v in b.items()}
@@ -178,16 +195,31 @@ def to_paddle_tpu(blocks, *, mp_degree: int = None
 
 def from_paddle_tpu(params: Dict[str, np.ndarray], *, mp_rank: int = 0,
                     mp_degree: int = 1, ep_rank: int = 0,
-                    ep_degree: int = 1) -> Dict[str, torch.Tensor]:
+                    ep_degree: int = 1, pp_rank: int = 0, pp_degree: int = 1,
+                    virtual_pp_degree: int = 1) -> Dict[str, torch.Tensor]:
     """Convert a ``paddle_tpu`` GPT parameter dict (numpy values) into a
     state dict for ``paddle_tpu_torch.models.gpt.GPTForCausalLM``; with
     ``mp_degree`` above 1, rank ``mp_rank``'s blocks of it (``mp_layout``);
     with ``ep_degree`` above 1, ep rank ``ep_rank``'s block of dim 0 of
-    each expert stack.
+    each expert stack; with ``pp_degree`` above 1, stage ``pp_rank``'s
+    blocks only (``pipeline_parallel.stage_chunks``). The JAX pp step's
+    stacked names, saved at ``virtual_pp_degree``, are read as the flat
+    ones (``pipeline_parallel.unstack_block_params``).
     dtypes are kept. The block count, and which blocks hold the MoE FFN
     (those with an ``mlp.gate_weight``), are read from the names; a name
     missing from that structure, or one outside it (a block mixing the
     dense and the MoE set among them), raises ``KeyError``."""
+    from .distributed.fleet.meta_parallel.pipeline_parallel import (
+        PipelineSpec, stage_chunks, unstack_block_params)
+
+    stacked = {n[len(_STACKED):]: np.asarray(a) for n, a in params.items()
+               if n.startswith(_STACKED)}
+    if stacked:  # the JAX pp step's names, saved at virtual_pp_degree
+        params = {n: a for n, a in params.items()
+                  if not n.startswith(_STACKED)}
+        params.update(unstack_block_params(
+            stacked, PipelineSpec("gpt.layers", 0, None, None, None),
+            virtual_stages=virtual_pp_degree))
     layers = [int(m.group(1)) for m in map(_LAYER_RE.match, params) if m]
     num_layers = max(layers) + 1 if layers else 0
     moe = {i for i in range(num_layers)
@@ -199,6 +231,11 @@ def from_paddle_tpu(params: Dict[str, np.ndarray], *, mp_rank: int = 0,
     if missing or extra:
         raise KeyError(f"from_paddle_tpu: missing {missing[:6]}, "
                        f"unexpected {extra[:6]}")
+    if pp_degree > 1:
+        mine = {i for ch in stage_chunks(num_layers, pp_rank, pp_degree,
+                                         virtual_pp_degree) for i in ch}
+        want = [n for n in want if (m := _LAYER_RE.match(n)) is None
+                or int(m.group(1)) in mine]
     out = {name: to_torch(np.asarray(params[name])) for name in want}
     if ep_degree > 1:
         for name in want:

@@ -230,12 +230,19 @@ def job_collectives(directory, inp, rank):
     out["broadcast_object_list"] = objs
     D.barrier()
 
-    # degrees left to later items raise before any group forms
+    # a pp degree builds the pp group (A5.6); the sep degree, left to a
+    # later item, raises before any group forms
     for key in ("pp_degree", "sep_degree"):
         st = fleet.DistributedStrategy()
         st.hybrid_configs = {"dp_degree": 1, key: 2}
         out[f"refuse_{key}"] = _raises(lambda: fleet.init(
             is_collective=True, strategy=st, device="cpu"))
+        if key == "pp_degree":
+            hcg = fleet.get_hybrid_communicate_group()
+            out["pp_hcg"] = [hcg.get_pipe_parallel_group().ranks,
+                             hcg.get_stage_id(), hcg.is_first_stage(),
+                             hcg.is_last_stage(),
+                             hcg.get_pipe_parallel_world_size()]
 
     def record(hcg):
         topo = hcg.topology()
@@ -798,10 +805,19 @@ def test_later_items_raise(fresh_world):
         fleet.init(is_collective=False, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         fleet.PaddleCloudRoleMaker(is_collective=True)
-    for names, item in ((["data", "pipe"], "A5.6"),
-                        (["data", "sep"], "A5.7")):
-        with pytest.raises(NotImplementedError, match=item):
-            D.HybridCommunicateGroup(D.CommunicateTopology(names, [1, 2]))
+    # a pipe axis builds (A5.6): of one rank here, while two stages need
+    # two ranks, no longer a later item; a sep axis raises naming A5.7
+    hcg = D.HybridCommunicateGroup(D.CommunicateTopology(["data", "pipe"],
+                                                         [1, 1]))
+    assert (hcg.get_pipe_parallel_world_size(), hcg.get_stage_id(),
+            hcg.is_first_stage(), hcg.is_last_stage(),
+            hcg.get_pipe_parallel_group().ranks) == (1, 0, True, True, [0])
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        D.HybridCommunicateGroup(D.CommunicateTopology(["data", "pipe"],
+                                                       [1, 2]))
+    with pytest.raises(NotImplementedError, match="A5.7"):
+        D.HybridCommunicateGroup(D.CommunicateTopology(["data", "sep"],
+                                                       [1, 2]))
     for argv, item in ((["--run_mode", "ps", "x.py"], "A8"),
                        (["--max_restart", "2", "x.py"], "A5.8"),
                        (["--nnodes", "1:2", "x.py"], "A5.8")):

@@ -277,9 +277,11 @@ def test_collectives_topology_and_data_match_the_reference(tmp_path):
                 (name, r, got, ref_r)
         assert out["all_gather_object"] == [0, 1]
         assert out["broadcast_object_list"] == ["from 1"]
-        for key, item in (("pp_degree", "A5.6"), ("sep_degree", "A5.7")):
-            assert "NotImplementedError" in out[f"refuse_{key}"] \
-                and item in out[f"refuse_{key}"], out[f"refuse_{key}"]
+        # fleet.init at pp 2 builds the pp group; sep raises naming A5.7
+        assert out["refuse_pp_degree"] == "did not raise"
+        assert out["pp_hcg"] == [[0, 1], r, r == 0, r == 1, 2]
+        assert "NotImplementedError" in out["refuse_sep_degree"] \
+            and "A5.7" in out["refuse_sep_degree"], out["refuse_sep_degree"]
         assert abs(out["moe_loss"] - float(moe_loss)) <= ROUNDING, (
             out["moe_loss"], float(moe_loss))
         assert out["refuse_rows"].startswith("ValueError") \

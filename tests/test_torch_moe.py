@@ -564,8 +564,13 @@ def test_unported_moe_options_raise():
     for group in (None, one):
         assert tmoe.global_scatter(x, [3], [3], group=group) is x
         assert tmoe.global_gather(x, [3], [3], group=group) is x
-    with pytest.raises(NotImplementedError, match="A5.6"):
+    # a mixed dense/MoE stack does not pipeline (the JAX package's
+    # message); every block MoE does
+    with pytest.raises(NotImplementedError, match="homogeneous stack"):
         gpt_moe_tiny(device="cpu").pipeline_spec()
+    spec = gpt_moe_tiny(device="cpu", moe_every_k=1).pipeline_spec()
+    assert (spec.block_prefix, spec.n_blocks, spec.aux_weight) == (
+        "gpt.layers", 2, 0.01) and spec.block_with_aux is not None
     for over in (dict(sequence_parallel=True),
                  dict(context_parallel="ulysses")):
         with pytest.raises(NotImplementedError, match="A5.7"):

@@ -374,17 +374,18 @@ def test_bad_arguments_raise(call, exc):
 @pytest.mark.parametrize("option", ["mesh", "grad_reduce", "health_stats",
                                     "param_specs", "autoshard"])
 def test_train_step_options_of_later_slices_raise(option):
-    """What the port does not cover yet raises: a mesh with a pipeline
-    axis, health statistics, per-parameter specs it cannot realise and the
-    layout search. A gradient reducer is ported: a value that names none
-    raises ``TypeError``, as in the JAX package."""
+    """What the port does not cover yet raises: a mesh with a sequence
+    (``sep``) axis (a pipeline axis is ported since A5.6), health
+    statistics, per-parameter specs it cannot realise and the layout
+    search. A gradient reducer is ported: a value that names none raises
+    ``TypeError``, as in the JAX package."""
     from paddle_tpu_torch.distributed import DeviceMesh
 
     _, tm = _build()
     opt = AdamW(parameters=tm.named_parameters())
     value = True if option in ("health_stats", "autoshard") else object()
     if option == "mesh":
-        value = DeviceMesh([0, 1], ("pp",))
+        value = DeviceMesh([0, 1], ("sep",))
     err, match = (TypeError, "grad_reduce must be") \
         if option == "grad_reduce" else (NotImplementedError, "ROADMAP")
     with pytest.raises(err, match=match):

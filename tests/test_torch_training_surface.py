@@ -728,18 +728,27 @@ def test_unported_model_options_raise():
                  dict(context_parallel="ulysses")):
         with pytest.raises(NotImplementedError, match="A5"):
             GPTConfig(**GPT_TINY, **over)
-    # MoE is ported (A5.1): a MoE block builds; pipelining still raises
+    # MoE is ported (A5.1): a MoE block builds; so is pipelining (A5.6):
+    # the dense model's spec, and the pipeline options on a mesh without
+    # pp are read only at pp above 1, as in the JAX step
     assert type(GPTBlock(GPTConfig(**GPT_TINY, moe_num_experts=4), True,
                          device="cpu").mlp).__name__ == "GPTMoEMLP"
     _, tm = _build()
-    with pytest.raises(NotImplementedError, match="A5"):
-        tm.pipeline_spec()
+    spec = tm.pipeline_spec()
+    assert (spec.block_prefix, spec.n_blocks) == ("gpt.layers", 2)
     opt = AdamW(parameters=tm.named_parameters())
-    for kw in (dict(batch_spec=PartitionSpec(None, "dp")),
-               dict(pp_remat=False),
-               dict(virtual_pp_degree=2), dict(pp_schedule="gpipe")):
-        with pytest.raises(NotImplementedError, match="A5"):
-            make_sharded_train_step(tm, opt, device="cpu", **kw)
+    for kw in (dict(pp_remat=False), dict(virtual_pp_degree=2),
+               dict(pp_schedule="gpipe"), dict(pp_schedule="zb")):
+        assert make_sharded_train_step(tm, opt, device="cpu",
+                                       **kw)._pspec is None
+    with pytest.raises(NotImplementedError, match="A5.7"):
+        make_sharded_train_step(tm, opt, device="cpu",
+                                batch_spec=PartitionSpec(None, "dp"))
+    from paddle_tpu_torch.distributed import DeviceMesh
+
+    with pytest.raises(ValueError, match="pp_schedule"):
+        make_sharded_train_step(tm, opt, device="cpu", pp_schedule="zb",
+                                mesh=DeviceMesh(np.arange(2), ("pp",)))
     with pytest.raises(NotImplementedError, match="A7"):
         make_sharded_train_step(tm, opt, autoshard_fixed_mesh=True,
                                 device="cpu")

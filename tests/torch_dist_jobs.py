@@ -1,9 +1,9 @@
 """The rank jobs of the port's ZeRO-3, gradient-reduction, expert-
-parallel, resharding, split-serving and sharded-save tests
+parallel, resharding, split-serving, sharded-save and pipeline tests
 (``tests/test_torch_zero3.py``, ``tests/test_torch_comm_opt.py``,
 ``tests/test_torch_expert_parallel.py``, ``tests/test_torch_moe_mp.py``,
 ``tests/test_torch_resharding.py``, ``tests/test_torch_split_serving.py``,
-``tests/test_torch_sharded_save.py``).
+``tests/test_torch_sharded_save.py``, ``tests/test_torch_pipeline.py``).
 Imports no JAX: ``tests/test_torch_dist_ranks.py``, the script each rank
 runs, looks a job up here when it is not one of its own.
 """
@@ -1074,6 +1074,262 @@ def job_sharded_save2(directory, inp, rank):
     return out
 
 
+# ---------------- pipeline parallelism ---------------------------------------
+class PLHead(torch.nn.Module):
+    """The tied head of the pipeline-layer test: ``x @ W``."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.zeros(8, 8))
+
+    def forward(self, x):
+        return x @ self.weight
+
+
+class PLLinear(torch.nn.Module):
+    """``x @ W + b`` with the JAX package's ``[in, out]`` weight."""
+
+    def __init__(self, n_in, n_out):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.zeros(n_in, n_out))
+        self.bias = torch.nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
+
+def pl_descs():
+    """The pipeline-layer test's descs: a shared head used first and last
+    (the second time transposed), two linears around a tanh."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, SharedLayerDesc)
+
+    return [SharedLayerDesc("tied", PLHead), LayerDesc(PLLinear, 8, 8),
+            LayerDesc(torch.nn.Tanh), LayerDesc(PLLinear, 8, 8),
+            SharedLayerDesc("tied", PLHead,
+                            forward_func=lambda layer, x: x @ layer.weight.T)]
+
+
+def _pp_model(params, clip=R.CLIP, **cfg):
+    """The 4-block tiny GPT (or ``cfg``'s) on ``params`` (whole or this
+    rank's blocks) and its AdamW."""
+    base = {**R.TINY, "num_layers": 4, **cfg}
+    model = GPTForCausalLM(GPTConfig(**base), device="cpu")
+    model.load_state_dict(params, strict=False)
+    model.train()
+    return model, AdamW(learning_rate=R.LR, epsilon=R.EPS, weight_decay=0.01,
+                        parameters=model.named_parameters(),
+                        grad_clip=None if clip is None
+                        else ClipGradByGlobalNorm(clip))
+
+
+def _pp_run(params, xs, ys, rows=slice(None), steps=3, cfg=None, wrap=None,
+            mesh=None, **kw):
+    """``steps`` steps of the pipelined step on ``params``: the losses and
+    this rank's parameters after them."""
+    model, opt = _pp_model(params, **(cfg or {}))
+    if wrap is not None:
+        model, opt = wrap(model, opt)
+    step = fleet.make_sharded_train_step(model, opt, device="cpu", mesh=mesh,
+                                         **kw)
+    losses = [step(xs[k][rows], ys[k][rows]).item() for k in range(steps)]
+    inner = model._layers if hasattr(model, "_layers") else model
+    return {"losses": losses,
+            "params": {k: v.detach().clone()
+                       for k, v in inner.state_dict().items()},
+            "stats": dict(step.pp_stats)}
+
+
+def _wait_for(path, timeout=45.0):
+    import time
+
+    t0 = time.monotonic()
+    while not path.exists():
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear")
+        time.sleep(0.1)
+
+
+def _forwards_alone(ws, fx, rank):
+    """Every schedule without a loss, and ``spmd_pipeline``: ``tanh(h @
+    w)`` a chunk, chunk ``c``'s weight ``ws[c]`` (two chunks a stage under
+    interleaving), over the microbatches ``fx``."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        pipeline_parallel as P
+
+    def tanh_stage(w, h):
+        return torch.tanh(h @ w)
+
+    mine = [ws[rank], ws[2 + rank]]
+    return {"gpipe": P.pipeline_schedule(tanh_stage, ws[rank], fx),
+            "1f1b": P.pipeline_schedule_1f1b(tanh_stage, ws[rank], fx),
+            "interleaved": P.pipeline_schedule_interleaved(
+                tanh_stage, mine, fx, virtual_stages=2),
+            "interleaved_1f1b": P.pipeline_schedule_interleaved_1f1b(
+                tanh_stage, mine, fx, virtual_stages=2),
+            "spmd": P.spmd_pipeline(tanh_stage, ws[rank], fx)}
+
+
+def _evals(pp, x, y):
+    """``eval_batch`` with and without ``compute_loss``."""
+    return [pp.eval_batch((x, y), compute_loss=c) for c in (True, False)]
+
+
+def job_pp2(directory, inp, rank):
+    """Two ranks at pp 2: the tiny GPT (4 blocks) 3 steps under 1f1b,
+    gpipe, no remat, 2 virtual stages and 4 microbatches; the tiny GPT-MoE
+    under 1f1b and gpipe; dropout 0.1 under 1f1b, gpipe and no remat, and
+    1f1b again; an infinite loss scale; the checkpoint both ways;
+    ``PipelineParallel.train_batch`` and ``eval_batch`` over a
+    ``PipelineLayer``; and every schedule's forwards alone."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+
+    hcg = R._hybrid_init({"pp_degree": 2})
+    xs, ys = inp["x"], inp["y"]
+    params = inp["params"]
+    out = {"stage": hcg.get_stage_id(), "first": hcg.is_first_stage(),
+           "last": hcg.is_last_stage(),
+           "group": hcg.get_pipe_parallel_group().ranks,
+           "fwd": _forwards_alone(inp["fwd_w"], inp["fwd_x"], rank)}
+    runs = {"1f1b": {}, "gpipe": {"pp_schedule": "gpipe"},
+            "noremat": {"pp_remat": False}, "vpp2": {"virtual_pp_degree": 2},
+            "m4": {"accumulate_steps": 4}}
+    for name, kw in runs.items():
+        out[name] = _pp_run(params, xs, ys, **kw)
+    # the stage's blocks are loaded from the JAX package's stacked names
+    stacked = {k: v.numpy() for k, v in inp["stacked"].items()}
+    out["from_stacked"] = _pp_run(
+        from_paddle_tpu(stacked, pp_rank=rank, pp_degree=2), xs, ys)
+    for name, kw in (("moe_1f1b", {}), ("moe_gpipe", {"pp_schedule": "gpipe"})):
+        out[name] = _pp_run(inp["moe_params"], xs, ys, cfg=dict(
+            num_layers=2, moe_num_experts=4, moe_every_k=1,
+            num_kv_heads=None), **kw)
+    for name, kw in (("1f1b", {}), ("gpipe", {"pp_schedule": "gpipe"}),
+                     ("noremat", {"pp_remat": False}), ("again", {})):
+        out[f"drop_{name}"] = _pp_run(params, xs, ys, cfg={"dropout": 0.1},
+                                      **kw)
+    # an infinite loss scale: both stages skip, the scale backs off
+    model, opt = _pp_model(params)
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    scaler.set_init_loss_scaling(float("inf"))
+    step = fleet.make_sharded_train_step(model, opt, scaler=scaler,
+                                         device="cpu")
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step(xs[0], ys[0])
+    out["inf"] = {"same": all(torch.equal(before[k], v) for k, v in
+                              model.state_dict().items()),
+                  "good": scaler._good_steps, "step": step.step_index}
+    scaler.set_init_loss_scaling(2.0 ** 10)  # a finite scale trains again
+    step(xs[0], ys[0])
+    out["inf"]["moved"] = not all(torch.equal(before[k], v) for k, v in
+                                  model.state_dict().items())
+    # the checkpoint: this run saved at step 2, then its third step
+    model, opt = _pp_model(params)
+    step = fleet.make_sharded_train_step(model, opt, device="cpu")
+    for k in range(2):
+        step(xs[k], ys[k])
+    out["save"] = _sharded_save(step, directory / "port_ck", rank, 2)
+    out["save"]["names"] = sorted(step.state_for_checkpoint().params)
+    out["save"]["third"] = step(xs[2], ys[2]).item()
+    # a JAX pp-2 save at step 2 restored into a step of other weights
+    _wait_for(directory / "jax_ck.ready")
+    model, opt = _pp_model({k: v * 0.5 for k, v in params.items()})
+    step = fleet.make_sharded_train_step(model, opt, device="cpu")
+    mgr = CheckpointManager(directory / "jax_ck")
+    step.restore_from_checkpoint(mgr.restore(
+        shardings=step.checkpoint_shardings()))
+    mgr.close()
+    out["restored"] = R._tree_copy({k: step.state_for_checkpoint().to_tree()[k]
+                                    for k in ("params", "opt_state")})
+    out["resumed"] = step(xs[2], ys[2]).item()
+    # the eager API over a PipelineLayer with a tied layer on both stages
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"pp_degree": 2}
+    st.pipeline_configs = {"accumulate_steps": 2}
+    fleet.init(is_collective=True, strategy=st, device="cpu")
+    pl = PipelineLayer(pl_descs(), loss_fn=lambda o, y: ((o - y) ** 2).mean())
+    pl.load_state_dict({k: v for k, v in inp["pl_params"].items()
+                        if k in pl.state_dict()})
+    pp = fleet.distributed_model(pl)
+    opt = AdamW(learning_rate=1e-2, parameters=pl.named_parameters())
+    out["pl"] = {"kind": type(pp).__name__, "bounds": pl.segment_bounds,
+                 "names": sorted(pl.state_dict()),
+                 "losses": [pp.train_batch((inp["pl_x"], inp["pl_y"]),
+                                           opt).item() for _ in range(3)],
+                 "params": {k: v.detach().clone()
+                            for k, v in pl.state_dict().items()},
+                 "eval": _evals(pp, inp["pl_x"], inp["pl_y"])}
+    # the interleaved eager API: four linears, two virtual stages
+    st.pipeline_configs = {"accumulate_steps": 2, "virtual_pp_degree": 2}
+    fleet.init(is_collective=True, strategy=st, device="cpu")
+    pl = PipelineLayer([LayerDesc(PLLinear, 8, 8) for _ in range(4)],
+                       loss_fn=lambda o, y: ((o - y) ** 2).mean(),
+                       num_virtual_pipeline_stages=2)
+    pl.load_state_dict({k: v for k, v in inp["vpp_params"].items()
+                        if k in pl.state_dict()})
+    pp = fleet.distributed_model(pl)
+    opt = AdamW(learning_rate=1e-2, parameters=pl.named_parameters())
+    out["pl_vpp"] = {"kind": type(pp).__name__,
+                     "names": sorted(pl.state_dict()),
+                     "losses": [pp.train_batch((inp["pl_x"], inp["pl_y"]),
+                                               opt).item() for _ in range(3)],
+                     "params": {k: v.detach().clone()
+                                for k, v in pl.state_dict().items()},
+                     "eval": _evals(pp, inp["pl_x"], inp["pl_y"])}
+    return out
+
+
+def _intact(model, opt):
+    """Whether a refused step left ``model`` whole (every block there)
+    and ``opt`` holding every parameter of it."""
+    while hasattr(model, "_layers"):
+        model = model._layers
+    while not hasattr(opt, "_params"):
+        opt = getattr(opt, "_inner_opt", None) or opt._inner
+    return all(b is not None for b in model.gpt.layers) \
+        and {id(p) for p in opt._params.values()} \
+        == {id(p) for p in model.parameters()}
+
+
+def job_pp4(directory, inp, rank):
+    """Four ranks: the tiny GPT (4 blocks) 3 steps at pp 2 x dp 2, pp 2 x
+    mp 2 and pp 2 x sharding 2 (``os_g``); ``p_g_os`` and ep at pp raise,
+    leaving the model and the optimizer as they were."""
+    xs, ys, params = inp["x"], inp["y"], inp["params"]
+    out = {}
+    hcg = R._hybrid_init({"dp_degree": 2, "pp_degree": 2})
+    half = slice(hcg.get_data_parallel_rank() * 4,
+                 (hcg.get_data_parallel_rank() + 1) * 4)
+    out["dp"] = _pp_run(params, xs, ys, rows=half)
+    hcg = R._hybrid_init({"pp_degree": 2, "mp_degree": 2})
+    np_params = {k: v.numpy() for k, v in params.items()}
+    out["mp"] = _pp_run(from_paddle_tpu(
+        np_params, mp_rank=hcg.get_model_parallel_rank(), mp_degree=2),
+        xs, ys)
+    hcg = R._hybrid_init({"pp_degree": 2, "sharding_degree": 2})
+    half = slice(hcg.get_sharding_parallel_rank() * 4,
+                 (hcg.get_sharding_parallel_rank() + 1) * 4)
+
+    def zero(level):
+        return lambda m, o: group_sharded_parallel(m, o, level=level)[:2]
+
+    out["sh"] = _pp_run(params, xs, ys, rows=half, wrap=zero("os_g"),
+                        mesh=hcg.get_mesh())
+    model, opt = group_sharded_parallel(*_pp_model(params),
+                                        level="p_g_os")[:2]
+    out["p_g_os"] = R._raises(lambda: fleet.make_sharded_train_step(
+        model, opt, mesh=hcg.get_mesh(), device="cpu"))
+    out["p_g_os_intact"] = _intact(model, opt)
+    hcg = R._hybrid_init({"pp_degree": 2, "ep_degree": 2})
+    model, opt = _pp_model(params, num_layers=2, moe_num_experts=4,
+                           moe_every_k=1)
+    out["ep"] = R._raises(lambda: fleet.make_sharded_train_step(
+        model, opt, mesh=hcg.get_mesh(), device="cpu"))
+    out["ep_intact"] = _intact(model, opt)
+    return out
+
+
 JOBS = {"reducer": job_reducer, "grad_reduce": job_grad_reduce,
         "zero3": job_zero3, "zero3_state": job_zero3_state,
         "dp_sharding_4": job_dp_sharding_4,
@@ -1083,4 +1339,5 @@ JOBS = {"reducer": job_reducer, "grad_reduce": job_grad_reduce,
         "split_mp2": job_split_mp2, "split_ep2": job_split_ep2,
         "split_ep_mp4": job_split_ep_mp4,
         "sharded_save2": job_sharded_save2,
-        "reshard": job_reshard, "reshard_ckpt": job_reshard_ckpt}
+        "reshard": job_reshard, "reshard_ckpt": job_reshard_ckpt,
+        "pp2": job_pp2, "pp4": job_pp4}
